@@ -1,0 +1,165 @@
+"""Sampling service: few-step image generation at a fixed batch shape.
+
+Counterpart of the JAX package's ``serving.py``:
+
+* ``SamplerService`` prepares one sampler per configured step count and
+  runs each once at start-up (``warmup``), so the first request pays no
+  kernel build;
+* requests of any ``n`` are served from the fixed batch shape (largest-batch
+  tiling, then truncation), and images are clipped to [-1, 1];
+* noise comes from a seeded ``torch.Generator`` on the model's device, so a
+  service built with the same seed returns the same images.
+
+Mesh serving and latent (VAE) decoding come with later slices.
+
+Example:
+    svc = SamplerService.from_checkpoint("checkpoints/rectified_flow_k1_final.npz",
+                                         step_counts=(1, 2, 4), batch_size=256)
+    images = svc.generate(1000, num_steps=4)   # [1000, C, H, W] in [-1, 1]
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from rectified_flow_vision_tpu_torch.models.base_flow import BaseFlowModel, _from_nhwc
+from rectified_flow_vision_tpu_torch.utils.logging_config import get_logger
+
+log = get_logger("flow_vision.serving")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class SamplerService:
+    """Few-step sampler around a flow model, at one fixed batch shape."""
+
+    def __init__(
+        self,
+        model: BaseFlowModel,
+        *,
+        step_counts: Sequence[int] = (1, 2, 4, 8),
+        batch_size: int = 256,
+        method: str = "euler",
+        seed: int = 0,
+        warmup: bool = True,
+    ) -> None:
+        self.model = model
+        self.batch_size = batch_size
+        self.method = method
+        self.step_counts = tuple(step_counts)
+        self.device = model.device
+        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._noise_shape = (batch_size, model.image_size, model.image_size, model.in_channels)
+        self._samplers = {
+            n: model._get_sampler(n, False, model.sample_dtype, method) for n in self.step_counts
+        }
+        if warmup:
+            self.warmup()
+
+    @classmethod
+    def from_checkpoint(
+        cls, path: str, *, device: str | torch.device = "cuda", **kwargs
+    ) -> "SamplerService":
+        """Load a flow checkpoint (.npz or reference .pt) onto ``device``."""
+        return cls(BaseFlowModel.from_checkpoint(path, device=device), **kwargs)
+
+    # ---- lifecycle ---------------------------------------------------------
+
+    def warmup(self) -> Dict[int, float]:
+        """Run every configured sampler once; returns seconds per step count
+        (the first includes building the CUDA kernels)."""
+        stats: Dict[int, float] = {}
+        noise = torch.zeros(self._noise_shape, dtype=torch.float32, device=self.device)
+        for n, sampler in self._samplers.items():
+            t0 = time.perf_counter()
+            sampler(noise)
+            _sync(self.device)
+            stats[n] = time.perf_counter() - t0
+            log.info("warmed num_steps=%d in %.1fs", n, stats[n])
+        return stats
+
+    def _noise(self) -> torch.Tensor:
+        return torch.randn(
+            self._noise_shape, generator=self._generator, dtype=torch.float32,
+            device=self.device,
+        )
+
+    # ---- serving -------------------------------------------------------------
+
+    def generate(
+        self, n: int, num_steps: Optional[int] = None, *, data_format: str = "NCHW"
+    ) -> np.ndarray:
+        """Generate ``n`` images; always runs the configured batch shape."""
+        num_steps = num_steps if num_steps is not None else self.step_counts[0]
+        if num_steps not in self._samplers:
+            raise ValueError(
+                f"num_steps={num_steps} not precompiled; configured: {self.step_counts}"
+            )
+        sampler = self._samplers[num_steps]
+        outs = []
+        remaining = n
+        while remaining > 0:
+            outs.append(sampler(self._noise()))
+            remaining -= self.batch_size
+        result = torch.clamp(torch.cat(outs)[:n], -1.0, 1.0)
+        return _from_nhwc(result, data_format).cpu().numpy()
+
+    def throughput(self, num_steps: int, iters: int = 8) -> float:
+        """Steady-state images/sec, each batch fed the previous batch's output."""
+        sampler = self._samplers[num_steps]
+        x = sampler(self._noise())
+        _sync(self.device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            x = sampler(x)
+        _sync(self.device)
+        return self.batch_size * iters / (time.perf_counter() - t0)
+
+
+def main() -> None:
+    """CLI: generate samples from a checkpoint and save them as .npy.
+
+    python -m rectified_flow_vision_tpu_torch.serving \
+        --checkpoint checkpoints/rectified_flow_k1_final.npz \
+        --num 16 --steps 4 --out results/served_samples.npy
+    """
+    import argparse
+    from pathlib import Path
+
+    parser = argparse.ArgumentParser(description="Flow sampler service (PyTorch / CUDA)")
+    parser.add_argument("--checkpoint", required=True)
+    parser.add_argument("--num", type=int, default=16)
+    parser.add_argument("--steps", type=int, default=4)
+    parser.add_argument("--batch-size", type=int, default=64)
+    parser.add_argument("--method", default="euler", choices=["euler", "midpoint", "heun"])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--out", default="results/served_samples.npy")
+    parser.add_argument("--bench", action="store_true", help="also print steady-state throughput")
+    args = parser.parse_args()
+
+    svc = SamplerService.from_checkpoint(
+        args.checkpoint,
+        device=args.device,
+        step_counts=(args.steps,),
+        batch_size=min(args.batch_size, max(args.num, 1)),
+        method=args.method,
+        seed=args.seed,
+    )
+    imgs = svc.generate(args.num, num_steps=args.steps)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    np.save(args.out, imgs)
+    log.info("wrote %d samples to %s", args.num, args.out)
+    if args.bench:
+        log.info("throughput: %.1f img/s at %d steps", svc.throughput(args.steps), args.steps)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,105 @@
+"""Guards on the port's boundaries: no JAX inside it, no silent CPU or plain
+fallback for the CUDA kernels, CUDA by default."""
+
+import ast
+import inspect
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "rectified_flow_vision_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "rectified_flow_vision_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+def test_import_leaves_jax_out():
+    """Importing the port in a fresh interpreter loads neither JAX nor the
+    JAX package."""
+    code = (
+        "import sys, rectified_flow_vision_tpu_torch as m\n"
+        "import rectified_flow_vision_tpu_torch.serving\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'rectified_flow_vision_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_file_imports_jax(path):
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_build_without_nvcc_raises_and_names_it(monkeypatch, tmp_path):
+    """Without nvcc the kernel build raises a clear error; nothing falls back."""
+    from rectified_flow_vision_tpu_torch.ops import build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(build, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.library()
+    assert build._lib is None
+
+
+def test_kernel_sources_are_listed():
+    """Every CUDA source in the package is compiled into the library."""
+    from rectified_flow_vision_tpu_torch.ops import build
+
+    on_disk = {p.name for p in (PORT / "ops" / "csrc").glob("*.cu")}
+    assert on_disk == set(build.SOURCES)
+
+
+def test_entry_points_default_to_cuda():
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+    from rectified_flow_vision_tpu_torch.serving import SamplerService
+
+    assert inspect.signature(BaseFlowModel).parameters["device"].default == "cuda"
+    assert inspect.signature(SamplerService.from_checkpoint).parameters["device"].default == "cuda"
+
+
+def test_default_device_without_a_card_raises():
+    """The default entry point does not carry on on the CPU when no card is
+    found."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        BaseFlowModel(image_size=8, model_channels=16, channel_mult=[1], num_res_blocks=1)
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """chip_smoke.py exits non-zero and prints no result line without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, env=env,
+    )
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
