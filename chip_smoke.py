@@ -9,21 +9,37 @@ card, outside a checkout, or when any phase fails. Phases, in order:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``rectified_flow_vision_tpu_torch/ops/csrc``;
-3. kernels: every kernel at every shape the flagship UNet's forward gives it
-   (batch 256; shapes recorded from a CPU forward of the same model), in
-   bf16 and fp32, against its plain PyTorch version on the same inputs
-   within a stated tolerance, with the kernel's, the plain version's and one
-   PyTorch library call's times, and the card's least time (bound);
+3. kernels: every kernel at every shape the flagship UNet's eval and train
+   forwards give it (batch 256; shapes recorded from CPU forwards of the same
+   model), in bf16 and fp32, against its plain PyTorch version on the same
+   inputs within a stated tolerance, with the kernel's, the plain version's
+   and one PyTorch library call's times, and the card's least time (bound).
+   The two dropout kernels also: the mask equal to the plain version's bit
+   for bit, the dropped fraction, same seed same output, other seed other mask;
 4. model: a full-width UNet forward in fp32 at batch 4, kernels on the card
    against the plain path on the CPU;
 5. serve: ``SamplerService`` at full width, batch 256, steps (1, 2, 4), bf16,
    answering three requests; launch counts, same-seed determinism, img/s;
 6. trace: one 4-step batch under ``torch.profiler``: device time by kernel
-   group and the device's idle share.
+   group and the device's idle share;
+7. gradient: full-width UNet, fp32, batch 4, dropout 0.1, fixed x0, t and
+   seeds: the loss and every parameter's gradient on the card (kernels
+   forward, ``dropout_mask_apply`` backward) against the plain path on the CPU;
+8. train: at full width, bf16 compute on fp32 masters: ``train_base_flow`` on
+   a seeded 512-image corpus (batch 64, EMA 0.999, device-resident epochs),
+   heun-teacher ``generate_reflow_pairs`` (pair batch 256),
+   ``train_rectified_flow`` (teacher-init, u-shaped t, EMA),
+   ``compute_straightness`` and 4-step samples from the student's EMA
+   checkpoint; finite and falling losses, exact launch counts, and the same
+   seeds giving the same loss trajectory twice;
+9. train timing and trace: img/s of ``make_train_epoch`` at batch 256 in bf16,
+   peak device memory, and one train step under ``torch.profiler``.
 
 Every number is printed; the last two lines of standard output are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``. The profiler
-trace is kept in ``build/serve_trace.json`` (chrome trace format).
+traces are kept in ``build/serve_trace.json`` and ``build/train_trace.json``
+(chrome trace format); checkpoints of the train phase go to
+``build/smoke_ckpt/``.
 """
 
 from __future__ import annotations
@@ -62,10 +78,34 @@ TOLERANCES = {
     ("gn_silu", "bfloat16"): (2e-2, 3e-2),
     ("conv3x3", "bfloat16"): (2e-2, 3e-2),
     ("attention_block", "bfloat16"): (2e-2, 6e-2),
+    # gn_silu_dropout: gn_silu's arithmetic times 1/keep on kept elements
+    # (values up to 1.11x larger, hence the atol), zero elsewhere.
+    ("gn_silu_dropout", "float32"): (1e-4, 1e-4),
+    ("gn_silu_dropout", "bfloat16"): (2e-2, 3.5e-2),
+    # dropout_mask_apply: the same fp32 product and one rounding: exact.
+    ("dropout_mask_apply", "float32"): (0.0, 0.0),
+    ("dropout_mask_apply", "bfloat16"): (0.0, 0.0),
 }
+DROP_RATE = 0.1  # the flagship config's dropout
+DROP_FRACTION_TOL = 0.002  # of >= 16.7M elements: 27 standard deviations at least
 # fp32 full-width forward, kernels on the card vs plain on the CPU: ~60
 # layers of fp32 arithmetic summed in other orders.
 MODEL_ATOL = 1e-3
+# fp32 loss and gradients of the full-width UNet at batch 4, card vs CPU: a
+# gradient may differ by GRAD_RTOL of its parameter's largest gradient entry
+# (+ GRAD_ATOL), the loss by LOSS_ATOL. Reordered fp32 sums through ~60
+# layers forward and backward; cuDNN picks its own backward algorithms.
+GRAD_RTOL, GRAD_ATOL, LOSS_ATOL = 2e-3, 1e-6, 1e-4
+# two runs of one training recipe on the card draw the same noise, times and
+# masks; cuDNN's backward may sum in another order from run to run, and bf16
+# steps carry that on, so epoch losses are held to this relative difference
+TRAJECTORY_RTOL = 2e-2
+TRAIN_STEP_LAUNCHES = {"gn_silu": 15, "gn_silu_dropout": 14, "dropout_mask_apply": 14,
+                       "conv3x3": 30, "attention_block": 1}
+EVAL_FORWARD_LAUNCHES = {"gn_silu": 29, "gn_silu_dropout": 0, "dropout_mask_apply": 0,
+                         "conv3x3": 30, "attention_block": 1}
+TRAIN = dict(images=512, batch=64, base_epochs=8, reflow_epochs=6, lr=2e-4, ema=0.999,
+             pairs=512, pair_batch=256, teacher_steps=8, straight_points=10, samples=64)
 
 
 def fail(msg: str) -> None:
@@ -101,11 +141,13 @@ def time_ms(torch, fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def record_main_path_shapes(torch, UNet, fused_mod):
-    """Shapes each kernel gets in one flagship forward, with multiplicity,
-    from a batch-1 CPU forward through the plain versions."""
-    calls = {"gn_silu": Counter(), "conv3x3": Counter(), "attention_block": Counter()}
-    G, C, A = fused_mod.G, fused_mod.C, fused_mod.A
+def record_main_path_shapes(torch, UNet, fused_mod, train=False):
+    """Shapes each kernel gets in one flagship forward (eval, or train with
+    dropout), with multiplicity, from a batch-1 CPU forward through the plain
+    versions."""
+    calls = {"gn_silu": Counter(), "conv3x3": Counter(), "attention_block": Counter(),
+             "gn_silu_dropout": Counter()}
+    G, C, A, D = fused_mod.G, fused_mod.C, fused_mod.A, fused_mod.D
 
     def spy(name, fn, key):
         def inner(*args, **kw):
@@ -121,19 +163,30 @@ def record_main_path_shapes(torch, UNet, fused_mod):
          mock.patch.object(C, "conv3x3_plain", spy(
              "conv3x3", C.conv3x3_plain, lambda x, w, b: tuple(x.shape[1:]) + (w.shape[0],))), \
          mock.patch.object(A, "attention_block_plain", spy(
-             "attention_block", A.attention_block_plain, lambda x, *a: tuple(x.shape[1:]))):
+             "attention_block", A.attention_block_plain, lambda x, *a: tuple(x.shape[1:]))), \
+         mock.patch.object(D, "gn_silu_dropout_plain", spy(
+             "gn_silu_dropout", D.gn_silu_dropout_plain, lambda x, *a: tuple(x.shape[1:]))):
         with torch.no_grad():
-            net(x, t)
+            if train:
+                net(x, t, train=True, masters=True,
+                    seeds=torch.zeros(net.num_dropout_seeds, dtype=torch.int32))
+            else:
+                net(x, t)
+    # gn_silu_dropout_plain is gn_silu_plain plus the mask: take its inner call out
+    calls["gn_silu"] -= calls["gn_silu_dropout"]
     return calls
 
 
-def kernel_cases(torch, shape_calls):
-    """(name, shape, count, make_inputs(dtype) -> (kernel, plain, library), bytes_fn, flops)."""
+def kernel_cases(torch, shape_calls, drop_calls):
+    """(name, shape, count, make_inputs(dtype) -> (kernel, plain, library), bytes_fn, flops).
+    ``shape_calls`` are the eval forward's, ``drop_calls`` the train forward's
+    gn_silu_dropout shapes (dropout_mask_apply gets the same in the backward)."""
     import torch.nn.functional as F
 
     from rectified_flow_vision_tpu_torch.ops import attention as A
     from rectified_flow_vision_tpu_torch.ops import conv3x3 as C
     from rectified_flow_vision_tpu_torch.ops import gn_silu as G
+    from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as D
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -160,6 +213,32 @@ def kernel_cases(torch, shape_calls):
         elems = BATCH * h * w * c
         cases.append(("gn_silu", (BATCH, h, w, c), n, make,
                       lambda es, e=elems, c=c: 2 * e * es + 2 * c * 4, 10 * elems))
+    seed = torch.tensor([SEED + 17], dtype=torch.int32, device=dev)
+    for (h, w, c), n in sorted(drop_calls.items()):
+        def make(dt, h=h, w=w, c=c):
+            x = randn(BATCH, h, w, c, dtype=dt, scale=2.0, shift=0.3)
+            s = randn(c, scale=0.2, shift=1.0)
+            b = randn(c, scale=0.2)
+            sl, bl = s.to(dt), b.to(dt)
+            return (
+                lambda seed=seed: D.gn_silu_dropout_cuda(x, s, b, seed, DROP_RATE),
+                lambda: D.gn_silu_dropout_plain(x, s, b, seed, DROP_RATE),
+                lambda: F.dropout(F.silu(F.group_norm(x.permute(0, 3, 1, 2), 8, sl, bl)),
+                                  DROP_RATE, training=True),
+            )
+        elems = BATCH * h * w * c
+        cases.append(("gn_silu_dropout", (BATCH, h, w, c), n, make,
+                      lambda es, e=elems, c=c: 2 * e * es + 2 * c * 4 + 4, 30 * elems))
+
+        def make(dt, h=h, w=w, c=c):
+            g = randn(BATCH, h, w, c, dtype=dt)
+            return (
+                lambda seed=seed: D.dropout_mask_apply_cuda(g, seed, DROP_RATE),
+                lambda: D.dropout_mask_apply_plain(g, seed, DROP_RATE),
+                lambda: F.dropout(g, DROP_RATE, training=True),
+            )
+        cases.append(("dropout_mask_apply", (BATCH, h, w, c), n, make,
+                      lambda es, e=elems: 2 * e * es + 4, 20 * elems))
     for (h, w, cin, cout), n in sorted(shape_calls["conv3x3"].items()):
         def make(dt, h=h, w=w, cin=cin, cout=cout):
             x = randn(BATCH, h, w, cin, dtype=dt)
@@ -208,15 +287,42 @@ def kernel_cases(torch, shape_calls):
     return cases
 
 
-def kernel_phase(torch, shape_calls):
+def dropout_checks(torch, name, dname, shape, kernel, got, want) -> str:
+    """What only the dropout kernels promise: the plain version's mask bit
+    for bit, the dropped fraction, same seed same output, other seed other
+    mask. ``got`` / ``want`` are the kernel's and the plain version's outputs."""
+    from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as D
+
+    dev = got.device
+    seed = torch.tensor([SEED + 17], dtype=torch.int32, device=dev)
+    keep = D.keep_mask(shape, seed, DROP_RATE, dev)
+    # a kept element is zero only where the value itself is zero
+    wrong = int(((got != 0) != keep)[want != 0].sum()) + int((got[~keep] != 0).sum())
+    if wrong:
+        fail(f"{name} {dname} {shape}: {wrong} elements off the plain version's mask")
+    dropped = 1.0 - float(keep.float().mean())
+    if abs(dropped - DROP_RATE) > DROP_FRACTION_TOL:
+        fail(f"{name} {dname} {shape}: dropped fraction {dropped:.5f}, rate {DROP_RATE}")
+    if not torch.equal(kernel().float(), got):
+        fail(f"{name} {dname} {shape}: same seed, other output")
+    other = kernel(seed=seed + 1).float()
+    if torch.equal(other != 0, got != 0):
+        fail(f"{name} {dname} {shape}: another seed gave the same mask")
+    return f"mask = plain's, dropped {dropped:.5f}"
+
+
+def kernel_phase(torch, shape_calls, drop_calls):
     rows = []
-    for name, shape, count, make, bytes_fn, flops in kernel_cases(torch, shape_calls):
+    for name, shape, count, make, bytes_fn, flops in kernel_cases(torch, shape_calls, drop_calls):
         for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             kernel, plain, library = make(dt)
             got, want = kernel().float(), plain().float()
             torch.cuda.synchronize()
             if tuple(got.shape) != tuple(want.shape) or not torch.isfinite(got).all():
                 fail(f"{name} {dname} {shape}: bad shape or non-finite output")
+            note = ""
+            if name in ("gn_silu_dropout", "dropout_mask_apply"):
+                note = " | " + dropout_checks(torch, name, dname, shape, kernel, got, want)
             err = (got - want).abs()
             rtol, atol = TOLERANCES[(name, dname)]
             ok = bool((err <= atol + rtol * want.abs()).all())
@@ -229,17 +335,18 @@ def kernel_phase(torch, shape_calls):
             t_bytes = bytes_fn(es) / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[dname] * 1e3
             row = dict(
-                name=name, dtype=dname, shape=list(shape), calls_per_forward=count,
+                name=name, dtype=dname, shape=list(shape), calls=count,
                 max_abs_err=max_abs, max_rel_err=max_rel, rtol=rtol, atol=atol, ok=ok,
                 ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
             )
             rows.append(row)
-            log(f"kernel {name:16s} {dname:8s} {str(tuple(shape)):24s} x{count:<2d} "
+            log(f"kernel {name:18s} {dname:8s} {str(tuple(shape)):24s} x{count:<2d} "
                 f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} (rtol {rtol}, atol {atol}) "
                 f"{'ok' if ok else 'MISMATCH'} | kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
-                f"library {l_ms:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-            del kernel, plain, library
+                f"library {l_ms:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+                + note)
+            del kernel, plain, library, got, want
         torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -263,8 +370,8 @@ def model_phase(torch, UNet):
     with torch.no_grad():
         want = cpu(x, t)
         got = gpu(x.cuda(), t.cuda()).cpu()
-    if dict(build.LAUNCHES) != {"gn_silu": 29, "conv3x3": 30, "attention_block": 1}:
-        fail(f"model forward launches {dict(build.LAUNCHES)}, expected 29 / 30 / 1")
+    if dict(build.LAUNCHES) != EVAL_FORWARD_LAUNCHES:
+        fail(f"model forward launches {dict(build.LAUNCHES)}, expected {EVAL_FORWARD_LAUNCHES}")
     if tuple(got.shape) != (4, 64, 64, 3) or not torch.isfinite(got).all():
         fail("model forward: bad shape or non-finite output")
     err = float((got - want).abs().max())
@@ -296,7 +403,7 @@ def serve_phase(torch, build):
         lat[f"{n}x{steps}"] = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     forwards = (1 + 2 + 4) + 1 * 1 + 1 * 2 + 2 * 4  # warmup + requests (300 -> 2 batches)
-    expect = {"gn_silu": 29 * forwards, "conv3x3": 30 * forwards, "attention_block": forwards}
+    expect = {k: v * forwards for k, v in EVAL_FORWARD_LAUNCHES.items()}
     log(f"serve: warmup {warm_s:.2f} s, requests {lat}, launches {launches}")
     if launches != expect:
         fail(f"main-path launches {launches}, expected {expect}")
@@ -310,8 +417,8 @@ def serve_phase(torch, build):
     build.reset_launches()
     svc.generate(BATCH, num_steps=4)
     one_batch = dict(build.LAUNCHES)
-    if one_batch != {"gn_silu": 4 * 29, "conv3x3": 4 * 30, "attention_block": 4}:
-        fail(f"one 4-step batch launched {one_batch}, expected 116 / 120 / 4")
+    if one_batch != {k: 4 * v for k, v in EVAL_FORWARD_LAUNCHES.items()}:
+        fail(f"one 4-step batch launched {one_batch}, expected 4 forwards")
     log(f"serve: one 4-step batch of {BATCH} launched {one_batch}")
 
     again = SamplerService(model, step_counts=(1,), batch_size=BATCH, seed=SEED, warmup=False)
@@ -324,28 +431,46 @@ def serve_phase(torch, build):
     return launches, svc
 
 
+KERNEL_GROUPS = (
+    # substring of the device kernel's name -> group; first match wins
+    ("conv3x3", "conv3x3"),
+    ("gn_apply_dropout", "gn_silu_dropout (apply)"),
+    ("dropout_mask_apply", "dropout_mask_apply"),
+    ("gn_stats", "gn statistics (gn_silu and gn_silu_dropout)"),
+    ("gn_apply", "gn_silu (apply)"),
+    ("attn_", "attention_block"),
+    ("adam", "optimizer"),
+    ("multi_tensor", "optimizer"),
+    ("cudnn", "cuDNN / cuBLAS (plain convs, backward)"),
+    ("cutlass", "cuDNN / cuBLAS (plain convs, backward)"),
+    ("xmma", "cuDNN / cuBLAS (plain convs, backward)"),
+    ("gemm", "cuDNN / cuBLAS (plain convs, backward)"),
+    ("wgrad", "cuDNN / cuBLAS (plain convs, backward)"),
+    ("dgrad", "cuDNN / cuBLAS (plain convs, backward)"),
+    ("convolve", "cuDNN / cuBLAS (plain convs, backward)"),
+)
+
+
 def kernel_group(name: str) -> str:
-    for key, group in (("conv3x3", "conv3x3"), ("gn_", "gn_silu"), ("attn_", "attention_block")):
+    for key, group in KERNEL_GROUPS:
         if key in name:
             return group
     return "other"
 
 
-def trace_phase(torch, svc) -> None:
-    """Device time of one 4-step batch by kernel group, and the device's idle
-    share of the host's wall time, from a torch.profiler trace."""
+def profile_device(torch, fn, trace_name: str, what: str) -> None:
+    """Run ``fn`` once under torch.profiler: device time by kernel group, and
+    the device's idle share of the host's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    sampler = svc._samplers[4]
-    noise = svc._noise()
-    sampler(noise)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sampler(noise)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    path = ROOT / "build" / "serve_trace.json"
+    path = ROOT / "build" / trace_name
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = [e for e in json.loads(path.read_text())["traceEvents"]
@@ -365,11 +490,217 @@ def trace_phase(torch, svc) -> None:
             busy += b - max(a, end)
             end = b
     busy_ms = busy / 1e3
-    log(f"trace: one 4-step batch of {BATCH}: wall {wall_ms:.2f} ms, device busy "
+    log(f"trace: {what}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms (idle share {1.0 - busy_ms / wall_ms:.3f}), {len(events)} kernels, "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.most_common()))
     log("trace: largest other kernels: "
         + "; ".join(f"{k} {v:.2f} ms" for k, v in names.most_common(8)))
+
+
+def trace_phase(torch, svc) -> None:
+    sampler = svc._samplers[4]
+    noise = svc._noise()
+    profile_device(torch, lambda: sampler(noise), "serve_trace.json",
+                   f"one 4-step batch of {BATCH}")
+
+
+def gradient_phase(torch, build) -> None:
+    """Loss and every parameter's gradient of the full-width UNet in fp32:
+    kernels forward and dropout_mask_apply backward on the card, against the
+    plain path on the CPU, on the same x1, x0, t and dropout seeds."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+
+    cpu = BaseFlowModel(image_size=64, seed=SEED, dropout=DROP_RATE, device="cpu")
+    gpu = BaseFlowModel(image_size=64, seed=SEED, dropout=DROP_RATE, device="cuda")
+    g = torch.Generator().manual_seed(SEED + 2)
+    x1 = torch.tanh(torch.randn((4, 64, 64, 3), generator=g))
+    x0 = torch.randn((4, 64, 64, 3), generator=g)
+    t = torch.rand((4,), generator=g)
+    seeds = torch.randint(2**31 - 1, (cpu.velocity_net.num_dropout_seeds,), generator=g,
+                          dtype=torch.int32)
+    want = cpu.loss_fn(x1, x0=x0, t=t, seeds=seeds)
+    want.backward()
+    build.reset_launches()
+    got = gpu.loss_fn(x1.cuda(), x0=x0.cuda(), t=t.cuda(), seeds=seeds.cuda())
+    got.backward()
+    torch.cuda.synchronize()
+    if dict(build.LAUNCHES) != TRAIN_STEP_LAUNCHES:
+        fail(f"loss + backward launched {dict(build.LAUNCHES)}, expected {TRAIN_STEP_LAUNCHES}")
+    loss_err = abs(float(got.detach()) - float(want.detach()))
+    worst, worst_name = 0.0, ""
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        if pg.grad is None or not torch.isfinite(pg.grad).all():
+            fail(f"gradient of {name} is missing or non-finite")
+        ref = pc.grad
+        err = float((pg.grad.cpu() - ref).abs().max())
+        ratio = err / (GRAD_RTOL * float(ref.abs().max()) + GRAD_ATOL)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    log(f"gradient fp32 batch 4, dropout {DROP_RATE}: loss {float(got.detach()):.6f} (CPU plain "
+        f"{float(want.detach()):.6f}, |diff| {loss_err:.2e}, atol {LOSS_ATOL}); worst gradient "
+        f"{worst_name} at {worst:.3f} of its tolerance ({GRAD_RTOL} x max|g| + {GRAD_ATOL})")
+    if loss_err > LOSS_ATOL or worst > 1.0:
+        fail("loss or gradients on the card differ from the CPU plain path")
+
+
+def make_corpus(n: int) -> np.ndarray:
+    """A seeded corpus of 64x64 images in [-1, 1]: smooth blobs (an 8x8 normal
+    field, upsampled) plus fine noise."""
+    r = np.random.default_rng(SEED)
+    coarse = np.kron(r.standard_normal((n, 8, 8, 3)), np.ones((1, 8, 8, 1)))
+    fine = 0.1 * r.standard_normal((n, 64, 64, 3))
+    return np.tanh(coarse + fine).astype(np.float32)
+
+
+def train_phase(torch, build):
+    """The training and Reflow path at full width, through the entry points a
+    user calls. Returns its launch counts."""
+    from rectified_flow_vision_tpu_torch import (
+        ArrayDataset, BaseFlowModel, RectifiedFlowModel, SamplerService,
+        generate_reflow_pairs, train_base_flow, train_rectified_flow,
+    )
+
+    cfg = TRAIN
+    data = ArrayDataset(make_corpus(cfg["images"]))
+    ckpt_dir = ROOT / "build" / "smoke_ckpt"
+    steps_per_epoch = cfg["images"] // cfg["batch"]
+
+    def base_run(save_path):
+        model = BaseFlowModel(image_size=64, seed=SEED, compute_dtype="bfloat16",
+                              sample_dtype="bfloat16", device="cuda")
+        losses = train_base_flow(
+            model, data, epochs=cfg["base_epochs"], lr=cfg["lr"], batch_size=cfg["batch"],
+            save_path=save_path, save_every=cfg["base_epochs"], seed=SEED, progress=False,
+            ema_decay=cfg["ema"],
+        )
+        return model, losses
+
+    def check_losses(what, losses, below):
+        if not np.isfinite(losses).all():
+            fail(f"{what}: non-finite loss in {losses}")
+        if not losses[-1] < below:
+            fail(f"{what}: the last epoch's loss is not below {below}: {losses}")
+
+    # the main path: counts from 0
+    build.reset_launches()
+    t0 = time.perf_counter()
+    base, base_losses = base_run(str(ckpt_dir / "base_flow"))
+    base_s = time.perf_counter() - t0
+    check_losses("train_base_flow", base_losses, below=base_losses[0])
+
+    t0 = time.perf_counter()
+    x0, x1 = generate_reflow_pairs(
+        base, cfg["pairs"], batch_size=cfg["pair_batch"], num_steps=cfg["teacher_steps"],
+        seed=SEED, data_format="NHWC", method="heun",
+    )
+    pairs_s = time.perf_counter() - t0
+    if x0.shape != (cfg["pairs"], 64, 64, 3) or x1.shape != x0.shape:
+        fail(f"generate_reflow_pairs returned {x0.shape}, {x1.shape}")
+    if not (np.isfinite(x0).all() and np.isfinite(x1).all()):
+        fail("generate_reflow_pairs: non-finite pairs")
+
+    student = RectifiedFlowModel.from_base_model(base, copy_weights=True, seed=SEED + 1000)
+    student.reflow_iteration = 1
+    t0 = time.perf_counter()
+    reflow_losses = train_rectified_flow(
+        student, x0, x1, epochs=cfg["reflow_epochs"], batch_size=cfg["batch"], lr=cfg["lr"],
+        save_path=str(ckpt_dir / "reflow_k1"), save_every=cfg["reflow_epochs"], seed=SEED,
+        data_format="NHWC", progress=False, ema_decay=cfg["ema"], time_sampling="u_shaped",
+    )
+    reflow_s = time.perf_counter() - t0
+    # the student starts at the teacher's weights, where the loss on the
+    # teacher's own couplings is already small, and AdamW's first steps at the
+    # full lr may raise it: held below the base flow's last loss (the pairs
+    # are a deterministic target, the base loss has the noise's variance)
+    check_losses("train_rectified_flow", reflow_losses, below=base_losses[-1])
+
+    straight = student.compute_straightness(
+        x0[:cfg["samples"]], x1[:cfg["samples"]], cfg["straight_points"], data_format="NHWC")
+    if not (np.isfinite(straight) and straight >= 0.0):
+        fail(f"compute_straightness returned {straight}")
+
+    ema_model = BaseFlowModel.from_checkpoint(str(ckpt_dir / "reflow_k1_ema_final.npz"),
+                                              device="cuda")
+    if not (isinstance(ema_model, RectifiedFlowModel) and ema_model.reflow_iteration == 1):
+        fail("the student's EMA checkpoint did not come back as a RectifiedFlowModel")
+    svc = SamplerService(ema_model, step_counts=(4,), batch_size=cfg["samples"], seed=SEED,
+                         warmup=False)
+    imgs = svc.generate(cfg["samples"], num_steps=4)
+    launches = dict(build.LAUNCHES)
+    if imgs.shape != (cfg["samples"], 3, 64, 64) or not np.isfinite(imgs).all():
+        fail(f"samples from the student's EMA: shape {imgs.shape} or non-finite")
+    if imgs.min() < -1.0 or imgs.max() > 1.0:
+        fail("samples from the student's EMA leave [-1, 1]")
+
+    train_steps = (cfg["base_epochs"] + cfg["reflow_epochs"]) * steps_per_epoch
+    forwards = (-(-cfg["pairs"] // cfg["pair_batch"]) * cfg["teacher_steps"] * 2  # heun
+                + cfg["straight_points"] + 4)
+    expect = {k: train_steps * TRAIN_STEP_LAUNCHES[k] + forwards * EVAL_FORWARD_LAUNCHES[k]
+              for k in TRAIN_STEP_LAUNCHES}
+    log(f"train: base {cfg['base_epochs']} epochs x {steps_per_epoch} steps of {cfg['batch']} in "
+        f"{base_s:.1f} s, losses {[round(v, 4) for v in base_losses]}")
+    log(f"train: {cfg['pairs']} heun pairs at {cfg['teacher_steps']} teacher steps (the config "
+        f"has 100), pair batch {cfg['pair_batch']}, in {pairs_s:.1f} s")
+    log(f"train: reflow {cfg['reflow_epochs']} epochs (teacher-init, u_shaped, EMA {cfg['ema']}) "
+        f"in {reflow_s:.1f} s, losses {[round(v, 5) for v in reflow_losses]}; straightness "
+        f"{straight:.5f}; {cfg['samples']} 4-step samples from the EMA in "
+        f"[{imgs.min():.3f}, {imgs.max():.3f}]")
+    log(f"train: launches {launches}")
+    if launches != expect:
+        fail(f"train-path launches {launches}, expected {expect} "
+             f"({train_steps} train steps, {forwards} eval forwards)")
+
+    # same seeds, same trajectory: noise, times, permutations and masks repeat
+    _, again = base_run(None)
+    rel = max(abs(a - b) / abs(a) for a, b in zip(base_losses, again))
+    log(f"train: a second run from the same seeds: largest relative difference of an epoch "
+        f"loss {rel:.2e} (rtol {TRAJECTORY_RTOL}); first epoch {base_losses[0]!r} vs {again[0]!r}")
+    if rel > TRAJECTORY_RTOL:
+        fail(f"same seeds gave another loss trajectory: {base_losses} vs {again}")
+    return launches, base, data
+
+
+def train_timing_phase(torch, build, model, data) -> None:
+    """img/s of device-resident training at batch 256 in bf16, peak memory,
+    the launches of one step, and one step under the profiler."""
+    from rectified_flow_vision_tpu_torch.models.base_flow import (
+        init_ema, make_optimizer, make_train_epoch)
+
+    steps = 6
+    opt = make_optimizer(model, TRAIN["lr"], 1000, steps)
+    ema = init_ema(model)
+    epoch = make_train_epoch(model, opt, coupled=False, ema=ema, ema_decay=TRAIN["ema"])
+    corpus = torch.as_tensor(data.images, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    r = np.random.default_rng(SEED)
+
+    def perm(n):
+        return torch.as_tensor(r.integers(0, len(data), (n, BATCH)), device="cuda")
+
+    build.reset_launches()
+    epoch(corpus, perm(1), gen)
+    torch.cuda.synchronize()
+    if dict(build.LAUNCHES) != TRAIN_STEP_LAUNCHES:
+        fail(f"one train step launched {dict(build.LAUNCHES)}, expected {TRAIN_STEP_LAUNCHES}")
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for _ in range(4):
+        p = perm(steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = epoch(corpus, p, gen)
+        torch.cuda.synchronize()
+        rates.append(BATCH * steps / (time.perf_counter() - t0))
+        if not torch.isfinite(losses).all():
+            fail("train timing: non-finite loss")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train timing: make_train_epoch, batch {BATCH}, bf16 compute, fp32 masters, EMA, "
+        f"64x64, {steps} steps per reading: img/s {[round(v, 2) for v in rates]} "
+        f"(median {float(np.median(rates)):.2f}); peak device memory {peak:.2f} GiB; "
+        f"launches per step {TRAIN_STEP_LAUNCHES}")
+    one = perm(1)
+    profile_device(torch, lambda: epoch(corpus, one, gen), "train_trace.json",
+                   f"one train step of {BATCH}")
 
 
 def main() -> None:
@@ -396,39 +727,56 @@ def main() -> None:
 
     shape_calls = record_main_path_shapes(torch, UNet, fused_mod)
     per_forward = {k: sum(v.values()) for k, v in shape_calls.items()}
-    if per_forward != {"gn_silu": 29, "conv3x3": 30, "attention_block": 1}:
-        fail(f"flagship forward calls {per_forward}, expected 29 / 30 / 1")
-    rows = kernel_phase(torch, shape_calls)
+    train_calls = record_main_path_shapes(torch, UNet, fused_mod, train=True)
+    per_train = {k: sum(v.values()) for k, v in train_calls.items()}
+    per_train["dropout_mask_apply"] = per_train["gn_silu_dropout"]  # one per site, backward
+    if {**per_forward, "dropout_mask_apply": 0} != EVAL_FORWARD_LAUNCHES:
+        fail(f"flagship eval forward calls {per_forward}, expected {EVAL_FORWARD_LAUNCHES}")
+    if per_train != TRAIN_STEP_LAUNCHES:
+        fail(f"flagship train step calls {per_train}, expected {TRAIN_STEP_LAUNCHES}")
+    rows = kernel_phase(torch, shape_calls, train_calls["gn_silu_dropout"])
     model_phase(torch, UNet)
-    launches, svc = serve_phase(torch, build)
+    serve_launches, svc = serve_phase(torch, build)
     trace_phase(torch, svc)
+    del svc
+    torch.cuda.empty_cache()
+    gradient_phase(torch, build)
+    train_launches, trained, data = train_phase(torch, build)
+    train_timing_phase(torch, build, trained, data)
 
+    csrc = "rectified_flow_vision_tpu_torch/ops/csrc/"
+    pallas = "rectified_flow_vision_tpu/ops/pallas_kernels.py"
     sources = {
-        "gn_silu": ("rectified_flow_vision_tpu_torch/ops/csrc/gn_silu.cu",
-                    "rectified_flow_vision_tpu/ops/pallas_kernels.py:100"),
-        "conv3x3": ("rectified_flow_vision_tpu_torch/ops/csrc/conv3x3.cu",
-                    "rectified_flow_vision_tpu/ops/conv_pallas.py:378"),
-        "attention_block": ("rectified_flow_vision_tpu_torch/ops/csrc/attention.cu",
-                            "rectified_flow_vision_tpu/ops/pallas_kernels.py:191"),
+        "gn_silu": (csrc + "gn_silu.cu", pallas + ":100"),
+        "conv3x3": (csrc + "conv3x3.cu", "rectified_flow_vision_tpu/ops/conv_pallas.py:378"),
+        "attention_block": (csrc + "attention.cu", pallas + ":191"),
+        "gn_silu_dropout": (csrc + "gn_silu_dropout.cu", pallas + ":358"),
+        "dropout_mask_apply": (csrc + "gn_silu_dropout.cu", pallas + ":387"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["name"] == name]
         bf = [r for r in mine if r["dtype"] == "bfloat16"]
+        per_step = name in ("gn_silu_dropout", "dropout_mask_apply")
 
-        def per_fwd(key):  # one bf16 forward at batch 256: sum over its calls
-            return sum(r[key] * r["calls_per_forward"] for r in bf)
+        def total(key):  # bf16 at batch 256: sum over the calls at their shapes
+            return sum(r[key] * r["calls"] for r in bf)
 
-        by_bytes = sum(r["bound_ms"] * r["calls_per_forward"]
-                       for r in bf if r["bound_by"] == "bytes")
+        by_bytes = sum(r["bound_ms"] * r["calls"] for r in bf if r["bound_by"] == "bytes")
+        launches = serve_launches[name] + train_launches[name]
+        if launches <= 0:
+            fail(f"the main paths never launched {name}")
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=per_fwd("ms"), plain_ms=per_fwd("plain_ms"), bound_ms=per_fwd("bound_ms"),
-            bound_by="bytes" if 2 * by_bytes >= per_fwd("bound_ms") else "operations",
-            library_ms=per_fwd("library_ms"), status="ok", dtype="bfloat16",
-            per="one UNet forward at batch 256: sum over its calls",
-            calls_per_forward=per_forward[name],
+            launches=launches, launches_serve_path=serve_launches[name],
+            launches_train_path=train_launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+            bound_by="bytes" if 2 * by_bytes >= total("bound_ms") else "operations",
+            library_ms=total("library_ms"), status="ok", dtype="bfloat16",
+            per=("one train step at batch 256: sum over its calls" if per_step
+                 else "one UNet eval forward at batch 256: sum over its calls"),
+            calls=per_train[name] if per_step else per_forward[name],
         ))
 
     log(json.dumps({"kernels": kernels}))

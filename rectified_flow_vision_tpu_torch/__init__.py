@@ -7,18 +7,34 @@ kernel on its path becomes a CUDA kernel written for Hopper
 nor the JAX package.
 
 Ported so far: the few-step serving path of the UNet flow model
-(``UNet`` -> ``BaseFlowModel`` samplers -> ``SamplerService``), with
-``.npz`` / reference ``.pt`` weight loading. Entry points run on
-``device="cuda"`` unless the caller asks for the CPU.
+(``UNet`` -> ``BaseFlowModel`` samplers -> ``SamplerService``) with ``.npz``
+/ reference ``.pt`` weight loading, and the training and Reflow path
+(``train_base_flow`` -> ``generate_reflow_pairs`` -> ``train_rectified_flow``
+/ ``iterative_reflow``, ``compute_straightness``) on in-memory corpora.
+Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"
 
+from rectified_flow_vision_tpu_torch.data import (  # noqa: F401
+    ArrayDataset,
+    ImageDataset,
+    as_nchw,
+    as_nhwc,
+)
 from rectified_flow_vision_tpu_torch.models import (  # noqa: F401
     BaseFlowModel,
     RectifiedFlowModel,
     UNet,
     count_parameters,
+    generate_reflow_pairs,
+    iterative_reflow,
+    make_epoch_cosine_schedule,
+    make_optimizer,
+    make_train_epoch,
+    make_train_step,
+    train_base_flow,
+    train_rectified_flow,
 )
 from rectified_flow_vision_tpu_torch.serving import SamplerService  # noqa: F401
 
@@ -28,4 +44,16 @@ __all__ = [
     "BaseFlowModel",
     "RectifiedFlowModel",
     "SamplerService",
+    "ImageDataset",
+    "ArrayDataset",
+    "as_nchw",
+    "as_nhwc",
+    "train_base_flow",
+    "generate_reflow_pairs",
+    "train_rectified_flow",
+    "iterative_reflow",
+    "make_train_step",
+    "make_train_epoch",
+    "make_optimizer",
+    "make_epoch_cosine_schedule",
 ]

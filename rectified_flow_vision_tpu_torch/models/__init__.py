@@ -1,7 +1,17 @@
-"""UNet velocity field and the flow models around it."""
+"""UNet velocity field, the flow models around it and their trainers."""
 
-from rectified_flow_vision_tpu_torch.models.base_flow import BaseFlowModel  # noqa: F401
+from rectified_flow_vision_tpu_torch.models.base_flow import (  # noqa: F401
+    BaseFlowModel,
+    make_epoch_cosine_schedule,
+    make_optimizer,
+    make_train_epoch,
+    make_train_step,
+    train_base_flow,
+)
 from rectified_flow_vision_tpu_torch.models.rectified_flow import (  # noqa: F401
     RectifiedFlowModel,
+    generate_reflow_pairs,
+    iterative_reflow,
+    train_rectified_flow,
 )
 from rectified_flow_vision_tpu_torch.models.unet import UNet, count_parameters  # noqa: F401

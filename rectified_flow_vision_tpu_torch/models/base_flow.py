@@ -1,8 +1,15 @@
-"""Flow-matching base model: the UNet velocity field, flow math and samplers.
+"""Flow-matching base model: the UNet velocity field, flow math, samplers
+and training.
 
-Counterpart of the JAX package's ``models/base_flow.py`` (inference part):
+Counterpart of the JAX package's ``models/base_flow.py``:
 
 * path: x_t = (1-t) x0 + t x1, target velocity x1 - x0;
+* loss: mean squared error of the predicted velocity, with t drawn uniform,
+  logit-normal or u-shaped, on fresh noise or on coupled (x0, x1) pairs;
+* training: AdamW + per-epoch cosine schedule + global-norm clip at 1.0,
+  optional EMA of the weights, one epoch as a loop over a corpus resident on
+  the device with the step losses read once at its end. Parameters, optimizer
+  state and EMA are updated in place, where the JAX step returns new trees;
 * samplers: Euler (left-endpoint times t_i = i/N), midpoint and Heun, and
   the reverse ODE (``invert``). Model compute runs in ``sample_dtype``
   (bf16 by default) while the integration state stays fp32, as in the JAX
@@ -14,12 +21,18 @@ Counterpart of the JAX package's ``models/base_flow.py`` (inference part):
 so its ``state_dict`` has the reference checkpoint's ``velocity_net.`` keys.
 It lives on ``device`` ("cuda" by default; "cpu" only when asked for). The
 public tensor API takes and returns NCHW by default, like the JAX package;
-pass ``data_format="NHWC"`` to stay in the internal layout. Training comes
-with a later slice.
+pass ``data_format="NHWC"`` to stay in the internal layout.
+
+Randomness is explicit: the loss draws noise, times and dropout seeds from a
+``torch.Generator`` on the model's device (or takes them as arguments), and
+the trainers seed one generator per epoch, so a seed fixes the trajectory.
+Resume, the native loader and meshes come with later slices.
 """
 
 from __future__ import annotations
 
+import math
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,6 +42,9 @@ from torch import nn
 from rectified_flow_vision_tpu_torch.models.unet import UNet, count_parameters
 from rectified_flow_vision_tpu_torch.utils import checkpoint as ckpt_io
 from rectified_flow_vision_tpu_torch.utils import pt_import
+from rectified_flow_vision_tpu_torch.utils.logging_config import get_logger
+
+log = get_logger("flow_vision.models")
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -75,6 +91,7 @@ class BaseFlowModel(nn.Module):
         dropout: float = 0.1,
         *,
         backbone: str = "unet",
+        remat: bool = False,
         seed: int = 0,
         params: Optional[Params] = None,
         compute_dtype: str = "float32",
@@ -84,6 +101,7 @@ class BaseFlowModel(nn.Module):
         super().__init__()
         if backbone != "unet":
             raise ValueError(f"backbone {backbone!r} is not ported yet (unet)")
+        self.remat = bool(remat)
         self.image_size = image_size
         self.in_channels = in_channels
         self.backbone = backbone
@@ -161,6 +179,53 @@ class BaseFlowModel(nn.Module):
         t = torch.as_tensor(t, device=x0.device).reshape((-1,) + (1,) * (x0.ndim - 1))
         t = t.to(x0.dtype)
         return (1.0 - t) * x0 + t * x1, x1 - x0
+
+    def loss_fn(
+        self,
+        x1: Tensor,
+        generator: Optional[torch.Generator] = None,
+        *,
+        x0: Optional[Tensor] = None,
+        t: Optional[Tensor] = None,
+        seeds: Optional[Tensor] = None,
+        train: bool = True,
+        time_sampling: str = "uniform",
+    ) -> Tensor:
+        """Flow-matching loss on an NHWC batch on the model's device, as a
+        scalar in the autograd graph of the fp32 parameters.
+
+        ``x0`` given is the coupled-pair (reflow) loss; ``x0`` None draws
+        fresh noise. What is not given is drawn from ``generator`` (by default
+        the model's seeded one) in the order x0, t, dropout seeds: ``t`` per
+        ``time_sampling`` ("uniform"; "logit_normal", which concentrates on
+        mid-path; "u_shaped", the arcsine law peaked at both ends), and with
+        ``train`` one int32 dropout seed per residual block.
+        """
+        gen = generator if generator is not None else self.generator
+        net = self.velocity_net
+        if x0 is None:
+            x0 = torch.randn(x1.shape, generator=gen, dtype=x1.dtype, device=x1.device)
+        if t is None:
+            t = sample_times(time_sampling, x1.shape[0], gen, x1.device)
+        if seeds is None and train and net.dropout > 0:
+            seeds = torch.randint(
+                2**31 - 1, (net.num_dropout_seeds,), generator=gen, dtype=torch.int32,
+                device=x1.device,
+            )
+        x_t, target = self.get_interpolation(x0, x1, t)
+        pred = net(
+            x_t, t, dtype=self.compute_dtype, train=train, seeds=seeds, masters=True,
+            remat=self.remat,
+        )
+        return torch.mean(torch.square(pred.float() - target.float()))
+
+    @torch.no_grad()
+    def compute_loss(
+        self, x1, generator: Optional[torch.Generator] = None, data_format: str = "NCHW"
+    ) -> Tensor:
+        """Convenience loss on a data batch, in eval mode."""
+        x1 = _to_nhwc(x1, data_format, self.device).float()
+        return self.loss_fn(x1, generator, train=False)
 
     # ---- inference ----------------------------------------------------------
 
@@ -310,3 +375,322 @@ class BaseFlowModel(nn.Module):
             model.reflow_iteration = int(reflow_iteration)
         model.params = params
         return model
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def sample_times(
+    time_sampling: str, batch: int, generator: torch.Generator, device: torch.device
+) -> Tensor:
+    """``batch`` times in [0, 1], fp32, drawn on ``device``."""
+    if time_sampling == "uniform":
+        return torch.rand((batch,), generator=generator, dtype=torch.float32, device=device)
+    if time_sampling == "logit_normal":
+        z = torch.randn((batch,), generator=generator, dtype=torch.float32, device=device)
+        return torch.sigmoid(z)
+    if time_sampling == "u_shaped":
+        # arcsine law: density 1/(pi*sqrt(t(1-t))), peaked at both ends
+        u = torch.rand((batch,), generator=generator, dtype=torch.float32, device=device)
+        return 0.5 - 0.5 * torch.cos(math.pi * u)
+    raise ValueError(f"unknown time_sampling {time_sampling!r}")
+
+
+def make_epoch_cosine_schedule(
+    lr: float, epochs: int, steps_per_epoch: int, warmup_epochs: float = 0.0
+) -> Callable[[int], float]:
+    """Per-epoch cosine annealing, as torch CosineAnnealingLR stepped once
+    per epoch: epoch e uses lr * (1 + cos(pi * e / epochs)) / 2.
+
+    ``warmup_epochs`` > 0 prepends a linear per-step ramp from 0 to the
+    scheduled lr across that many epochs. ``schedule(step)`` is computed on
+    the host, in fp32 like the JAX schedule, from the step count starting at 0.
+    """
+    f32 = np.float32
+    spe = max(steps_per_epoch, 1)
+
+    def schedule(step: int) -> float:
+        frac = min(f32(step // spe) / f32(epochs), f32(1.0))
+        cos = f32(0.5 * lr) * (f32(1.0) + np.cos(f32(np.pi) * frac, dtype=f32))
+        if warmup_epochs <= 0:
+            return float(cos)
+        ramp = min((f32(step) + f32(1.0)) / f32(warmup_epochs * spe), f32(1.0))
+        return float(cos * ramp)
+
+    return schedule
+
+
+class FlowOptimizer:
+    """Global-norm clip at 1.0, then AdamW (b1 0.9, b2 0.999, eps 1e-8,
+    weight decay 0.01 on every parameter) at the scheduled lr: the update of
+    the JAX package's ``optax.chain(clip_by_global_norm(1.0), adamw(...))``.
+
+    The clip scales by 1/norm only where norm >= 1, with nothing added to the
+    denominator, on the device (no value is read back). The lr of step n is
+    ``schedule(n)``, counted from 0 and set from the host.
+    """
+
+    def __init__(self, params: Sequence[Tensor], schedule: Callable[[int], float]) -> None:
+        self.params = list(params)
+        self.schedule = schedule
+        self.step_count = 0
+        self.adamw = torch.optim.AdamW(
+            self.params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01,
+            fused=self.params[0].device.type == "cuda",
+        )
+
+    def zero_grad(self) -> None:
+        self.adamw.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        grads = [p.grad for p in self.params]
+        if any(g is None for g in grads):
+            raise RuntimeError("FlowOptimizer.step: a parameter has no gradient")
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        torch._foreach_mul_(grads, torch.where(norm < 1.0, torch.ones_like(norm), 1.0 / norm))
+        for group in self.adamw.param_groups:
+            group["lr"] = self.schedule(self.step_count)
+        self.adamw.step()
+        self.step_count += 1
+
+
+def make_optimizer(
+    model: BaseFlowModel, lr: float, epochs: int, steps_per_epoch: int,
+    warmup_epochs: float = 0.0,
+) -> FlowOptimizer:
+    """AdamW (torch-default hyperparameters) + epoch-cosine lr + grad clip 1.0
+    over the model's parameters."""
+    schedule = make_epoch_cosine_schedule(lr, epochs, steps_per_epoch, warmup_epochs)
+    return FlowOptimizer(list(model.parameters()), schedule)
+
+
+def init_ema(model: BaseFlowModel) -> Dict[str, Tensor]:
+    """A copy of the model's current parameters, by state-dict name."""
+    return {k: p.detach().clone() for k, p in model.named_parameters()}
+
+
+def ema_params(ema: Dict[str, Tensor]) -> Params:
+    """EMA weights as a param tree, for ``checkpoint.save_params``."""
+    return pt_import.state_dict_to_params({k: v.cpu().numpy() for k, v in ema.items()})[0]
+
+
+def make_train_step(
+    model: BaseFlowModel,
+    opt: FlowOptimizer,
+    *,
+    coupled: bool,
+    ema: Optional[Dict[str, Tensor]] = None,
+    ema_decay: Optional[float] = None,
+    time_sampling: str = "uniform",
+) -> Callable[[Any, torch.Generator], Tensor]:
+    """Build ``train_step(batch, generator) -> loss``: loss -> grad ->
+    global-norm clip -> AdamW update, in place. ``batch`` is x1 (NHWC on the
+    device), or ``(x0, x1)`` when ``coupled``. With ``ema`` (from
+    ``init_ema``) and ``ema_decay``, the moving average e*d + p*(1-d) of the
+    updated parameters is kept in ``ema``. The loss comes back on the device,
+    detached; nothing is read to the host.
+    """
+    if (ema is None) != (ema_decay is None):
+        raise ValueError("ema and ema_decay go together")
+    if ema is not None:
+        d = float(ema_decay)
+        named = dict(model.named_parameters())
+        ema_list = [ema[k] for k in named]
+        live = [p.detach() for p in named.values()]
+
+    def train_step(batch, generator: torch.Generator) -> Tensor:
+        x0, x1 = batch if coupled else (None, batch)
+        opt.zero_grad()
+        loss = model.loss_fn(x1, generator, x0=x0, train=True, time_sampling=time_sampling)
+        loss.backward()
+        opt.step()
+        if ema is not None:
+            torch._foreach_mul_(ema_list, d)
+            torch._foreach_add_(ema_list, live, alpha=1.0 - d)
+        return loss.detach()
+
+    return train_step
+
+
+def make_train_epoch(
+    model: BaseFlowModel,
+    opt: FlowOptimizer,
+    *,
+    coupled: bool,
+    ema: Optional[Dict[str, Tensor]] = None,
+    ema_decay: Optional[float] = None,
+    time_sampling: str = "uniform",
+) -> Callable[[Any, Tensor, torch.Generator], Tensor]:
+    """Build ``train_epoch(corpus, perm, generator) -> losses [steps]``.
+
+    The corpus ([N, H, W, C], or an (x0, x1) pair of those when ``coupled``)
+    lives on the device; each step gathers its batch there by a row of
+    ``perm`` ([steps, B] indices on the device). The host only enqueues: the
+    step losses stay on the device, for the caller to read once per epoch.
+    Step math and random draws are those of ``make_train_step``, so the
+    trajectory equals the per-step path's.
+    """
+    step = make_train_step(
+        model, opt, coupled=coupled, ema=ema, ema_decay=ema_decay, time_sampling=time_sampling
+    )
+
+    def train_epoch(corpus, perm: Tensor, generator: torch.Generator) -> Tensor:
+        losses = []
+        for idx in perm:
+            if coupled:
+                batch = (corpus[0].index_select(0, idx), corpus[1].index_select(0, idx))
+            else:
+                batch = corpus.index_select(0, idx)
+            losses.append(step(batch, generator))
+        return torch.stack(losses)
+
+    return train_epoch
+
+
+# corpora larger than this stay on the host per-step path (the device epoch
+# keeps the whole corpus in device memory)
+DEVICE_EPOCH_MAX_BYTES = 2 * 1024**3
+
+
+def reject_unported(**options) -> None:
+    """Raise for a trainer option whose module is not ported yet, naming the
+    ROADMAP item that holds it."""
+    items = {
+        "mesh": "A9 (parallelism)",
+        "fsdp": "A9 (parallelism)",
+        "use_native_loader": "A4 (data: the native batch loader)",
+        "resume_dir": "A7 (checkpoint, resume)",
+    }
+    for name, value in options.items():
+        if value:
+            raise NotImplementedError(
+                f"{name} is not ported to PyTorch yet: ROADMAP.md item {items[name]}"
+            )
+
+
+def epoch_generator(model: BaseFlowModel, seed: int, epoch: int) -> torch.Generator:
+    """The generator of one training epoch: noise, times and dropout seeds of
+    its steps are drawn from it in order."""
+    return torch.Generator(device=model.device).manual_seed(seed * 1000003 + epoch)
+
+
+def save_epoch_checkpoints(
+    model: BaseFlowModel, ema: Optional[Dict[str, Tensor]], save_path: str, tag: str, ext: str
+) -> None:
+    """``<save_path>_<tag><ext>`` and, with an EMA, ``<save_path>_ema_<tag><ext>``."""
+    model.save(f"{save_path}_{tag}{ext}")
+    if ema is not None:
+        ckpt_io.save_params(f"{save_path}_ema_{tag}{ext}", ema_params(ema), model.config)
+
+
+def train_base_flow(
+    model: BaseFlowModel,
+    dataloader,
+    epochs: int = 50,
+    lr: float = 1e-4,
+    save_path: Optional[str] = None,
+    save_every: int = 10,
+    *,
+    batch_size: Optional[int] = None,
+    mesh=None,
+    seed: int = 0,
+    ckpt_ext: str = ".npz",
+    progress: bool = True,
+    resume_dir: Optional[str] = None,
+    use_native_loader: bool = False,
+    ema_decay: Optional[float] = None,
+    device_epoch: Optional[bool] = None,
+    fsdp: bool = False,
+    warmup_epochs: float = 0.0,
+) -> List[float]:
+    """Train the base flow model; returns the per-epoch mean losses.
+
+    ``dataloader`` may be a dataset (``batches`` / ``num_batches``, e.g.
+    ``ImageDataset``; reshuffled per epoch with a per-epoch seed; requires
+    ``batch_size``) or any re-iterable of NHWC numpy batches. With
+    ``ema_decay`` an EMA of the weights is carried and written beside each
+    checkpoint as ``*_ema_*``. ``device_epoch`` (the default off the CPU when
+    the corpus fits) keeps the corpus on the device and reads the losses once
+    per epoch. ``mesh``, ``fsdp``, ``use_native_loader`` and ``resume_dir``
+    are not ported yet and raise.
+    """
+    reject_unported(
+        mesh=mesh, fsdp=fsdp, use_native_loader=use_native_loader, resume_dir=resume_dir
+    )
+    device = model.device
+    is_dataset = hasattr(dataloader, "batches") and hasattr(dataloader, "num_batches")
+    if is_dataset:
+        if batch_size is None:
+            raise ValueError("batch_size is required when passing an ImageDataset")
+        steps_per_epoch = dataloader.num_batches(batch_size)
+    else:
+        # generic iterable: materialize once, then reshuffle the batch list
+        # per epoch (seeded), as a DataLoader with shuffle=True would
+        dataloader = list(dataloader)
+        steps_per_epoch = len(dataloader)
+    if steps_per_epoch == 0:
+        raise ValueError("empty dataloader")
+
+    opt = make_optimizer(model, lr, epochs, steps_per_epoch, warmup_epochs)
+    use_ema = ema_decay is not None and ema_decay > 0
+    ema = init_ema(model) if use_ema else None
+    step_kwargs = dict(coupled=False, ema=ema, ema_decay=ema_decay if use_ema else None)
+
+    corpus_host = getattr(dataloader, "images", None) if is_dataset else None
+    if device_epoch is None:
+        device_epoch = (
+            corpus_host is not None
+            and 0 < len(dataloader)
+            and corpus_host.nbytes <= DEVICE_EPOCH_MAX_BYTES
+            and device.type != "cpu"
+        )
+    if device_epoch and corpus_host is None:
+        raise ValueError("device_epoch=True needs a dataset with .images")
+    if device_epoch:
+        corpus_dev = torch.as_tensor(corpus_host, dtype=torch.float32, device=device)
+        train_epoch = make_train_epoch(model, opt, **step_kwargs)
+    else:
+        train_step = make_train_step(model, opt, **step_kwargs)
+
+    losses: List[float] = []
+    for epoch in range(epochs):
+        gen = epoch_generator(model, seed, epoch)
+        t0 = time.time()
+        if device_epoch:
+            # the permutation of ImageDataset.batches
+            n = len(dataloader)
+            idx = np.arange(n)
+            np.random.default_rng(seed * 100003 + epoch).shuffle(idx)
+            if n < batch_size:
+                idx = np.tile(idx, -(-batch_size // n))[:batch_size]
+                n = batch_size
+            end = n - (n % batch_size)
+            perm = torch.as_tensor(idx[:end].reshape(-1, batch_size), device=device)
+            avg_loss = float(train_epoch(corpus_dev, perm, gen).mean())
+        else:
+            if is_dataset:
+                batches = dataloader.batches(batch_size, seed=seed * 100003 + epoch)
+            else:
+                order = np.random.default_rng(seed * 100003 + epoch).permutation(
+                    len(dataloader)
+                )
+                batches = (dataloader[j] for j in order)
+            step_losses = [
+                train_step(torch.as_tensor(np.asarray(b), dtype=torch.float32, device=device), gen)
+                for b in batches
+            ]
+            avg_loss = float(torch.stack(step_losses).mean())
+        losses.append(avg_loss)
+        if progress:
+            log.info(
+                "Epoch %d/%d - Loss: %.4f (%.1fs)", epoch + 1, epochs, avg_loss,
+                time.time() - t0,
+            )
+        if save_path and (epoch + 1) % save_every == 0:
+            save_epoch_checkpoints(model, ema, save_path, f"epoch{epoch + 1}", ckpt_ext)
+
+    if save_path:
+        save_epoch_checkpoints(model, ema, save_path, "final", ckpt_ext)
+    return losses

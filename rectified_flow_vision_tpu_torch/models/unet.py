@@ -16,30 +16,51 @@ loads with ``strict=True``:
 
 The default config has 11,255,363 parameters. Parameters are kept in fp32
 with torch layouts (conv OIHW, Linear (out, in)). ``forward(x, t, dtype=)``
-computes in ``dtype`` with parameters rounded to it first, as the JAX
-sampler casts its param tree; the rounded copies, and the conv3x3 weights
-repacked to ``(Cout, 3, 3, Cin)``, are cached per parameter and dtype and
-rebuilt when a parameter changes (``_ParamCache``), not repacked per call.
+computes in ``dtype`` and sees the parameters in one of two ways:
+
+* sampling (the default): every parameter is rounded to ``dtype`` first, as
+  the JAX sampler casts its param tree; the rounded copies, and the conv3x3
+  weights repacked to ``(Cout, 3, 3, Cin)``, are detached, cached per
+  parameter and dtype and rebuilt when a parameter changes (``_ParamCache``);
+* ``masters=True`` (the loss): the fp32 masters stay in the autograd graph,
+  as in the JAX train step. Weights are cast to ``dtype`` per op, biases and
+  norm parameters go to the kernels in fp32 unrounded, nothing is cached.
 
 Kernel sites (``ops/fused.py``) are the JAX package's: ``gn_silu`` at each
-block's norm1 and norm2 (eval) and at the head, ``conv3x3`` at conv1, conv2
-and the upsample convs, ``attention_block`` at ``mid_attn``. The input and
-output convs, the stride-2 downsamples and the 1x1 shortcuts are plain
-convs, as the JAX package leaves them to XLA.
+block's norm1 and at the head, ``gn_silu_dropout`` at norm2 (``gn_silu`` in
+eval mode), ``conv3x3`` at conv1, conv2 and the upsample convs,
+``attention_block`` at ``mid_attn``. The input and output convs, the
+stride-2 downsamples and the 1x1 shortcuts are plain convs, as the JAX
+package leaves them to XLA.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rectified_flow_vision_tpu_torch.ops import fused
 from rectified_flow_vision_tpu_torch.ops import primitives as P
 
 Tensor = torch.Tensor
+
+
+def _layout(p: Tensor, dtype: torch.dtype, layout: str, round_f32: bool) -> Tensor:
+    """``p`` in ``dtype`` and a kernel layout (see ``_ParamCache``)."""
+    if layout == "f32":
+        return p.to(dtype).float() if round_f32 else p.float()
+    t = p.to(dtype)
+    if layout == "ohwi":
+        return t.permute(0, 2, 3, 1).contiguous()
+    if layout == "mat":
+        return t.reshape(t.shape[0], -1).contiguous()
+    if layout != "plain":
+        raise ValueError(f"unknown layout {layout!r}")
+    return t
 
 
 class _ParamCache:
@@ -64,26 +85,22 @@ class _ParamCache:
         if hit is not None and hit[0] == stamp:
             return hit[1]
         with torch.no_grad():
-            t = p.detach().to(dtype)
-            if layout == "f32":
-                t = t.float()
-            elif layout == "ohwi":
-                t = t.permute(0, 2, 3, 1).contiguous()
-            elif layout == "mat":
-                t = t.reshape(t.shape[0], -1).contiguous()
-            elif layout != "plain":
-                raise ValueError(f"unknown layout {layout!r}")
+            t = _layout(p.detach(), dtype, layout, round_f32=True)
         self._store[key] = (stamp, t)
         return t
 
 
 class _View:
-    """The parameters of one forward call, in that call's dtype."""
+    """The parameters of one forward call, in that call's dtype: cached,
+    rounded and detached copies for sampling, or (``masters``) the fp32
+    masters cast inside the autograd graph."""
 
-    def __init__(self, cache: _ParamCache, dtype: torch.dtype) -> None:
-        self.cache, self.dtype = cache, dtype
+    def __init__(self, cache: _ParamCache, dtype: torch.dtype, masters: bool = False) -> None:
+        self.cache, self.dtype, self.masters = cache, dtype, masters
 
     def __call__(self, p: Tensor, layout: str = "plain") -> Tensor:
+        if self.masters:
+            return _layout(p, self.dtype, layout, round_f32=False)
         return self.cache.get(p, self.dtype, layout)
 
     def conv(self, x: Tensor, m: nn.Conv2d) -> Tensor:
@@ -97,6 +114,14 @@ class _View:
     def gn_silu(self, x: Tensor, m: nn.GroupNorm) -> Tensor:
         return fused.gn_silu(
             x, self(m.weight, "f32"), self(m.bias, "f32"), num_groups=m.num_groups
+        )
+
+    def gn_silu_dropout(
+        self, x: Tensor, m: nn.GroupNorm, rate: float, seed: Optional[Tensor], train: bool
+    ) -> Tensor:
+        return fused.gn_silu_dropout(
+            x, self(m.weight, "f32"), self(m.bias, "f32"), rate, seed,
+            train=train, num_groups=m.num_groups,
         )
 
     def dense(self, x: Tensor, m: nn.Linear) -> Tensor:
@@ -122,14 +147,16 @@ class ResidualBlock(nn.Module):
         self.shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
         self.dropout = dropout
 
-    def forward(self, x: Tensor, t_emb: Tensor, v: _View) -> Tensor:
+    def forward(
+        self, x: Tensor, t_emb: Tensor, v: _View, seed: Optional[Tensor] = None,
+        train: bool = False,
+    ) -> Tensor:
         h = v.gn_silu(x, self.norm1)
         h = v.conv3x3(h, self.conv1)
         t_bias = v.dense(P.silu(t_emb), self.time_mlp[1])
         h = h + t_bias[:, None, None, :].to(h.dtype)
-        # eval: gn -> silu -> dropout is gn_silu (training dropout comes
-        # with the training slice)
-        h = P.dropout(v.gn_silu(h, self.norm2), self.dropout, train=False)
+        # gn -> silu -> dropout is one fused pass; gn_silu in eval mode
+        h = v.gn_silu_dropout(h, self.norm2, self.dropout, seed, train)
         h = v.conv3x3(h, self.conv2)
         shortcut = v.conv(x, self.shortcut) if self.shortcut is not None else x
         return h + shortcut
@@ -252,10 +279,52 @@ class UNet(nn.Module):
                 m.weight.fill_(1.0)
                 m.bias.fill_(0.0)
 
-    def forward(self, x: Tensor, t: Tensor, *, dtype: torch.dtype = torch.float32) -> Tensor:
-        """Velocity v(x, t) in ``dtype``. x: [B, H, W, C] NHWC; t: [B]."""
-        v = _View(self._params, dtype)
+    @property
+    def num_dropout_seeds(self) -> int:
+        """One dropout seed per residual block: encoder, middle, decoder."""
+        return 2 * len(self.channel_mult) * self.num_res_blocks + 2
+
+    def forward(
+        self,
+        x: Tensor,
+        t: Tensor,
+        *,
+        dtype: torch.dtype = torch.float32,
+        train: bool = False,
+        seeds: Optional[Tensor] = None,
+        masters: bool = False,
+        remat: bool = False,
+    ) -> Tensor:
+        """Velocity v(x, t) in ``dtype``. x: [B, H, W, C] NHWC; t: [B].
+
+        With ``train`` and ``seeds`` (``num_dropout_seeds`` int32 values on
+        x's device, one per residual block in the order encoder, middle,
+        decoder) each block's norm2 drops activations at rate ``dropout``.
+        ``masters`` keeps the fp32 parameters in the autograd graph (see the
+        module docstring). ``remat`` recomputes each residual block in the
+        backward pass instead of keeping its activations: a memory lever; the
+        seed makes the recomputed mask the same.
+        """
+        v = _View(self._params, dtype, masters)
         x = x.to(dtype)
+        if train and seeds is not None and self.dropout > 0:
+            if tuple(seeds.shape) != (self.num_dropout_seeds,) or seeds.dtype != torch.int32:
+                raise ValueError(
+                    f"seeds must be {self.num_dropout_seeds} int32 values, got "
+                    f"{tuple(seeds.shape)} {seeds.dtype}"
+                )
+            seed_it = iter(seeds[i : i + 1] for i in range(self.num_dropout_seeds))
+        else:
+            seed_it = iter([None] * self.num_dropout_seeds)
+
+        def res(block: ResidualBlock, h: Tensor) -> Tensor:
+            seed = next(seed_it)
+            if remat:
+                return checkpoint(
+                    block, h, t_emb, v, seed, train, use_reentrant=False,
+                    preserve_rng_state=False,
+                )
+            return block(h, t_emb, v, seed, train)
 
         t_emb = P.sinusoidal_time_embedding(t, self.model_channels).to(dtype)
         t_emb = v.dense(t_emb, self.time_mlp[1])
@@ -267,21 +336,21 @@ class UNet(nn.Module):
         skips: List[Tensor] = []
         for level in range(levels):
             for _ in range(self.num_res_blocks):
-                h = next(blocks)(h, t_emb, v)
+                h = res(next(blocks), h)
             skips.append(h)  # saved before the downsample
             if level < levels - 1:
                 h = v.conv(h, self.downsamples[level])
 
-        h = self.mid_block1(h, t_emb, v)
+        h = res(self.mid_block1, h)
         h = self.mid_attn(h, v)
-        h = self.mid_block2(h, t_emb, v)
+        h = res(self.mid_block2, h)
 
         blocks = iter(self.dec_blocks)
         ups = iter(self.upsamples)
         for level in range(levels - 1, -1, -1):
             h = torch.cat([h, skips.pop().to(h.dtype)], dim=-1)
             for _ in range(self.num_res_blocks):
-                h = next(blocks)(h, t_emb, v)
+                h = res(next(blocks), h)
             if level > 0:
                 h = P.upsample_nearest_2x(h)
                 h = v.conv3x3(h, next(ups)[1])

@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("gn_silu.cu", "conv3x3.cu", "attention.cu", "runtime.cu")
+SOURCES = ("gn_silu.cu", "gn_silu_dropout.cu", "conv3x3.cu", "attention.cu", "runtime.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -38,14 +38,23 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-LAUNCHES: Dict[str, int] = {"gn_silu": 0, "conv3x3": 0, "attention_block": 0}
+LAUNCHES: Dict[str, int] = {
+    "gn_silu": 0,
+    "conv3x3": 0,
+    "attention_block": 0,
+    "gn_silu_dropout": 0,
+    "dropout_mask_apply": 0,
+}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U, _L = ctypes.c_uint32, ctypes.c_longlong
 _SIGNATURES = {
     "rfv_gn_silu_workspace": [_I, _I, _I],
     "rfv_gn_silu": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "rfv_gn_silu_dropout": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _U, _F, _I, _P],
+    "rfv_dropout_mask_apply": [_P, _P, _P, _I, _L, _U, _F, _I, _P],
     "rfv_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rfv_attention_core_smem": [_I, _I, _I],
     "rfv_attention_block": [

@@ -110,3 +110,53 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   for (int w = 0; w < nwarps; ++w) s += red[w];
   return s;
 }
+
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3",
+// SC 2011), written out: ten rounds of two 32x32->64 multiplies, the key
+// bumped by the Weyl constants between rounds. A pure function of (counter,
+// key), so any thread can produce any element's bits.
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u, kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u, kPhiloxW1 = 0xBB67AE85u;
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x), lo0 = kPhiloxM0 * c.x;
+    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z), lo1 = kPhiloxM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += kPhiloxW0;
+    k.y += kPhiloxW1;
+  }
+  return c;
+}
+
+// The dropout bits of V consecutive elements of one image, starting at
+// element idx0 (a multiple of V) of its flat (H*W*C) index. Contract, shared
+// with the plain PyTorch version (ops/gn_silu_dropout.py): key = (seed,
+// kDropoutKey1), counter = (image, element / 4, 0, 0), lane = element % 4.
+// The bits depend on nothing else: not on the block size, the vector width or
+// the element type.
+constexpr uint32_t kDropoutKey1 = 0x52465644u;
+
+template <int V>
+__device__ __forceinline__ void dropout_bits(uint32_t seed, uint32_t image, uint32_t idx0,
+                                             uint32_t (&bits)[V]) {
+  const uint2 key = make_uint2(seed, kDropoutKey1);
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      const uint4 r = philox4x32_10(make_uint4(image, idx0 / 4 + q, 0u, 0u), key);
+      bits[4 * q] = r.x;
+      bits[4 * q + 1] = r.y;
+      bits[4 * q + 2] = r.z;
+      bits[4 * q + 3] = r.w;
+    }
+  } else {  // V is 1 or 2: the V elements share one counter
+    const uint4 r = philox4x32_10(make_uint4(image, idx0 / 4, 0u, 0u), key);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const uint32_t lane = (idx0 + e) & 3u;
+      bits[e] = lane == 0 ? r.x : lane == 1 ? r.y : lane == 2 ? r.z : r.w;
+    }
+  }
+}

@@ -1,21 +1,31 @@
 """Dispatch between the port's CUDA kernels and their plain versions.
 
 Counterpart of the JAX package's ``ops/fused.py``. The only switch is the
-tensor's device: a CPU tensor takes the plain PyTorch version, a CUDA tensor
-takes the kernel, and any other device raises. There is no size cap (the
-JAX side's VMEM slab cap is a TPU limit) and no fallback when a build or a
-launch fails. The one exception is the conv's contract: a conv outside
-``conv3x3.supports`` (not 3x3/stride 1, or channels not multiples of 64)
-is the plain conv on every device, as in the JAX package.
+tensor's device: a CPU tensor takes the plain PyTorch version under ordinary
+autograd, a CUDA tensor takes the kernel, and any other device raises. There
+is no size cap (the JAX side's VMEM slab cap is a TPU limit) and no fallback
+when a build or a launch fails. The one exception is the conv's contract: a
+conv outside ``conv3x3.supports`` (not 3x3/stride 1, or channels not
+multiples of 64) is the plain conv on every device, as in the JAX package.
+
+On a CUDA tensor each kernel runs inside a ``torch.autograd.Function``. As in
+the JAX package's custom VJPs, the forward launches the kernel and saves its
+inputs, and the backward recomputes the plain version on those inputs and
+differentiates it; ``gn_silu_dropout``'s backward first regenerates the mask
+from the saved seed with the ``dropout_mask_apply`` kernel, so no mask tensor
+is ever kept.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from rectified_flow_vision_tpu_torch.ops import attention as A
 from rectified_flow_vision_tpu_torch.ops import conv3x3 as C
 from rectified_flow_vision_tpu_torch.ops import gn_silu as G
+from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as D
 from rectified_flow_vision_tpu_torch.ops import primitives as P
 
 Tensor = torch.Tensor
@@ -25,18 +35,128 @@ def _on_cpu(x: Tensor) -> bool:
     return x.device.type == "cpu"
 
 
+def _plain_grads(
+    fn: Callable[..., Tensor], inputs: Sequence[Tensor], needed: Sequence[bool], g: Tensor
+) -> Tuple[Optional[Tensor], ...]:
+    """Gradients of ``fn(*inputs)`` against cotangent ``g``, for the inputs
+    flagged in ``needed`` (None for the rest)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(inputs, needed)]
+        out = fn(*leaves)
+        wanted = [t for t, need in zip(leaves, needed) if need]
+        grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+    return tuple(next(grads) if need else None for need in needed)
+
+
+class _GnSilu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.num_groups = num_groups
+        return G.gn_silu_cuda(x, scale, bias, num_groups=num_groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(x, s, b):
+            return G.gn_silu_plain(x, s, b, num_groups=ctx.num_groups)
+
+        return (*_plain_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[:3], g), None)
+
+
+class _GnSiluDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, seed, rate, num_groups):
+        ctx.save_for_backward(x, scale, bias, seed)
+        ctx.rate, ctx.num_groups = rate, num_groups
+        return D.gn_silu_dropout_cuda(x, scale, bias, seed, rate, num_groups=num_groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, seed = ctx.saved_tensors
+        # the mask is regenerated from the seed, then the masked cotangent
+        # flows through the plain gn_silu gradient
+        gm = D.dropout_mask_apply_cuda(g.contiguous(), seed, ctx.rate)
+
+        def plain(x_, s_, b_):
+            return G.gn_silu_plain(x_, s_, b_, num_groups=ctx.num_groups)
+
+        grads = _plain_grads(plain, (x, scale, bias), ctx.needs_input_grad[:3], gm)
+        return (*grads, None, None, None)
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return C.conv3x3_cuda(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        # through the plain conv with a zero bias; the bias gradient is the
+        # sum of g, taken in fp32 where the bias was added
+        zero = torch.zeros(w.shape[0], dtype=torch.float32, device=w.device)
+        dx, dw = _plain_grads(
+            lambda x_, w_: C.conv3x3_plain(x_, w_, zero), (x, w), ctx.needs_input_grad[:2], g
+        )
+        db = g.float().sum(dim=(0, 1, 2)) if ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ns, nb, wq, bq, wp, bp, num_heads, num_groups):
+        ctx.save_for_backward(x, ns, nb, wq, bq, wp, bp)
+        ctx.num_heads, ctx.num_groups = num_heads, num_groups
+        return A.attention_block_cuda(
+            x, ns, nb, wq, bq, wp, bp, num_heads=num_heads, num_groups=num_groups
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(*args):
+            return A.attention_block_plain(
+                *args, num_heads=ctx.num_heads, num_groups=ctx.num_groups
+            )
+
+        grads = _plain_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[:7], g)
+        return (*grads, None, None)
+
+
 def gn_silu(x: Tensor, scale: Tensor, bias: Tensor, *, num_groups: int = 8) -> Tensor:
     """Fused GroupNorm(num_groups) + SiLU over an NHWC tensor."""
-    fn = G.gn_silu_plain if _on_cpu(x) else G.gn_silu_cuda
-    return fn(x, scale, bias, num_groups=num_groups)
+    if _on_cpu(x):
+        return G.gn_silu_plain(x, scale, bias, num_groups=num_groups)
+    return _GnSilu.apply(x, scale, bias, num_groups)
+
+
+def gn_silu_dropout(
+    x: Tensor,
+    scale: Tensor,
+    bias: Tensor,
+    rate: float,
+    seed: Optional[D.Seed],
+    *,
+    train: bool,
+    num_groups: int = 8,
+) -> Tensor:
+    """GroupNorm + SiLU + dropout as one fused pass. In eval mode, at rate 0
+    or without a seed it is ``gn_silu``."""
+    if not train or rate <= 0.0 or seed is None:
+        return gn_silu(x, scale, bias, num_groups=num_groups)
+    if _on_cpu(x):
+        return D.gn_silu_dropout_plain(x, scale, bias, seed, rate, num_groups=num_groups)
+    seed = D.seed_tensor(seed, x.device)
+    return _GnSiluDropout.apply(x, scale, bias, seed, float(rate), num_groups)
 
 
 def conv2d_fused(x: Tensor, w_ohwi: Tensor, b: Tensor, *, stride: int = 1) -> Tensor:
     """NHWC conv with an OHWI weight: the conv3x3 kernel inside its contract,
     the plain conv outside it."""
     if C.supports(x.shape, w_ohwi.shape, stride):
-        fn = C.conv3x3_plain if _on_cpu(x) else C.conv3x3_cuda
-        return fn(x, w_ohwi, b)
+        if _on_cpu(x):
+            return C.conv3x3_plain(x, w_ohwi, b)
+        return _Conv3x3.apply(x, w_ohwi, b)
     return P.conv2d(x, w_ohwi.permute(0, 3, 1, 2), b, stride=stride)
 
 
@@ -53,8 +173,11 @@ def attention(
     num_groups: int = 8,
 ) -> Tensor:
     """Spatial self-attention block (norm -> qkv -> attn -> proj -> +x)."""
-    fn = A.attention_block_plain if _on_cpu(x) else A.attention_block_cuda
-    return fn(
-        x, norm_scale, norm_bias, w_qkv, b_qkv, w_proj, b_proj,
-        num_heads=num_heads, num_groups=num_groups,
+    if _on_cpu(x):
+        return A.attention_block_plain(
+            x, norm_scale, norm_bias, w_qkv, b_qkv, w_proj, b_proj,
+            num_heads=num_heads, num_groups=num_groups,
+        )
+    return _Attention.apply(
+        x, norm_scale, norm_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads, num_groups
     )

@@ -27,21 +27,27 @@ def gn_silu_plain(
     return P.silu(P.group_norm(x, scale, bias, num_groups=num_groups, eps=eps))
 
 
-def gn_silu_cuda(
-    x: Tensor, scale: Tensor, bias: Tensor, *, num_groups: int = 8, eps: float = 1e-5
-) -> Tensor:
-    """Launch the CUDA kernel. x: (B, H, W, C) bf16/fp32; scale, bias: (C,) fp32."""
-    build.require_cuda(x, "gn_silu")
-    b, h, w, c = x.shape
+def check_channels(kernel: str, x: Tensor, num_groups: int) -> None:
+    """Raise unless the GroupNorm kernels take x's channel count."""
+    c = x.shape[-1]
     # the kernel's vector: the widest (<= 16 bytes) that divides a group
     vec = 16 // x.element_size()
     while c % num_groups == 0 and (c // num_groups) % vec:
         vec //= 2
     if c % num_groups or c // vec > 256 or num_groups > 32:
         raise ValueError(
-            f"gn_silu: C={c} with {num_groups} groups is not supported (needs "
+            f"{kernel}: C={c} with {num_groups} groups is not supported (needs "
             f"C % groups == 0, C / {vec} <= 256, groups <= 32)"
         )
+
+
+def gn_silu_cuda(
+    x: Tensor, scale: Tensor, bias: Tensor, *, num_groups: int = 8, eps: float = 1e-5
+) -> Tensor:
+    """Launch the CUDA kernel. x: (B, H, W, C) bf16/fp32; scale, bias: (C,) fp32."""
+    build.require_cuda(x, "gn_silu")
+    b, h, w, c = x.shape
+    check_channels("gn_silu", x, num_groups)
     build.require(x, "x", device=x.device, dtype=x.dtype, shape=x.shape)
     for name, t in (("scale", scale), ("bias", bias)):
         build.require(t, name, device=x.device, dtype=torch.float32, shape=(c,))

@@ -109,9 +109,14 @@ def spatial_attention(
     return x + out
 
 
-def dropout(x: Tensor, rate: float, *, train: bool) -> Tensor:
-    """Eval-mode dropout is the identity; training dropout comes with the
-    training slice."""
-    if train and rate > 0.0:
-        raise NotImplementedError("training dropout is not ported yet")
-    return x
+def dropout(x: Tensor, rate: float, seed=None, *, train: bool) -> Tensor:
+    """Inverted dropout with an explicit seed (an int or a one-element int32
+    tensor): the identity in eval mode, at rate 0 or without a seed. The mask
+    is the fused kernels' (``ops/gn_silu_dropout.keep_mask``), so the same
+    seed drops the same elements on every path."""
+    if not train or rate <= 0.0 or seed is None:
+        return x
+    from rectified_flow_vision_tpu_torch.ops.gn_silu_dropout import keep_mask
+
+    keep = 1.0 - rate
+    return torch.where(keep_mask(x.shape, seed, rate, x.device), x / keep, torch.zeros_like(x))

@@ -71,6 +71,51 @@ def test_kernel_sources_are_listed():
 
     on_disk = {p.name for p in (PORT / "ops" / "csrc").glob("*.cu")}
     assert on_disk == set(build.SOURCES)
+    assert "gn_silu_dropout.cu" in build.SOURCES
+    # every kernel has a launch counter and every C entry point a signature
+    assert set(build.LAUNCHES) == {
+        "gn_silu", "conv3x3", "attention_block", "gn_silu_dropout", "dropout_mask_apply"
+    }
+    text = "".join((PORT / "ops" / "csrc" / name).read_text() for name in build.SOURCES)
+    for entry in build._SIGNATURES:
+        assert f"int {entry}(" in text, entry
+
+
+@pytest.mark.parametrize(
+    "trainer,option,item",
+    [
+        ("base", dict(mesh=object()), "A9"),
+        ("base", dict(fsdp=True), "A9"),
+        ("base", dict(resume_dir="state"), "A7"),
+        ("base", dict(use_native_loader=True), "A4"),
+        ("reflow", dict(mesh=object()), "A9"),
+        ("reflow", dict(fsdp=True), "A9"),
+        ("reflow", dict(resume_dir="state"), "A7"),
+    ],
+    ids=lambda v: v if isinstance(v, str) else "-".join(v),
+)
+def test_unported_trainer_options_raise_and_name_their_roadmap_item(trainer, option, item):
+    """What a later slice brings raises now, before any work, and says where
+    ROADMAP.md holds it; nothing is silently ignored."""
+    import numpy as np
+
+    from rectified_flow_vision_tpu_torch.models import (
+        RectifiedFlowModel,
+        train_base_flow,
+        train_rectified_flow,
+    )
+
+    model = RectifiedFlowModel(
+        image_size=8, model_channels=16, channel_mult=[1], num_res_blocks=1, device="cpu"
+    )
+    x = np.zeros((2, 8, 8, 3), np.float32)
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md item {item}"):
+        if trainer == "base":
+            train_base_flow(model, [x], epochs=1, **option)
+        else:
+            train_rectified_flow(model, x, x, epochs=1, data_format="NHWC", **option)
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    assert f"\n{item[1:]}. " in roadmap  # the item exists in section A
 
 
 def test_entry_points_default_to_cuda():

@@ -21,6 +21,7 @@ from rectified_flow_vision_tpu_torch.ops import build
 from rectified_flow_vision_tpu_torch.ops import conv3x3 as C
 from rectified_flow_vision_tpu_torch.ops import fused
 from rectified_flow_vision_tpu_torch.ops import gn_silu as G
+from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as D
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +98,151 @@ def test_attention_block(dev, dtype, shape):
                                **_tol(dtype, bf16_atol=6e-2))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "shape", [(3, 8, 8, 64), (2, 16, 16, 192), (1, 9, 7, 512), (2, 8, 8, 16), (1, 4, 4, 24)]
+)
+def test_gn_silu_dropout(dev, dtype, shape):
+    """The kernel's mask is the plain version's bit for bit (also with the
+    2- and 3-channel groups that take narrow vectors); kept values within the
+    gn_silu tolerances; the seed may be an int or an int32 tensor on the card."""
+    g = _gen(dev, 3)
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.3).to(dtype)
+    c = shape[-1]
+    s = torch.randn(c, generator=g, device=dev) * 0.2 + 1
+    b = torch.randn(c, generator=g, device=dev) * 0.2
+    seed, rate = 123456789, 0.3
+    before = build.LAUNCHES["gn_silu_dropout"]
+    out = fused.gn_silu_dropout(x, s, b, rate, seed, train=True)
+    assert build.LAUNCHES["gn_silu_dropout"] == before + 1
+    keep = D.keep_mask(shape, seed, rate, dev)
+    act = G.gn_silu_plain(x, s, b)
+    assert torch.equal((out != 0) | (act == 0), keep | (act == 0))
+    assert torch.equal(out[~keep], torch.zeros_like(out[~keep]))
+    want = D.gn_silu_dropout_plain(x, s, b, seed, rate)
+    torch.testing.assert_close(out.float(), want.float(), **_tol(dtype, fp32=1e-4))
+    seed_t = torch.tensor([seed], dtype=torch.int32, device=dev)
+    assert torch.equal(D.gn_silu_dropout_cuda(x, s, b, seed_t, rate), out)
+    assert not torch.equal(D.gn_silu_dropout_cuda(x, s, b, seed + 1, rate), out)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(3, 8, 8, 64), (2, 5, 7, 3), (4, 16, 16, 24), (2, 1023)])
+def test_dropout_mask_apply(dev, dtype, shape):
+    """Exact: the same bits, g * inv_keep in fp32, one rounding. Image sizes
+    that are no multiple of the vector width take the narrower vectors."""
+    g = torch.randn(shape, generator=_gen(dev, 4), device=dev).to(dtype)
+    before = build.LAUNCHES["dropout_mask_apply"]
+    out = D.dropout_mask_apply_cuda(g, -7, 0.1)
+    assert build.LAUNCHES["dropout_mask_apply"] == before + 1
+    assert torch.equal(out, D.dropout_mask_apply_plain(g, -7, 0.1))
+    assert torch.equal(D.dropout_mask_apply_plain(g.cpu(), -7, 0.1), out.cpu())
+
+
+def _grads(fn, args, cot):
+    leaves = [a.detach().clone().requires_grad_(a.is_floating_point()) for a in args]
+    out = fn(*leaves)
+    wanted = [a for a in leaves if a.requires_grad]
+    return out, torch.autograd.grad(out, wanted, cot)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("op", ["gn_silu", "gn_silu_dropout", "conv3x3", "attention_block"])
+def test_function_backward_matches_plain_autograd(dev, dtype, op):
+    """Each autograd Function (kernel forward, plain-version backward; the
+    dropout one through the dropout_mask_apply kernel) against ordinary
+    autograd of the plain version on the same inputs and cotangent."""
+    g = _gen(dev, 5)
+    c = 64
+    x = torch.randn((2, 8, 8, c), generator=g, device=dev).to(dtype)
+    cot = torch.randn((2, 8, 8, c), generator=g, device=dev).to(dtype)
+    s = torch.randn(c, generator=g, device=dev) * 0.2 + 1
+    b = torch.randn(c, generator=g, device=dev) * 0.2
+
+    def u(*shape):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) / c ** 0.5
+
+    if op == "gn_silu":
+        args = (x, s, b)
+        kernel, plain = fused.gn_silu, G.gn_silu_plain
+    elif op == "gn_silu_dropout":
+        args = (x, s, b)
+        before = build.LAUNCHES["dropout_mask_apply"]
+
+        def kernel(x_, s_, b_):
+            return fused.gn_silu_dropout(x_, s_, b_, 0.25, 77, train=True)
+
+        def plain(x_, s_, b_):
+            return D.gn_silu_dropout_plain(x_, s_, b_, 77, 0.25)
+    elif op == "conv3x3":
+        args = (x, u(c, 3, 3, c).to(dtype), u(c))
+        kernel, plain = fused.conv2d_fused, C.conv3x3_plain
+    else:
+        args = (x, s, b, u(3 * c, c).to(dtype), u(3 * c), u(c, c).to(dtype), u(c))
+        kernel, plain = fused.attention, A.attention_block_plain
+    out_k, grads_k = _grads(kernel, args, cot)
+    out_p, grads_p = _grads(plain, args, cot)
+    if op == "gn_silu_dropout":
+        assert build.LAUNCHES["dropout_mask_apply"] == before + 1
+    assert out_k.dtype == dtype and len(grads_k) == len(args)
+    for got, want, arg in zip(grads_k, grads_p, args):
+        assert got.dtype == arg.dtype and got.shape == arg.shape
+        # the backward is the plain version's own: what differs is the bf16
+        # rounding of the dropout cotangent (once in the kernel, twice in
+        # autograd's mul and where) and the bias gradient's fp32 sum
+        scale = float(want.float().abs().max())
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        assert float((got.float() - want.float()).abs().max()) <= tol * max(scale, 1.0)
+
+
+def test_train_forward_and_backward_launch_counts(dev):
+    """One loss and backward of a 64-channel UNet on the card: every kernel
+    site launches once forward, and each dropout site once more backward."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+
+    model = BaseFlowModel(image_size=16, model_channels=64, channel_mult=[1, 2],
+                          num_res_blocks=1, dropout=0.1, device=dev)
+    x1 = torch.randn((2, 16, 16, 3), generator=_gen(dev, 6), device=dev)
+    build.reset_launches()
+    loss = model.loss_fn(x1, torch.Generator(device=dev).manual_seed(0))
+    loss.backward()
+    # 6 residual blocks: norm1 (+ the head) gn_silu, norm2 gn_silu_dropout;
+    # conv1, conv2 and one upsample conv; one mid attention
+    assert build.LAUNCHES == {"gn_silu": 7, "gn_silu_dropout": 6, "dropout_mask_apply": 6,
+                              "conv3x3": 13, "attention_block": 1}
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+    cpu = BaseFlowModel(image_size=16, model_channels=64, channel_mult=[1, 2],
+                        num_res_blocks=1, dropout=0.1, device="cpu", params=model.params)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x0 = torch.randn(x1.shape, generator=gen, device=dev)
+    t = torch.rand((2,), generator=gen, device=dev)
+    seeds = torch.randint(2**31 - 1, (6,), generator=gen, dtype=torch.int32, device=dev)
+    ref = cpu.loss_fn(x1.cpu(), x0=x0.cpu(), t=t.cpu(), seeds=seeds.cpu())
+    assert abs(float(ref.detach()) - float(loss.detach())) <= 1e-4
+
+
+def test_remat_on_the_card_gives_the_same_gradients(dev):
+    """Residual blocks recomputed in the backward relaunch their kernels with
+    the saved seeds: the same loss and gradients, more launches."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+
+    cfg = dict(image_size=16, model_channels=64, channel_mult=[1, 2], num_res_blocks=1,
+               dropout=0.1, device=dev, seed=3)
+    x1 = torch.randn((2, 16, 16, 3), generator=_gen(dev, 7), device=dev)
+    out = []
+    for remat in (False, True):
+        model = BaseFlowModel(remat=remat, **cfg)
+        build.reset_launches()
+        loss = model.loss_fn(x1, torch.Generator(device=dev).manual_seed(1))
+        loss.backward()
+        out.append((loss.detach(), [p.grad for p in model.parameters()], dict(build.LAUNCHES)))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-6)
+    assert out[1][2]["gn_silu_dropout"] == 2 * out[0][2]["gn_silu_dropout"] == 12
+    assert out[1][2]["dropout_mask_apply"] == out[0][2]["dropout_mask_apply"] == 6
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_small_unet_on_the_card_matches_the_cpu(dev, dtype):
     """A UNet far from the flagship (16 channels, an 8x8 mid attention):
@@ -117,7 +263,8 @@ def test_small_unet_on_the_card_matches_the_cpu(dev, dtype):
         want = cpu(x, t, dtype=dt).float()
         got = gpu(x.to(dev), t.to(dev), dtype=dt).float().cpu()
     # 4 residual blocks x 2 + the head; 16 channels are outside conv3x3's contract
-    assert build.LAUNCHES == {"gn_silu": 9, "conv3x3": 0, "attention_block": 1}
+    assert build.LAUNCHES == {"gn_silu": 9, "conv3x3": 0, "attention_block": 1,
+                              "gn_silu_dropout": 0, "dropout_mask_apply": 0}
     tol = 1e-3 if dtype == "float32" else 0.03 * float(want.abs().max())
     assert float((got - want).abs().max()) <= tol
 
@@ -135,3 +282,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         C.conv3x3_cuda(x, torch.randn((64, 3, 3, 32), device=dev), s)
     with pytest.raises(ValueError, match="w has dtype"):
         C.conv3x3_cuda(x, torch.randn((64, 3, 3, 64), device=dev).bfloat16(), s)
+    with pytest.raises(ValueError, match="rate"):
+        D.gn_silu_dropout_cuda(x, s, s, 3, 1.0)
+    with pytest.raises(ValueError, match="seed"):
+        D.gn_silu_dropout_cuda(x, s, s, torch.tensor([3], device=dev), 0.1)  # int64
+    with pytest.raises(ValueError, match="contiguous"):
+        D.dropout_mask_apply_cuda(x.transpose(1, 2), 3, 0.1)

@@ -267,9 +267,10 @@ class TestPrimitives:
     def test_dropout_eval_is_identity(self):
         x = _t(_rng(13).standard_normal((2, 3)))
         assert TP.dropout(x, 0.1, train=False) is x
-        assert TP.dropout(x, 0.0, train=True) is x
-        with pytest.raises(NotImplementedError):
-            TP.dropout(x, 0.1, train=True)
+        assert TP.dropout(x, 0.0, 5, train=True) is x
+        assert TP.dropout(x, 0.1, None, train=True) is x  # no seed: as a JAX rng of None
+        out = TP.dropout(_t(np.ones((4, 64), np.float32)), 0.25, 5, train=True)
+        assert set(np.unique(_np(out))) == {0.0, np.float32(1.0) / np.float32(0.75)}
 
 
 class TestDispatch:
@@ -291,7 +292,8 @@ class TestDispatch:
         np.testing.assert_array_equal(
             _np(TF.attention(_t(x), *args)), _np(TA.attention_block_plain(_t(x), *args))
         )
-        assert build.LAUNCHES == {"gn_silu": 0, "conv3x3": 0, "attention_block": 0}
+        assert set(build.LAUNCHES) >= {"gn_silu", "conv3x3", "attention_block"}
+        assert sum(build.LAUNCHES.values()) == 0
 
     def test_conv_outside_contract_is_the_plain_conv(self):
         """A 3x3 conv with Cin = 3 is outside the contract: plain conv on
