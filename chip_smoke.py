@@ -11,11 +11,14 @@ card, outside a checkout, or when any phase fails. Phases, in order:
 2. build the CUDA kernels from ``rectified_flow_vision_tpu_torch/ops/csrc``;
 3. kernels: every kernel at every shape the flagship UNet's eval and train
    forwards give it (batch 256; shapes recorded from CPU forwards of the same
-   model), in bf16 and fp32, against its plain PyTorch version on the same
-   inputs within a stated tolerance, with the kernel's, the plain version's
-   and one PyTorch library call's times, and the card's least time (bound).
-   The two dropout kernels also: the mask equal to the plain version's bit
-   for bit, the dropped fraction, same seed same output, other seed other mask;
+   model), the flash-attention forward at the DiT-S/2 latent shapes (batch 256
+   and 64, 1024 tokens, 6 heads of 64) and at 16384 tokens, its backward at
+   batch 64, and the standalone dropout at three sizes, in bf16 and fp32,
+   against its plain PyTorch version on the same inputs within a stated
+   tolerance, with the kernel's, the plain version's and one PyTorch library
+   call's times, and the card's least time (bound). The dropout kernels also:
+   the mask equal to the plain version's bit for bit, the dropped fraction,
+   same seed same output, other seed other mask;
 4. model: a full-width UNet forward in fp32 at batch 4, kernels on the card
    against the plain path on the CPU;
 5. serve: ``SamplerService`` at full width, batch 256, steps (1, 2, 4), bf16,
@@ -33,13 +36,29 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    checkpoint; finite and falling losses, exact launch counts, and the same
    seeds giving the same loss trajectory twice;
 9. train timing and trace: img/s of ``make_train_epoch`` at batch 256 in bf16,
-   peak device memory, and one train step under ``torch.profiler``.
+   peak device memory, and one train step under ``torch.profiler``;
+10. dropout: ``ops.primitives.dropout`` on tensors on the card, forward and
+    gradient (no model of either package calls the standalone kernel);
+11. DiT model and gradient: DiT-S/2 (hidden 384, depth 12, 6 heads, patch 2,
+    64x64x4 latents, ``remat``) in fp32 at batch 4 with all-random parameters:
+    the forward, the loss and every parameter's gradient on the card (flash
+    kernels forward and backward) against the plain path on the CPU;
+12. latent serve: ``SamplerService`` with a ConvVAE (256x256x3, base 64,
+    downsample 4; seeded weights for both), batch 256, steps (1, 2, 4), bf16
+    flow and bf16 decode, three requests; exact flash launch counts, outputs
+    finite and in [-1, 1], same seed same images, pixel img/s, peak memory,
+    and one 4-step batch under ``torch.profiler``;
+13. latent train: a seeded 256-image 256x256 corpus; ``train_vae``; encode;
+    ``train_base_flow(backbone="dit")`` at batch 64, lr 1e-4 with warm-up, EMA;
+    heun pairs; ``train_rectified_flow`` (teacher-init, u-shaped t);
+    straightness; ``LatentFlowPipeline.sample`` from the EMA checkpoint; exact
+    launch counts; a second base run bit for bit; then DiT train img/s at
+    batch 64, peak memory and a train-step trace.
 
 Every number is printed; the last two lines of standard output are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``. The profiler
-traces are kept in ``build/serve_trace.json`` and ``build/train_trace.json``
-(chrome trace format); checkpoints of the train phase go to
-``build/smoke_ckpt/``.
+traces are kept in ``build/*_trace.json`` (chrome trace format); checkpoints
+of the train phases go to ``build/smoke_ckpt/``.
 """
 
 from __future__ import annotations
@@ -85,7 +104,21 @@ TOLERANCES = {
     # dropout_mask_apply: the same fp32 product and one rounding: exact.
     ("dropout_mask_apply", "float32"): (0.0, 0.0),
     ("dropout_mask_apply", "bfloat16"): (0.0, 0.0),
+    ("dropout", "float32"): (0.0, 0.0),
+    ("dropout", "bfloat16"): (0.0, 0.0),
+    # flash attention, fp32: the same fp32 arithmetic with the softmax taken
+    # tile by tile. bf16: the kernel rounds unnormalised probabilities and
+    # divides by the fp32 sum at the end, the plain version rounds normalised
+    # ones: a few bf16 ulps of outputs below 1 (one ulp is 0.004 in [0.5, 1)).
+    ("flash_attention", "float32"): (1e-4, 1e-4),
+    ("flash_attention", "bfloat16"): (2e-2, 2e-2),
+    # backward: the plain version follows the kernels' formulas and rounds P
+    # and dS to bf16 where they do; the atol is in units of the largest
+    # gradient entry (SCALED_ATOL), since gradients have no natural scale.
+    ("flash_attention_backward", "float32"): (1e-4, 1e-4),
+    ("flash_attention_backward", "bfloat16"): (2e-2, 2e-2),
 }
+SCALED_ATOL = {"flash_attention_backward"}
 DROP_RATE = 0.1  # the flagship config's dropout
 DROP_FRACTION_TOL = 0.002  # of >= 16.7M elements: 27 standard deviations at least
 # fp32 full-width forward, kernels on the card vs plain on the CPU: ~60
@@ -104,8 +137,35 @@ TRAIN_STEP_LAUNCHES = {"gn_silu": 15, "gn_silu_dropout": 14, "dropout_mask_apply
                        "conv3x3": 30, "attention_block": 1}
 EVAL_FORWARD_LAUNCHES = {"gn_silu": 29, "gn_silu_dropout": 0, "dropout_mask_apply": 0,
                          "conv3x3": 30, "attention_block": 1}
-TRAIN = dict(images=512, batch=64, base_epochs=8, reflow_epochs=6, lr=2e-4, ema=0.999,
+TRAIN = dict(images=512, batch=64, base_epochs=4, reflow_epochs=3, lr=2e-4, ema=0.999,
              pairs=512, pair_batch=256, teacher_steps=8, straight_points=10, samples=64)
+
+# The latent path: DiT-S/2 on 64x64x4 latents of 256x256x3 images
+# (configs/config_dit256.yaml), full width and depth.
+DIT = dict(image_size=64, in_channels=4, backbone="dit", dit_size="S", patch_size=2, remat=True)
+DIT_DEPTH, DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM = 12, 1024, 6, 64
+VAE = dict(image_size=256, in_channels=3, latent_channels=4, base_channels=64, downsample=4)
+# cut against the config: corpus (256 for 500), VAE epochs (3 for 40), base
+# epochs (8 for 400, warm-up 1 for 10), reflow epochs (4 for 50), pairs (256
+# for 5000), teacher steps (4 for 100); widths, depth and the recipe are its own
+LATENT = dict(images=256, vae_epochs=3, vae_batch=32, batch=64, base_epochs=8, warmup_epochs=1,
+              reflow_epochs=4, lr=1e-4, ema=0.999, pairs=256, pair_batch=256, teacher_steps=4,
+              straight_points=4, samples=16)
+FLASH_FWD_SHAPES = ((BATCH, DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM),
+                    (LATENT["batch"], DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM),
+                    (2, 16384, DIT_HEADS, DIT_HEAD_DIM))
+FLASH_BWD_SHAPE = (LATENT["batch"], DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM)
+DROPOUT_SHAPES = ((1024, 1024), (64, 1024, 384), (256, 64, 64, 64))
+
+
+def all_counts(build, **counts):
+    """Expected launch counts by kernel: ``counts``, and 0 for every other."""
+    return {name: counts.get(name, 0) for name in build.LAUNCHES}
+
+
+def nonzero(counts):
+    """The kernels that were launched, for a log line."""
+    return {name: n for name, n in counts.items() if n}
 
 
 def fail(msg: str) -> None:
@@ -284,7 +344,86 @@ def kernel_cases(torch, shape_calls, drop_calls):
         cases.append(("attention_block", (BATCH, h, w, c), n, make,
                       lambda es, c=c, nt=nt: (2 * BATCH * nt * c + 4 * c * c) * es + 6 * c * 4,
                       flops))
+    return cases + flash_cases(torch, randn) + dropout_cases(torch, randn, seed)
+
+
+def flash_cases(torch, randn):
+    """Flash attention forward at the DiT-S/2 latent shapes (12 calls per DiT
+    forward at batch 256; 24 per ``remat`` train step at batch 64) and at 16384
+    tokens, and its backward at batch 64 (12 calls per train step). q, k, v
+    are the three views of one [B, T, 3, H, D] tensor, as DiT hands them over.
+    Bound: forward 4 B H T^2 D flops, backward 2.5 times that; every input
+    read once, every output written once."""
+    import torch.nn.functional as F
+
+    from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+
+    cases = []
+    for shape in FLASH_FWD_SHAPES:
+        b, t, h, d = shape
+
+        def make(dt, shape=shape):
+            b, t, h, d = shape
+            q, k, v = randn(b, t, 3, h, d, dtype=dt).unbind(2)
+            return (
+                lambda: FA.flash_attention_cuda(q, k, v)[0],
+                lambda: FA.flash_attention_plain(q, k, v),
+                lambda: sdpa(q, k, v),
+            )
+        elems = b * t * h * d
+        calls = {BATCH: DIT_DEPTH, LATENT["batch"]: 2 * DIT_DEPTH}.get(b, 0)
+        cases.append(("flash_attention", shape, calls, make,
+                      lambda es, e=elems, r=b * h * t: 4 * e * es + 4 * r,
+                      4 * b * h * t * t * d))
+
+    b, t, h, d = FLASH_BWD_SHAPE
+
+    def make(dt):
+        q, k, v = randn(b, t, 3, h, d, dtype=dt).unbind(2)
+        g = randn(b, t, h, d, dtype=dt)
+        out, lse = FA.flash_attention_cuda(q, k, v)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        lib_out = sdpa(*leaves)
+        return (
+            lambda: FA.flash_attention_backward_cuda(q, k, v, out, lse, g),
+            lambda: FA.flash_attention_backward_plain(q, k, v, out, lse, g),
+            lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True),
+        )
+    elems = b * t * h * d
+    cases.append(("flash_attention_backward", FLASH_BWD_SHAPE, DIT_DEPTH, make,
+                  lambda es, e=elems, r=b * h * t: 8 * e * es + 4 * r,
+                  10 * b * h * t * t * d))
     return cases
+
+
+def dropout_cases(torch, randn, seed):
+    import torch.nn.functional as F
+
+    from rectified_flow_vision_tpu_torch.ops import dropout as DR
+
+    cases = []
+    for shape in DROPOUT_SHAPES:
+        def make(dt, shape=shape):
+            x = randn(*shape, dtype=dt)
+            return (
+                lambda seed=seed: DR.dropout_cuda(x, seed, DROP_RATE),
+                lambda: DR.dropout_plain(x, seed, DROP_RATE),
+                lambda: F.dropout(x, DROP_RATE, training=True),
+            )
+        elems = math.prod(shape)
+        cases.append(("dropout", shape, 1, make, lambda es, e=elems: 2 * e * es + 4, 20 * elems))
+    return cases
+
+
+def as_one(torch, out):
+    """A kernel's output as one fp32 tensor (the backward gives three)."""
+    if isinstance(out, (tuple, list)):
+        return torch.cat([t.float().reshape(-1) for t in out])
+    return out.float()
 
 
 def dropout_checks(torch, name, dname, shape, kernel, got, want) -> str:
@@ -316,18 +455,21 @@ def kernel_phase(torch, shape_calls, drop_calls):
     for name, shape, count, make, bytes_fn, flops in kernel_cases(torch, shape_calls, drop_calls):
         for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             kernel, plain, library = make(dt)
-            got, want = kernel().float(), plain().float()
+            got, want = as_one(torch, kernel()), as_one(torch, plain())
             torch.cuda.synchronize()
             if tuple(got.shape) != tuple(want.shape) or not torch.isfinite(got).all():
                 fail(f"{name} {dname} {shape}: bad shape or non-finite output")
             note = ""
-            if name in ("gn_silu_dropout", "dropout_mask_apply"):
+            if name in ("gn_silu_dropout", "dropout_mask_apply", "dropout"):
                 note = " | " + dropout_checks(torch, name, dname, shape, kernel, got, want)
             err = (got - want).abs()
             rtol, atol = TOLERANCES[(name, dname)]
+            if name in SCALED_ATOL:
+                atol *= max(float(want.abs().max()), 1.0)
             ok = bool((err <= atol + rtol * want.abs()).all())
             max_abs = float(err.max())
             max_rel = max_abs / max(float(want.abs().max()), 1e-30)
+            del err
             k_ms = time_ms(torch, kernel)
             p_ms = time_ms(torch, plain)
             l_ms = time_ms(torch, library)
@@ -370,7 +512,7 @@ def model_phase(torch, UNet):
     with torch.no_grad():
         want = cpu(x, t)
         got = gpu(x.cuda(), t.cuda()).cpu()
-    if dict(build.LAUNCHES) != EVAL_FORWARD_LAUNCHES:
+    if dict(build.LAUNCHES) != all_counts(build, **EVAL_FORWARD_LAUNCHES):
         fail(f"model forward launches {dict(build.LAUNCHES)}, expected {EVAL_FORWARD_LAUNCHES}")
     if tuple(got.shape) != (4, 64, 64, 3) or not torch.isfinite(got).all():
         fail("model forward: bad shape or non-finite output")
@@ -403,8 +545,8 @@ def serve_phase(torch, build):
         lat[f"{n}x{steps}"] = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     forwards = (1 + 2 + 4) + 1 * 1 + 1 * 2 + 2 * 4  # warmup + requests (300 -> 2 batches)
-    expect = {k: v * forwards for k, v in EVAL_FORWARD_LAUNCHES.items()}
-    log(f"serve: warmup {warm_s:.2f} s, requests {lat}, launches {launches}")
+    expect = all_counts(build, **{k: v * forwards for k, v in EVAL_FORWARD_LAUNCHES.items()})
+    log(f"serve: warmup {warm_s:.2f} s, requests {lat}, launches {nonzero(launches)}")
     if launches != expect:
         fail(f"main-path launches {launches}, expected {expect}")
 
@@ -417,9 +559,9 @@ def serve_phase(torch, build):
     build.reset_launches()
     svc.generate(BATCH, num_steps=4)
     one_batch = dict(build.LAUNCHES)
-    if one_batch != {k: 4 * v for k, v in EVAL_FORWARD_LAUNCHES.items()}:
+    if one_batch != all_counts(build, **{k: 4 * v for k, v in EVAL_FORWARD_LAUNCHES.items()}):
         fail(f"one 4-step batch launched {one_batch}, expected 4 forwards")
-    log(f"serve: one 4-step batch of {BATCH} launched {one_batch}")
+    log(f"serve: one 4-step batch of {BATCH} launched {nonzero(one_batch)}")
 
     again = SamplerService(model, step_counts=(1,), batch_size=BATCH, seed=SEED, warmup=False)
     same = again.generate(16, num_steps=1)
@@ -433,8 +575,13 @@ def serve_phase(torch, build):
 
 KERNEL_GROUPS = (
     # substring of the device kernel's name -> group; first match wins
+    ("flash_fwd", "flash_attention forward"),
+    ("flash_dkv", "flash_attention backward (dkv)"),
+    ("flash_dq", "flash_attention backward (dq)"),
+    ("flash_delta", "flash_attention backward (delta)"),
     ("conv3x3", "conv3x3"),
     ("gn_apply_dropout", "gn_silu_dropout (apply)"),
+    ("dropout_kernel", "dropout"),
     ("dropout_mask_apply", "dropout_mask_apply"),
     ("gn_stats", "gn statistics (gn_silu and gn_silu_dropout)"),
     ("gn_apply", "gn_silu (apply)"),
@@ -442,6 +589,8 @@ KERNEL_GROUPS = (
     ("adam", "optimizer"),
     ("multi_tensor", "optimizer"),
     ("cudnn", "cuDNN / cuBLAS (plain convs, backward)"),
+    ("nvjet", "cuDNN / cuBLAS (plain convs, backward)"),
+    ("cublas", "cuDNN / cuBLAS (plain convs, backward)"),
     ("cutlass", "cuDNN / cuBLAS (plain convs, backward)"),
     ("xmma", "cuDNN / cuBLAS (plain convs, backward)"),
     ("gemm", "cuDNN / cuBLAS (plain convs, backward)"),
@@ -524,7 +673,7 @@ def gradient_phase(torch, build) -> None:
     got = gpu.loss_fn(x1.cuda(), x0=x0.cuda(), t=t.cuda(), seeds=seeds.cuda())
     got.backward()
     torch.cuda.synchronize()
-    if dict(build.LAUNCHES) != TRAIN_STEP_LAUNCHES:
+    if dict(build.LAUNCHES) != all_counts(build, **TRAIN_STEP_LAUNCHES):
         fail(f"loss + backward launched {dict(build.LAUNCHES)}, expected {TRAIN_STEP_LAUNCHES}")
     loss_err = abs(float(got.detach()) - float(want.detach()))
     worst, worst_name = 0.0, ""
@@ -635,8 +784,9 @@ def train_phase(torch, build):
     train_steps = (cfg["base_epochs"] + cfg["reflow_epochs"]) * steps_per_epoch
     forwards = (-(-cfg["pairs"] // cfg["pair_batch"]) * cfg["teacher_steps"] * 2  # heun
                 + cfg["straight_points"] + 4)
-    expect = {k: train_steps * TRAIN_STEP_LAUNCHES[k] + forwards * EVAL_FORWARD_LAUNCHES[k]
-              for k in TRAIN_STEP_LAUNCHES}
+    expect = all_counts(build, **{
+        k: train_steps * TRAIN_STEP_LAUNCHES[k] + forwards * EVAL_FORWARD_LAUNCHES[k]
+        for k in TRAIN_STEP_LAUNCHES})
     log(f"train: base {cfg['base_epochs']} epochs x {steps_per_epoch} steps of {cfg['batch']} in "
         f"{base_s:.1f} s, losses {[round(v, 4) for v in base_losses]}")
     log(f"train: {cfg['pairs']} heun pairs at {cfg['teacher_steps']} teacher steps (the config "
@@ -645,7 +795,7 @@ def train_phase(torch, build):
         f"in {reflow_s:.1f} s, losses {[round(v, 5) for v in reflow_losses]}; straightness "
         f"{straight:.5f}; {cfg['samples']} 4-step samples from the EMA in "
         f"[{imgs.min():.3f}, {imgs.max():.3f}]")
-    log(f"train: launches {launches}")
+    log(f"train: launches {nonzero(launches)}")
     if launches != expect:
         fail(f"train-path launches {launches}, expected {expect} "
              f"({train_steps} train steps, {forwards} eval forwards)")
@@ -680,7 +830,7 @@ def train_timing_phase(torch, build, model, data) -> None:
     build.reset_launches()
     epoch(corpus, perm(1), gen)
     torch.cuda.synchronize()
-    if dict(build.LAUNCHES) != TRAIN_STEP_LAUNCHES:
+    if dict(build.LAUNCHES) != all_counts(build, **TRAIN_STEP_LAUNCHES):
         fail(f"one train step launched {dict(build.LAUNCHES)}, expected {TRAIN_STEP_LAUNCHES}")
     torch.cuda.reset_peak_memory_stats()
     rates = []
@@ -701,6 +851,341 @@ def train_timing_phase(torch, build, model, data) -> None:
     one = perm(1)
     profile_device(torch, lambda: epoch(corpus, one, gen), "train_trace.json",
                    f"one train step of {BATCH}")
+
+
+def dropout_phase(torch, build):
+    """The standalone dropout through the function a user calls,
+    ``ops.primitives.dropout``, forward and gradient, on tensors on the card.
+    No model of either package calls it (the UNet's dropout is fused into
+    ``gn_silu_dropout``, DiT has none), so this direct run is its path.
+    Returns its launch counts."""
+    from rectified_flow_vision_tpu_torch.ops import dropout as DR
+    from rectified_flow_vision_tpu_torch.ops import primitives as P
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    build.reset_launches()
+    for shape in DROPOUT_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16).requires_grad_()
+        g = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+        seed = torch.randint(2**31 - 1, (1,), generator=gen, dtype=torch.int32, device="cuda")
+        out = P.dropout(x, DROP_RATE, seed, train=True)
+        (grad,) = torch.autograd.grad(out, x, g)
+        if not torch.equal(grad, DR.dropout_plain(g, seed, DROP_RATE)):
+            fail(f"dropout {shape}: the gradient is not the mask applied to the cotangent")
+        if P.dropout(x, DROP_RATE, seed, train=False) is not x:
+            fail("dropout in eval mode is not the identity")
+    launches = dict(build.LAUNCHES)
+    expect = all_counts(build, dropout=2 * len(DROPOUT_SHAPES))
+    log(f"dropout: P.dropout forward and gradient at {DROPOUT_SHAPES}: launches {nonzero(launches)}")
+    if launches != expect:
+        fail(f"dropout launches {launches}, expected {expect}")
+    return launches
+
+
+def randomize_zero_leaves(torch, model, seed: int) -> None:
+    """adaLN-Zero starts every gate, the head and every bias at zero, which
+    makes a fresh DiT the zero function: fill the all-zero parameters with
+    N(0, 0.02) from a seed, so that every block reaches the output."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not bool(p.any()):
+                p.copy_((torch.randn(p.shape, generator=g) * 0.02).to(p.device))
+
+
+def dit_model_phase(torch, build) -> None:
+    """DiT-S/2 at full width and depth in fp32, batch 4, all parameters
+    random: the forward, the loss and every parameter's gradient on the card
+    (flash kernels forward and backward, ``remat``) against the CPU plain path."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+
+    cpu = BaseFlowModel(seed=SEED, device="cpu", **DIT)
+    randomize_zero_leaves(torch, cpu, SEED + 4)
+    gpu = BaseFlowModel(seed=SEED, device="cuda", **DIT)
+    gpu.load_state_dict(cpu.state_dict())
+    if cpu.num_parameters() != 32_867_728:
+        fail(f"DiT-S/2 has {cpu.num_parameters()} parameters")
+    g = torch.Generator().manual_seed(SEED + 5)
+    x1 = torch.tanh(torch.randn((4, 64, 64, 4), generator=g))
+    x0 = torch.randn((4, 64, 64, 4), generator=g)
+    t = torch.rand((4,), generator=g)
+
+    build.reset_launches()
+    with torch.no_grad():
+        want = cpu.velocity_net(x0, t)
+        got = gpu.velocity_net(x0.cuda(), t.cuda()).cpu()
+    expect = all_counts(build, flash_attention=DIT_DEPTH)
+    if dict(build.LAUNCHES) != expect:
+        fail(f"DiT forward launches {dict(build.LAUNCHES)}, expected {expect}")
+    if tuple(got.shape) != (4, 64, 64, 4) or not torch.isfinite(got).all():
+        fail("DiT forward: bad shape or non-finite output")
+    err = float((got - want).abs().max())
+    log(f"DiT-S/2 fp32 forward (4, 64, 64, 4), all parameters random: kernels on the card vs "
+        f"plain on the CPU max_abs {err:.3e} (atol {MODEL_ATOL}) max|v| "
+        f"{float(want.abs().max()):.3f}")
+    if not err <= MODEL_ATOL or float(want.abs().max()) < 0.05:
+        fail(f"DiT forward differs from the plain path by {err:.3e} (or is degenerate)")
+
+    ref = cpu.loss_fn(x1, x0=x0, t=t)
+    ref.backward()
+    build.reset_launches()
+    loss = gpu.loss_fn(x1.cuda(), x0=x0.cuda(), t=t.cuda())
+    loss.backward()
+    torch.cuda.synchronize()
+    expect = all_counts(build, flash_attention=2 * DIT_DEPTH, flash_attention_backward=DIT_DEPTH)
+    if dict(build.LAUNCHES) != expect:
+        fail(f"DiT loss + backward launched {dict(build.LAUNCHES)}, expected {expect}")
+    loss_err = abs(float(loss.detach()) - float(ref.detach()))
+    worst, worst_name = 0.0, ""
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        if pg.grad is None or not torch.isfinite(pg.grad).all():
+            fail(f"DiT gradient of {name} is missing or non-finite")
+        err = float((pg.grad.cpu() - pc.grad).abs().max())
+        ratio = err / (GRAD_RTOL * float(pc.grad.abs().max()) + GRAD_ATOL)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    log(f"DiT-S/2 gradient fp32 batch 4, remat: loss {float(loss.detach()):.6f} (CPU plain "
+        f"{float(ref.detach()):.6f}, |diff| {loss_err:.2e}, atol {LOSS_ATOL}); worst gradient "
+        f"{worst_name} at {worst:.3f} of its tolerance ({GRAD_RTOL} x max|g| + {GRAD_ATOL})")
+    if loss_err > LOSS_ATOL or worst > 1.0:
+        fail("DiT loss or gradients on the card differ from the CPU plain path")
+
+
+def latent_serve_phase(torch, build):
+    """Latent serving at full width: a DiT-S/2 flow on 64x64x4 latents and a
+    ConvVAE decode to 256x256x3, batch 256, bf16 flow and bf16 decode."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel, ConvVAE
+    from rectified_flow_vision_tpu_torch.serving import SamplerService
+
+    model = BaseFlowModel(seed=SEED, sample_dtype="bfloat16", device="cuda", **DIT)
+    randomize_zero_leaves(torch, model, SEED + 6)
+    vae = ConvVAE(seed=SEED, device="cuda", **VAE)
+    torch.cuda.reset_peak_memory_stats()
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    svc = SamplerService(model, step_counts=(1, 2, 4), batch_size=BATCH, method="euler",
+                         seed=SEED, vae=vae)
+    warm_s = time.perf_counter() - t0
+    outs, lat = {}, {}
+    for n, steps in ((16, 1), (256, 2), (300, 4)):
+        t0 = time.perf_counter()
+        outs[(n, steps)] = svc.generate(n, num_steps=steps)
+        lat[f"{n}x{steps}"] = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    forwards = (1 + 2 + 4) + 1 * 1 + 1 * 2 + 2 * 4  # warmup + requests (300 -> 2 batches)
+    expect = all_counts(build, flash_attention=DIT_DEPTH * forwards)
+    log(f"latent serve: warmup {warm_s:.2f} s, requests {lat}, launches {nonzero(launches)}")
+    if launches != expect:
+        fail(f"latent serve launches {launches}, expected {expect}")
+    for (n, steps), imgs in outs.items():
+        if imgs.shape != (n, 3, 256, 256):
+            fail(f"latent generate({n}, {steps}) returned shape {imgs.shape}")
+        if not np.isfinite(imgs).all() or imgs.min() < -1.0 or imgs.max() > 1.0:
+            fail(f"latent generate({n}, {steps}): non-finite or outside [-1, 1]")
+        if float(imgs.std()) < 1e-3:
+            fail(f"latent generate({n}, {steps}): constant images")
+
+    again = SamplerService(model, step_counts=(1,), batch_size=BATCH, seed=SEED, vae=vae,
+                           warmup=False)
+    if not np.array_equal(again.generate(16, num_steps=1), outs[(16, 1)]):
+        fail("latent serve: same seed gave different images")
+    img_s = svc.throughput(4)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"latent serve: same seed gives the same images; throughput(4) {img_s:.2f} img/s of "
+        f"256x256 pixels (batch {BATCH}, bf16 flow, bf16 decode); peak device memory "
+        f"{peak:.2f} GiB")
+    sampler, noise = svc._samplers[4], svc._noise()
+    profile_device(torch, lambda: svc._run(sampler, noise), "latent_serve_trace.json",
+                   f"one 4-step latent batch of {BATCH} with its decode")
+    return launches
+
+
+def make_corpus_256(n: int) -> np.ndarray:
+    """A seeded corpus of 256x256 images in [-1, 1]: smooth blobs (a 16x16
+    normal field, upsampled) plus fine noise."""
+    r = np.random.default_rng(SEED + 7)
+    coarse = np.kron(r.standard_normal((n, 16, 16, 3)).astype(np.float32),
+                     np.ones((1, 16, 16, 1), np.float32))
+    fine = 0.1 * r.standard_normal((n, 256, 256, 3), dtype=np.float32)
+    return np.tanh(coarse + fine)
+
+
+def latent_train_phase(torch, build):
+    """The latent training path at full width, through the entry points a
+    user calls: train_vae, encode, train_base_flow(dit), pairs, reflow,
+    straightness, pipeline samples. Returns (launches, base model, latents)."""
+    from rectified_flow_vision_tpu_torch import (
+        ArrayDataset, BaseFlowModel, ConvVAE, LatentFlowPipeline, RectifiedFlowModel,
+        generate_reflow_pairs, train_base_flow, train_rectified_flow, train_vae,
+    )
+    from rectified_flow_vision_tpu_torch.models.autoencoder import vae_loss
+
+    cfg = LATENT
+    images = make_corpus_256(cfg["images"])
+    ckpt_dir = ROOT / "build" / "smoke_ckpt"
+    steps_per_epoch = cfg["images"] // cfg["batch"]
+
+    build.reset_launches()  # the main path: counts from 0
+    vae = ConvVAE(seed=SEED, device="cuda", **VAE)
+    probe = torch.as_tensor(images[: cfg["vae_batch"]], device="cuda")
+    with torch.no_grad():
+        mse0 = float(vae_loss(vae, probe, 1e-4, torch.Generator(device="cuda").manual_seed(SEED))[1])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, mse = train_vae(vae, images, epochs=cfg["vae_epochs"], batch_size=cfg["vae_batch"],
+                       seed=SEED, progress=False)
+    vae_s = time.perf_counter() - t0
+    vae_peak = torch.cuda.max_memory_allocated() / 2**30
+    if not (np.isfinite(mse) and mse < mse0):
+        fail(f"train_vae: reconstruction MSE {mse0} -> {mse} did not fall")
+    vae.save(str(ckpt_dir / "vae.npz"))
+    vae = ConvVAE.load(str(ckpt_dir / "vae.npz"), device="cuda")
+    with torch.no_grad():
+        latents = np.concatenate([
+            vae.encode(torch.as_tensor(images[i : i + cfg["vae_batch"]], device="cuda"))
+            .cpu().numpy() for i in range(0, cfg["images"], cfg["vae_batch"])])
+    if latents.shape != (cfg["images"], 64, 64, 4) or not np.isfinite(latents).all():
+        fail(f"encoded corpus: shape {latents.shape} or non-finite")
+    log(f"latent train: train_vae {cfg['vae_epochs']} epochs of {cfg['images'] // cfg['vae_batch']}"
+        f" x {cfg['vae_batch']} at 256x256 in {vae_s:.1f} s, recon MSE {mse0:.5f} -> {mse:.5f}, "
+        f"scaling factor {vae.scaling_factor:.4f}, latent std {latents.std():.4f}, peak device "
+        f"memory {vae_peak:.2f} GiB")
+    data = ArrayDataset(latents)
+
+    def base_run(save_path):
+        model = BaseFlowModel(seed=SEED, compute_dtype="bfloat16", sample_dtype="bfloat16",
+                              device="cuda", **DIT)
+        losses = train_base_flow(
+            model, data, epochs=cfg["base_epochs"], lr=cfg["lr"], batch_size=cfg["batch"],
+            save_path=save_path, save_every=cfg["base_epochs"], seed=SEED, progress=False,
+            ema_decay=cfg["ema"], warmup_epochs=cfg["warmup_epochs"],
+        )
+        return model, losses
+
+    t0 = time.perf_counter()
+    base, base_losses = base_run(str(ckpt_dir / "dit_base"))
+    base_s = time.perf_counter() - t0
+    if not np.isfinite(base_losses).all() or not base_losses[-1] < base_losses[0]:
+        fail(f"train_base_flow(dit): losses not finite and falling: {base_losses}")
+
+    t0 = time.perf_counter()
+    x0, x1 = generate_reflow_pairs(
+        base, cfg["pairs"], batch_size=cfg["pair_batch"], num_steps=cfg["teacher_steps"],
+        seed=SEED, data_format="NHWC", method="heun",
+    )
+    pairs_s = time.perf_counter() - t0
+    if x0.shape != (cfg["pairs"], 64, 64, 4) or x1.shape != x0.shape:
+        fail(f"generate_reflow_pairs(dit) returned {x0.shape}, {x1.shape}")
+    if not (np.isfinite(x0).all() and np.isfinite(x1).all()):
+        fail("generate_reflow_pairs(dit): non-finite pairs")
+
+    student = RectifiedFlowModel.from_base_model(base, copy_weights=True, seed=SEED + 1000)
+    student.reflow_iteration = 1
+    t0 = time.perf_counter()
+    reflow_losses = train_rectified_flow(
+        student, x0, x1, epochs=cfg["reflow_epochs"], batch_size=cfg["batch"], lr=cfg["lr"],
+        save_path=str(ckpt_dir / "dit_reflow_k1"), save_every=cfg["reflow_epochs"], seed=SEED,
+        data_format="NHWC", progress=False, ema_decay=cfg["ema"], time_sampling="u_shaped",
+    )
+    reflow_s = time.perf_counter() - t0
+    # as for the UNet: the student starts at the teacher, so its loss on the
+    # teacher's own couplings is held below the base flow's last loss
+    if not np.isfinite(reflow_losses).all() or not reflow_losses[-1] < base_losses[-1]:
+        fail(f"train_rectified_flow(dit): losses {reflow_losses} vs base {base_losses[-1]}")
+
+    straight = student.compute_straightness(
+        x0[: cfg["samples"]], x1[: cfg["samples"]], cfg["straight_points"], data_format="NHWC")
+    if not (np.isfinite(straight) and straight >= 0.0):
+        fail(f"compute_straightness(dit) returned {straight}")
+
+    ema_model = BaseFlowModel.from_checkpoint(str(ckpt_dir / "dit_reflow_k1_ema_final.npz"),
+                                              device="cuda")
+    if not (isinstance(ema_model, RectifiedFlowModel) and ema_model.backbone == "dit"
+            and ema_model.velocity_net.cfg.remat and ema_model.reflow_iteration == 1):
+        fail("the DiT student's EMA checkpoint did not come back as it was saved")
+    imgs = LatentFlowPipeline(ema_model, vae).sample(
+        num_steps=4, batch_size=cfg["samples"],
+        generator=torch.Generator(device="cuda").manual_seed(SEED)).cpu().numpy()
+    launches = dict(build.LAUNCHES)
+    if imgs.shape != (cfg["samples"], 3, 256, 256) or not np.isfinite(imgs).all():
+        fail(f"pipeline samples: shape {imgs.shape} or non-finite")
+    if imgs.min() < -1.0 or imgs.max() > 1.0:
+        fail("pipeline samples leave [-1, 1]")
+
+    train_steps = (cfg["base_epochs"] + cfg["reflow_epochs"]) * steps_per_epoch
+    forwards = (-(-cfg["pairs"] // cfg["pair_batch"]) * cfg["teacher_steps"] * 2  # heun
+                + cfg["straight_points"] + 4)
+    expect = all_counts(
+        build, flash_attention=DIT_DEPTH * (2 * train_steps + forwards),
+        flash_attention_backward=DIT_DEPTH * train_steps)
+    log(f"latent train: DiT-S/2 base {cfg['base_epochs']} epochs x {steps_per_epoch} steps of "
+        f"{cfg['batch']} (lr {cfg['lr']}, warm-up {cfg['warmup_epochs']} epoch, EMA {cfg['ema']}, "
+        f"remat) in {base_s:.1f} s, losses {[round(v, 4) for v in base_losses]}")
+    log(f"latent train: {cfg['pairs']} heun pairs at {cfg['teacher_steps']} teacher steps (the "
+        f"config has 100), pair batch {cfg['pair_batch']}, in {pairs_s:.1f} s; reflow "
+        f"{cfg['reflow_epochs']} epochs (teacher-init, u_shaped) in {reflow_s:.1f} s, losses "
+        f"{[round(v, 5) for v in reflow_losses]}; straightness {straight:.5f}; "
+        f"{cfg['samples']} 4-step 256x256 samples from the EMA in [{imgs.min():.3f}, "
+        f"{imgs.max():.3f}]")
+    log(f"latent train: launches {nonzero(launches)}")
+    if launches != expect:
+        fail(f"latent train launches {launches}, expected {expect} "
+             f"({train_steps} train steps, {forwards} eval forwards)")
+
+    # the flash backward uses no atomics: the same seeds give the same bits
+    _, again = base_run(None)
+    log(f"latent train: a second base run from the same seeds: losses "
+        f"{'equal bit for bit' if again == base_losses else 'DIFFER'}; first epoch "
+        f"{base_losses[0]!r} vs {again[0]!r}")
+    if again != base_losses:
+        fail(f"same seeds gave another DiT loss trajectory: {base_losses} vs {again}")
+    return launches, base, data
+
+
+def dit_train_timing_phase(torch, build, model, data) -> None:
+    """img/s of device-resident DiT training at batch 64 in bf16 with remat,
+    peak memory, the launches of one step, and one step under the profiler."""
+    from rectified_flow_vision_tpu_torch.models.base_flow import (
+        init_ema, make_optimizer, make_train_epoch)
+
+    steps, batch = 6, LATENT["batch"]
+    opt = make_optimizer(model, LATENT["lr"], 1000, steps)
+    ema = init_ema(model)
+    epoch = make_train_epoch(model, opt, coupled=False, ema=ema, ema_decay=LATENT["ema"])
+    corpus = torch.as_tensor(data.images, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    r = np.random.default_rng(SEED)
+
+    def perm(n):
+        return torch.as_tensor(r.integers(0, len(data), (n, batch)), device="cuda")
+
+    build.reset_launches()
+    epoch(corpus, perm(1), gen)
+    torch.cuda.synchronize()
+    per_step = all_counts(build, flash_attention=2 * DIT_DEPTH,
+                          flash_attention_backward=DIT_DEPTH)
+    if dict(build.LAUNCHES) != per_step:
+        fail(f"one DiT train step launched {dict(build.LAUNCHES)}, expected {per_step}")
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for _ in range(4):
+        p = perm(steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = epoch(corpus, p, gen)
+        torch.cuda.synchronize()
+        rates.append(batch * steps / (time.perf_counter() - t0))
+        if not torch.isfinite(losses).all():
+            fail("DiT train timing: non-finite loss")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"DiT train timing: make_train_epoch, DiT-S/2, batch {batch}, bf16 compute, fp32 "
+        f"masters, EMA, remat, 64x64x4 latents, {steps} steps per reading: img/s "
+        f"{[round(v, 2) for v in rates]} (median {float(np.median(rates)):.2f}); peak device "
+        f"memory {peak:.2f} GiB; flash launches per step: 24 forward, 12 backward")
+    one = perm(1)
+    profile_device(torch, lambda: epoch(corpus, one, gen), "dit_train_trace.json",
+                   f"one DiT-S/2 train step of {batch}")
 
 
 def main() -> None:
@@ -743,40 +1228,69 @@ def main() -> None:
     gradient_phase(torch, build)
     train_launches, trained, data = train_phase(torch, build)
     train_timing_phase(torch, build, trained, data)
+    del trained, data
+    torch.cuda.empty_cache()
+    dropout_launches = dropout_phase(torch, build)
+    dit_model_phase(torch, build)
+    latent_serve_launches = latent_serve_phase(torch, build)
+    torch.cuda.empty_cache()
+    latent_train_launches, dit_trained, latents = latent_train_phase(torch, build)
+    dit_train_timing_phase(torch, build, dit_trained, latents)
 
     csrc = "rectified_flow_vision_tpu_torch/ops/csrc/"
     pallas = "rectified_flow_vision_tpu/ops/pallas_kernels.py"
+    unet_forward = "one UNet eval forward at batch 256: sum over its calls"
+    unet_step = "one UNet train step at batch 256: sum over its calls"
+    # name -> (source, TPU kernel it replaces, what `ms` sums, calls in that unit,
+    #          filter on the kernel phase's rows)
     sources = {
-        "gn_silu": (csrc + "gn_silu.cu", pallas + ":100"),
-        "conv3x3": (csrc + "conv3x3.cu", "rectified_flow_vision_tpu/ops/conv_pallas.py:378"),
-        "attention_block": (csrc + "attention.cu", pallas + ":191"),
-        "gn_silu_dropout": (csrc + "gn_silu_dropout.cu", pallas + ":358"),
-        "dropout_mask_apply": (csrc + "gn_silu_dropout.cu", pallas + ":387"),
+        "gn_silu": (csrc + "gn_silu.cu", pallas + ":100", unet_forward, per_forward["gn_silu"],
+                    None),
+        "conv3x3": (csrc + "conv3x3.cu", "rectified_flow_vision_tpu/ops/conv_pallas.py:378",
+                    unet_forward, per_forward["conv3x3"], None),
+        "attention_block": (csrc + "attention.cu", pallas + ":191", unet_forward,
+                            per_forward["attention_block"], None),
+        "gn_silu_dropout": (csrc + "gn_silu_dropout.cu", pallas + ":358", unet_step,
+                            per_train["gn_silu_dropout"], None),
+        "dropout_mask_apply": (csrc + "gn_silu_dropout.cu", pallas + ":387", unet_step,
+                               per_train["dropout_mask_apply"], None),
+        "flash_attention": (
+            csrc + "flash_attention.cu", "rectified_flow_vision_tpu/models/dit.py:127",
+            "one DiT-S/2 forward at batch 256, 1024 tokens: its 12 calls", DIT_DEPTH,
+            lambda r: r["shape"][0] == BATCH),
+        "flash_attention_backward": (
+            csrc + "flash_attention.cu", "rectified_flow_vision_tpu/models/dit.py:127",
+            "one DiT-S/2 train step at batch 64, 1024 tokens: its 12 backward calls "
+            "(delta, dkv and dq kernels)", DIT_DEPTH, None),
+        "dropout": (
+            csrc + "dropout.cu", pallas + ":264",
+            "one call at each of the three sizes; no model of either package calls it: its "
+            "launches are those of ops.primitives.dropout driven directly",
+            len(DROPOUT_SHAPES), None),
     }
+    by_path = {"unet_serve": serve_launches, "unet_train": train_launches,
+               "dropout_direct": dropout_launches, "latent_serve": latent_serve_launches,
+               "latent_train": latent_train_launches}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, per, calls, keep) in sources.items():
         mine = [r for r in rows if r["name"] == name]
-        bf = [r for r in mine if r["dtype"] == "bfloat16"]
-        per_step = name in ("gn_silu_dropout", "dropout_mask_apply")
+        bf = [r for r in mine if r["dtype"] == "bfloat16" and (keep is None or keep(r))]
 
-        def total(key):  # bf16 at batch 256: sum over the calls at their shapes
+        def total(key):  # bf16: sum over the calls at their shapes
             return sum(r[key] * r["calls"] for r in bf)
 
         by_bytes = sum(r["bound_ms"] * r["calls"] for r in bf if r["bound_by"] == "bytes")
-        launches = serve_launches[name] + train_launches[name]
+        paths = {path: counts[name] for path, counts in by_path.items()}
+        launches = sum(paths.values())
         if launches <= 0:
             fail(f"the main paths never launched {name}")
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches, launches_serve_path=serve_launches[name],
-            launches_train_path=train_launches[name],
+            launches=launches, launches_by_path=paths,
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if 2 * by_bytes >= total("bound_ms") else "operations",
-            library_ms=total("library_ms"), status="ok", dtype="bfloat16",
-            per=("one train step at batch 256: sum over its calls" if per_step
-                 else "one UNet eval forward at batch 256: sum over its calls"),
-            calls=per_train[name] if per_step else per_forward[name],
+            library_ms=total("library_ms"), status="ok", dtype="bfloat16", per=per, calls=calls,
         ))
 
     log(json.dumps({"kernels": kernels}))

@@ -10,7 +10,10 @@ Ported so far: the few-step serving path of the UNet flow model
 (``UNet`` -> ``BaseFlowModel`` samplers -> ``SamplerService``) with ``.npz``
 / reference ``.pt`` weight loading, and the training and Reflow path
 (``train_base_flow`` -> ``generate_reflow_pairs`` -> ``train_rectified_flow``
-/ ``iterative_reflow``, ``compute_straightness``) on in-memory corpora.
+/ ``iterative_reflow``, ``compute_straightness``) on in-memory corpora, and
+the DiT latent path (``ConvVAE`` / ``train_vae``, ``BaseFlowModel(backbone=
+"dit")`` with hand-written flash attention, ``LatentFlowPipeline``, latent
+serving through ``SamplerService(vae=...)``).
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
 
@@ -24,6 +27,9 @@ from rectified_flow_vision_tpu_torch.data import (  # noqa: F401
 )
 from rectified_flow_vision_tpu_torch.models import (  # noqa: F401
     BaseFlowModel,
+    ConvVAE,
+    DiT,
+    LatentFlowPipeline,
     RectifiedFlowModel,
     UNet,
     count_parameters,
@@ -35,11 +41,16 @@ from rectified_flow_vision_tpu_torch.models import (  # noqa: F401
     make_train_step,
     train_base_flow,
     train_rectified_flow,
+    train_vae,
 )
 from rectified_flow_vision_tpu_torch.serving import SamplerService  # noqa: F401
 
 __all__ = [
     "UNet",
+    "DiT",
+    "ConvVAE",
+    "train_vae",
+    "LatentFlowPipeline",
     "count_parameters",
     "BaseFlowModel",
     "RectifiedFlowModel",

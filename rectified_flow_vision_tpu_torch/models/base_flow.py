@@ -1,5 +1,5 @@
-"""Flow-matching base model: the UNet velocity field, flow math, samplers
-and training.
+"""Flow-matching base model: the velocity field (UNet or DiT), flow math,
+samplers and training.
 
 Counterpart of the JAX package's ``models/base_flow.py``:
 
@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from rectified_flow_vision_tpu_torch.models.dit import DiT
 from rectified_flow_vision_tpu_torch.models.unet import UNet, count_parameters
 from rectified_flow_vision_tpu_torch.utils import checkpoint as ckpt_io
 from rectified_flow_vision_tpu_torch.utils import pt_import
@@ -78,7 +79,7 @@ def _from_nhwc(x: Tensor, data_format: str) -> Tensor:
 
 
 class BaseFlowModel(nn.Module):
-    """Flow-matching model: a UNet velocity field + flow math + sampler."""
+    """Flow-matching model: a UNet or DiT velocity field + flow math + sampler."""
 
     def __init__(
         self,
@@ -91,6 +92,12 @@ class BaseFlowModel(nn.Module):
         dropout: float = 0.1,
         *,
         backbone: str = "unet",
+        patch_size: int = 2,
+        hidden_size: int = 384,
+        depth: int = 12,
+        num_heads: int = 6,
+        mlp_ratio: float = 4.0,
+        dit_size: Optional[str] = None,
         remat: bool = False,
         seed: int = 0,
         params: Optional[Params] = None,
@@ -99,8 +106,8 @@ class BaseFlowModel(nn.Module):
         device: str | torch.device = "cuda",
     ) -> None:
         super().__init__()
-        if backbone != "unet":
-            raise ValueError(f"backbone {backbone!r} is not ported yet (unet)")
+        if backbone not in ("unet", "dit"):
+            raise ValueError(f"unknown backbone {backbone!r} (unet|dit)")
         self.remat = bool(remat)
         self.image_size = image_size
         self.in_channels = in_channels
@@ -108,15 +115,28 @@ class BaseFlowModel(nn.Module):
         self.device = resolve_device(device)
         self.compute_dtype = _DTYPES[compute_dtype]
         self.sample_dtype = _DTYPES[sample_dtype]
-        self.velocity_net = UNet(
-            in_channels=in_channels,
-            model_channels=model_channels,
-            out_channels=in_channels,
-            channel_mult=channel_mult,
-            num_res_blocks=num_res_blocks,
-            attention_resolutions=attention_resolutions,
-            dropout=dropout,
-        )
+        if backbone == "dit":
+            self.velocity_net = DiT(
+                input_size=image_size,
+                patch_size=patch_size,
+                in_channels=in_channels,
+                hidden_size=hidden_size,
+                depth=depth,
+                num_heads=num_heads,
+                mlp_ratio=mlp_ratio,
+                size=dit_size,
+                remat=remat,
+            )
+        else:
+            self.velocity_net = UNet(
+                in_channels=in_channels,
+                model_channels=model_channels,
+                out_channels=in_channels,
+                channel_mult=channel_mult,
+                num_res_blocks=num_res_blocks,
+                attention_resolutions=attention_resolutions,
+                dropout=dropout,
+            )
         self.velocity_net.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -129,17 +149,31 @@ class BaseFlowModel(nn.Module):
     @property
     def config(self) -> dict:
         n = self.velocity_net
-        return {
+        base = {
             "model_type": type(self).__name__,
             "image_size": self.image_size,
             "in_channels": self.in_channels,
             "backbone": self.backbone,
-            "model_channels": n.model_channels,
-            "channel_mult": list(n.channel_mult),
-            "num_res_blocks": n.num_res_blocks,
-            "attention_resolutions": list(n.attention_resolutions),
-            "dropout": n.dropout,
         }
+        if self.backbone == "dit":
+            c = n.cfg
+            base.update(
+                patch_size=c.patch_size,
+                hidden_size=c.hidden_size,
+                depth=c.depth,
+                num_heads=c.num_heads,
+                mlp_ratio=c.mlp_ratio,
+                remat=c.remat,
+            )
+        else:
+            base.update(
+                model_channels=n.model_channels,
+                channel_mult=list(n.channel_mult),
+                num_res_blocks=n.num_res_blocks,
+                attention_resolutions=list(n.attention_resolutions),
+                dropout=n.dropout,
+            )
+        return base
 
     def num_parameters(self) -> int:
         return count_parameters(self)
@@ -148,12 +182,15 @@ class BaseFlowModel(nn.Module):
     def params(self) -> Params:
         """The weights as the JAX package's param tree (numpy, HWIO / (in, out))."""
         sd = {k: v.detach().cpu().numpy() for k, v in self.state_dict().items()}
-        return pt_import.state_dict_to_params(sd)[0]
+        return pt_import.backbone_state_dict_to_params(sd, self.backbone)
 
     @params.setter
     def params(self, tree: Params) -> None:
         n = self.velocity_net
-        sd = pt_import.params_to_state_dict(tree, list(n.channel_mult), n.num_res_blocks)
+        if self.backbone == "dit":
+            sd = pt_import.tree_to_state_dict(tree, "velocity_net.")
+        else:
+            sd = pt_import.params_to_state_dict(tree, list(n.channel_mult), n.num_res_blocks)
         own = self.state_dict()
         bad = [
             f"{k}: model {tuple(own[k].shape)} vs checkpoint {np.shape(v)}"
@@ -199,7 +236,8 @@ class BaseFlowModel(nn.Module):
         the model's seeded one) in the order x0, t, dropout seeds: ``t`` per
         ``time_sampling`` ("uniform"; "logit_normal", which concentrates on
         mid-path; "u_shaped", the arcsine law peaked at both ends), and with
-        ``train`` one int32 dropout seed per residual block.
+        ``train`` one int32 dropout seed per residual block of a UNet. A DiT
+        has no dropout and takes ``remat`` at construction.
         """
         gen = generator if generator is not None else self.generator
         net = self.velocity_net
@@ -207,16 +245,15 @@ class BaseFlowModel(nn.Module):
             x0 = torch.randn(x1.shape, generator=gen, dtype=x1.dtype, device=x1.device)
         if t is None:
             t = sample_times(time_sampling, x1.shape[0], gen, x1.device)
-        if seeds is None and train and net.dropout > 0:
+        unet = self.backbone == "unet"
+        if unet and seeds is None and train and net.dropout > 0:
             seeds = torch.randint(
                 2**31 - 1, (net.num_dropout_seeds,), generator=gen, dtype=torch.int32,
                 device=x1.device,
             )
         x_t, target = self.get_interpolation(x0, x1, t)
-        pred = net(
-            x_t, t, dtype=self.compute_dtype, train=train, seeds=seeds, masters=True,
-            remat=self.remat,
-        )
+        extra = dict(train=train, seeds=seeds, remat=self.remat) if unet else {}
+        pred = net(x_t, t, dtype=self.compute_dtype, masters=True, **extra)
         return torch.mean(torch.square(pred.float() - target.float()))
 
     @torch.no_grad()
@@ -471,9 +508,10 @@ def init_ema(model: BaseFlowModel) -> Dict[str, Tensor]:
     return {k: p.detach().clone() for k, p in model.named_parameters()}
 
 
-def ema_params(ema: Dict[str, Tensor]) -> Params:
+def ema_params(ema: Dict[str, Tensor], backbone: str = "unet") -> Params:
     """EMA weights as a param tree, for ``checkpoint.save_params``."""
-    return pt_import.state_dict_to_params({k: v.cpu().numpy() for k, v in ema.items()})[0]
+    sd = {k: v.cpu().numpy() for k, v in ema.items()}
+    return pt_import.backbone_state_dict_to_params(sd, backbone)
 
 
 def make_train_step(
@@ -582,7 +620,9 @@ def save_epoch_checkpoints(
     """``<save_path>_<tag><ext>`` and, with an EMA, ``<save_path>_ema_<tag><ext>``."""
     model.save(f"{save_path}_{tag}{ext}")
     if ema is not None:
-        ckpt_io.save_params(f"{save_path}_ema_{tag}{ext}", ema_params(ema), model.config)
+        ckpt_io.save_params(
+            f"{save_path}_ema_{tag}{ext}", ema_params(ema, model.backbone), model.config
+        )
 
 
 def train_base_flow(

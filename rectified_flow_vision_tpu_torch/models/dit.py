@@ -1,0 +1,250 @@
+"""DiT (Diffusion Transformer) velocity-field backbone as an ``nn.Module``.
+
+Counterpart of the JAX package's ``models/dit.py``: the DiT architecture
+(Peebles & Xie, 2023) as a flow-matching velocity field, with the same
+rounding points and the JAX param tree's names, so that a ``.npz`` written by
+either package loads into the other (``utils.pt_import.tree_to_state_dict``):
+
+    patch_embed                       patch x patch conv, stride = patch
+    pos_embed                         learned, a bare (1, T, hidden) parameter
+    t_embed.{lin1,lin2}               MLP on a 256-dim sinusoidal basis of t
+    blocks.{i}.{qkv,proj,mlp1,mlp2}   pre-LN transformer block
+    blocks.{i}.ada                    adaLN-Zero: 6 x hidden modulation from t
+    final.{ada,linear}                final adaLN + zero-initialised head
+
+Every block's LayerNorms are affine-free and modulated by (shift, scale,
+gate) regressed from the time embedding through zero-initialised projections,
+so a fresh network is the zero function.
+
+Attention is ``ops.fused.flash_attention``: the hand-written flash kernels
+(forward, and dq / dkv in the backward) for sequences of at least 1024 tokens
+that are a multiple of 128, the plain attention below that, as the JAX
+package dispatches. ``remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``), which reruns the forward kernel there.
+
+Parameters are fp32 with torch layouts; ``forward(x, t, dtype=)`` sees them
+as ``models.unet`` describes: rounded, detached, cached copies for sampling,
+or (``masters=True``) the fp32 masters inside the autograd graph. Sequence
+parallelism (``mesh`` / ``seq_axis``) and ``pipeline_apply`` are not ported
+yet and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from rectified_flow_vision_tpu_torch.models.unet import _ParamCache, _View
+from rectified_flow_vision_tpu_torch.ops import fused
+from rectified_flow_vision_tpu_torch.ops import primitives as P
+
+Tensor = torch.Tensor
+
+TIME_BASIS = 256  # width of the sinusoidal basis, as DiT's TimestepEmbedder
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    input_size: int = 32
+    patch_size: int = 2
+    in_channels: int = 4
+    hidden_size: int = 384  # DiT-S
+    depth: int = 12
+    num_heads: int = 6
+    mlp_ratio: float = 4.0
+    # recompute each block in the backward pass instead of keeping its
+    # attention / MLP activations
+    remat: bool = False
+
+    @property
+    def num_patches(self) -> int:
+        return (self.input_size // self.patch_size) ** 2
+
+    @property
+    def out_channels(self) -> int:
+        return self.in_channels
+
+
+# DiT size table (hidden, depth, heads)
+DIT_SIZES = {
+    "S": (384, 12, 6),
+    "B": (768, 12, 12),
+    "L": (1024, 24, 16),
+    "XL": (1152, 28, 16),
+}
+
+
+def reject_parallel(**options) -> None:
+    """Raise for a parallelism option, naming the ROADMAP item that holds it."""
+    for name, value in options.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"{name} is not ported to PyTorch yet: ROADMAP.md item A9 (parallelism)"
+            )
+
+
+class DiTBlock(nn.Module):
+    """One adaLN-Zero DiT block: tokens [B, T, C], c_emb [B, C] -> [B, T, C]."""
+
+    def __init__(self, hidden: int, mlp_dim: int) -> None:
+        super().__init__()
+        self.qkv = nn.Linear(hidden, 3 * hidden)
+        self.proj = nn.Linear(hidden, hidden)
+        self.mlp1 = nn.Linear(hidden, mlp_dim)
+        self.mlp2 = nn.Linear(mlp_dim, hidden)
+        self.ada = nn.Linear(hidden, 6 * hidden)
+
+    def forward(self, tokens: Tensor, c_emb: Tensor, v: _View, num_heads: int) -> Tensor:
+        b, t, hidden = tokens.shape
+        hd = hidden // num_heads
+        mod = v.dense(P.silu(c_emb), self.ada)  # [B, 6C]
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
+        # attention branch: q, k, v are views of the one projection
+        hmod = P.modulate(P.layer_norm(tokens), shift_msa, scale_msa)
+        q, k, val = v.dense(hmod, self.qkv).reshape(b, t, 3, num_heads, hd).unbind(2)
+        att = fused.flash_attention(q, k, val)
+        att = v.dense(att.reshape(b, t, hidden), self.proj)
+        tokens = tokens + gate_msa[:, None, :] * att
+        # MLP branch
+        hmod = P.modulate(P.layer_norm(tokens), shift_mlp, scale_mlp)
+        hmod = P.gelu_tanh(v.dense(hmod, self.mlp1))
+        hmod = v.dense(hmod, self.mlp2)
+        return tokens + gate_mlp[:, None, :] * hmod
+
+
+class _TimeEmbed(nn.Module):
+    def __init__(self, hidden: int) -> None:
+        super().__init__()
+        self.lin1 = nn.Linear(TIME_BASIS, hidden)
+        self.lin2 = nn.Linear(hidden, hidden)
+
+
+class _FinalLayer(nn.Module):
+    def __init__(self, hidden: int, out_dim: int) -> None:
+        super().__init__()
+        self.ada = nn.Linear(hidden, 2 * hidden)
+        self.linear = nn.Linear(hidden, out_dim)
+
+
+class DiT(nn.Module):
+    """DiT velocity field: ``dit(x, t, dtype=...)`` with x NHWC latents, t [B]."""
+
+    def __init__(
+        self,
+        input_size: int = 32,
+        patch_size: int = 2,
+        in_channels: int = 4,
+        hidden_size: int = 384,
+        depth: int = 12,
+        num_heads: int = 6,
+        mlp_ratio: float = 4.0,
+        size: Optional[str] = None,
+        remat: bool = False,
+    ) -> None:
+        super().__init__()
+        if size is not None:
+            hidden_size, depth, num_heads = DIT_SIZES[size.upper()]
+        self.cfg = cfg = DiTConfig(
+            input_size=input_size,
+            patch_size=patch_size,
+            in_channels=in_channels,
+            hidden_size=hidden_size,
+            depth=depth,
+            num_heads=num_heads,
+            mlp_ratio=mlp_ratio,
+            remat=remat,
+        )
+        h = cfg.hidden_size
+        self.patch_embed = nn.Conv2d(cfg.in_channels, h, cfg.patch_size, stride=cfg.patch_size)
+        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches, h))
+        self.t_embed = _TimeEmbed(h)
+        self.blocks = nn.ModuleList(
+            DiTBlock(h, int(h * cfg.mlp_ratio)) for _ in range(cfg.depth)
+        )
+        self.final = _FinalLayer(h, cfg.patch_size * cfg.patch_size * cfg.out_channels)
+        self._params = _ParamCache()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The JAX package's initialisation, drawn in module order from
+        ``generator`` (on the CPU, so a seed gives the same weights on every
+        device): torch-default uniform for the patch conv, N(0, 0.02) for the
+        positions, xavier-uniform weights and zero biases for the dense
+        layers, zeros for every adaLN projection and for the head."""
+
+        def uniform_(p: Tensor, bound: float) -> None:
+            u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
+            p.copy_(u * (2 * bound) - bound)
+
+        bound = 1.0 / math.sqrt(self.patch_embed.weight[0].numel())
+        uniform_(self.patch_embed.weight, bound)
+        uniform_(self.patch_embed.bias, bound)
+        self.pos_embed.copy_(
+            torch.randn(self.pos_embed.shape, generator=generator, dtype=torch.float32) * 0.02
+        )
+        zero = [self.final.ada, self.final.linear] + [blk.ada for blk in self.blocks]
+        for m in self.modules():
+            if not isinstance(m, nn.Linear):
+                continue
+            if any(m is z for z in zero):
+                m.weight.zero_()
+            else:
+                out_dim, in_dim = m.weight.shape
+                uniform_(m.weight, math.sqrt(6.0 / (in_dim + out_dim)))
+            m.bias.zero_()
+
+    def _time_embedding(self, t: Tensor, v: _View, dtype: torch.dtype) -> Tensor:
+        # t in [0, 1] is used directly (the flow-matching convention)
+        emb = P.sinusoidal_time_embedding(t, TIME_BASIS).to(dtype)
+        emb = P.silu(v.dense(emb, self.t_embed.lin1))
+        return v.dense(emb, self.t_embed.lin2)
+
+    def forward(
+        self,
+        x: Tensor,
+        t: Tensor,
+        *,
+        dtype: torch.dtype = torch.float32,
+        masters: bool = False,
+        mesh=None,
+        seq_axis: Optional[str] = None,
+    ) -> Tensor:
+        """Velocity v(x, t) in ``dtype``. x: [B, H, W, C] NHWC latents; t: [B].
+        ``masters`` keeps the fp32 parameters in the autograd graph (the
+        loss); otherwise they are rounded through ``dtype`` first, ``pos_embed``
+        included, as the JAX sampler casts its param tree."""
+        reject_parallel(mesh=mesh, seq_axis=seq_axis)
+        cfg = self.cfg
+        v = _View(self._params, dtype, masters)
+        b, hh, ww, _ = x.shape
+        p = cfg.patch_size
+        gh, gw = hh // p, ww // p
+
+        tokens = v.conv(x.to(dtype), self.patch_embed)  # [B, gh, gw, hidden]
+        tokens = tokens.reshape(b, gh * gw, cfg.hidden_size) + v(self.pos_embed)
+        c_emb = self._time_embedding(t, v, dtype)  # [B, hidden]
+
+        remat = cfg.remat and torch.is_grad_enabled()
+        for blk in self.blocks:
+            if remat:
+                tokens = checkpoint(
+                    blk, tokens, c_emb, v, cfg.num_heads, use_reentrant=False,
+                    preserve_rng_state=False,
+                )
+            else:
+                tokens = blk(tokens, c_emb, v, cfg.num_heads)
+
+        shift, scale = v.dense(P.silu(c_emb), self.final.ada).chunk(2, dim=-1)
+        tokens = P.modulate(P.layer_norm(tokens), shift, scale)
+        out = v.dense(tokens, self.final.linear)  # [B, T, p * p * C]
+        out = out.reshape(b, gh, gw, p, p, cfg.out_channels)
+        return out.permute(0, 1, 3, 2, 4, 5).reshape(b, hh, ww, cfg.out_channels)
+
+    def pipeline_apply(self, *args, **kwargs) -> None:
+        """The GPipe forward over a ``stage`` mesh axis: not ported yet, raises."""
+        reject_parallel(pipeline_apply=True)

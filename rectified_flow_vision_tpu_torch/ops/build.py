@@ -29,7 +29,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("gn_silu.cu", "gn_silu_dropout.cu", "conv3x3.cu", "attention.cu", "runtime.cu")
+SOURCES = (
+    "gn_silu.cu", "gn_silu_dropout.cu", "conv3x3.cu", "attention.cu", "flash_attention.cu",
+    "dropout.cu", "runtime.cu",
+)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -44,6 +47,9 @@ LAUNCHES: Dict[str, int] = {
     "attention_block": 0,
     "gn_silu_dropout": 0,
     "dropout_mask_apply": 0,
+    "flash_attention": 0,
+    "flash_attention_backward": 0,
+    "dropout": 0,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,6 +66,11 @@ _SIGNATURES = {
     "rfv_attention_block": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P,
     ],
+    "rfv_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _I, _P],
+    "rfv_flash_attention_bwd": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _I, _P,
+    ],
+    "rfv_dropout": [_P, _P, _P, _L, _L, _U, _F, _I, _P],
 }
 
 _lock = threading.Lock()

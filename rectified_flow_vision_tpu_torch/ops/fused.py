@@ -14,6 +14,13 @@ inputs, and the backward recomputes the plain version on those inputs and
 differentiates it; ``gn_silu_dropout``'s backward first regenerates the mask
 from the saved seed with the ``dropout_mask_apply`` kernel, so no mask tensor
 is ever kept.
+
+Flash attention and the standalone dropout have hand-written backwards, as
+their TPU counterparts do: flash attention saves q, k, v, its output and the
+per-row log-sum-exp and launches the dq and dkv kernels; dropout's gradient
+is the dropout kernel applied to the cotangent with the saved seed. Flash
+attention has the JAX package's rule on shape besides (``FA.use_flash``):
+short sequences take the plain attention on every device, as there.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import torch
 
 from rectified_flow_vision_tpu_torch.ops import attention as A
 from rectified_flow_vision_tpu_torch.ops import conv3x3 as C
+from rectified_flow_vision_tpu_torch.ops import dropout as DR
+from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
 from rectified_flow_vision_tpu_torch.ops import gn_silu as G
 from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as D
 from rectified_flow_vision_tpu_torch.ops import primitives as P
@@ -123,6 +132,31 @@ class _Attention(torch.autograd.Function):
         return (*grads, None, None)
 
 
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = FA.flash_attention_cuda(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return FA.flash_attention_backward_cuda(*ctx.saved_tensors, g)
+
+
+class _Dropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seed, rate):
+        ctx.save_for_backward(seed)
+        ctx.rate = rate
+        return DR.dropout_cuda(x, seed, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        (seed,) = ctx.saved_tensors
+        return DR.dropout_cuda(g.contiguous(), seed, ctx.rate), None, None
+
+
 def gn_silu(x: Tensor, scale: Tensor, bias: Tensor, *, num_groups: int = 8) -> Tensor:
     """Fused GroupNorm(num_groups) + SiLU over an NHWC tensor."""
     if _on_cpu(x):
@@ -181,3 +215,23 @@ def attention(
     return _Attention.apply(
         x, norm_scale, norm_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads, num_groups
     )
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """Non-causal multi-head attention over [B, T, H, D], scale 1/sqrt(D).
+    Sequences inside ``FA.use_flash`` take the flash kernels (forward and
+    backward) on a CUDA tensor; shorter ones are the plain attention on
+    every device, as in the JAX package."""
+    if not FA.use_flash(q.shape[1]) or _on_cpu(q):
+        return FA.flash_attention_plain(q, k, v)
+    return _FlashAttention.apply(q, k, v)
+
+
+def dropout(x: Tensor, rate: float, seed: Optional[D.Seed], *, train: bool) -> Tensor:
+    """Inverted dropout of any tensor with an explicit seed; the identity in
+    eval mode, at rate 0 or without a seed."""
+    if not train or rate <= 0.0 or seed is None:
+        return x
+    if _on_cpu(x):
+        return DR.dropout_plain(x, seed, rate)
+    return _Dropout.apply(x.contiguous(), D.seed_tensor(seed, x.device), float(rate))

@@ -113,10 +113,27 @@ def dropout(x: Tensor, rate: float, seed=None, *, train: bool) -> Tensor:
     """Inverted dropout with an explicit seed (an int or a one-element int32
     tensor): the identity in eval mode, at rate 0 or without a seed. The mask
     is the fused kernels' (``ops/gn_silu_dropout.keep_mask``), so the same
-    seed drops the same elements on every path."""
-    if not train or rate <= 0.0 or seed is None:
-        return x
-    from rectified_flow_vision_tpu_torch.ops.gn_silu_dropout import keep_mask
+    seed drops the same elements on every path. A CUDA tensor takes the
+    ``dropout`` kernel (``ops/dropout.py``), a CPU tensor its plain version."""
+    from rectified_flow_vision_tpu_torch.ops import fused
 
-    keep = 1.0 - rate
-    return torch.where(keep_mask(x.shape, seed, rate, x.device), x / keep, torch.zeros_like(x))
+    return fused.dropout(x, rate, seed, train=train)
+
+
+def layer_norm(x: Tensor, eps: float = 1e-6) -> Tensor:
+    """Affine-free LayerNorm over the last axis (adaLN supplies the affine):
+    fp32 statistics, rounded back to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def modulate(x: Tensor, shift: Tensor, scale: Tensor) -> Tensor:
+    """adaLN modulation of tokens [B, T, C] by per-sample shift and scale [B, C]."""
+    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+
+
+def gelu_tanh(x: Tensor) -> Tensor:
+    """Tanh-approximate GELU (``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")

@@ -8,9 +8,11 @@ Counterpart of the JAX package's ``serving.py``:
 * requests of any ``n`` are served from the fixed batch shape (largest-batch
   tiling, then truncation), and images are clipped to [-1, 1];
 * noise comes from a seeded ``torch.Generator`` on the model's device, so a
-  service built with the same seed returns the same images.
+  service built with the same seed returns the same images;
+* with a ``vae`` the flow model samples latents and a ConvVAE decode (bf16,
+  clipped to [-1, 1]) maps them to pixel images before they are returned.
 
-Mesh serving and latent (VAE) decoding come with later slices.
+Mesh serving comes with a later slice.
 
 Example:
     svc = SamplerService.from_checkpoint("checkpoints/rectified_flow_k1_final.npz",
@@ -49,6 +51,8 @@ class SamplerService:
         method: str = "euler",
         seed: int = 0,
         warmup: bool = True,
+        vae=None,
+        vae_params=None,
     ) -> None:
         self.model = model
         self.batch_size = batch_size
@@ -57,6 +61,13 @@ class SamplerService:
         self.device = model.device
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._noise_shape = (batch_size, model.image_size, model.image_size, model.in_channels)
+        # latent pipeline: the flow model samples latents, and the ConvVAE
+        # decode (clipped to [-1, 1]) maps them to pixels
+        self._decode = None
+        if vae is not None:
+            from rectified_flow_vision_tpu_torch.models.autoencoder import LatentFlowPipeline
+
+            self._decode = LatentFlowPipeline(model, vae, vae_params).decode
         self._samplers = {
             n: model._get_sampler(n, False, model.sample_dtype, method) for n in self.step_counts
         }
@@ -65,10 +76,18 @@ class SamplerService:
 
     @classmethod
     def from_checkpoint(
-        cls, path: str, *, device: str | torch.device = "cuda", **kwargs
+        cls, path: str, *, vae_path: Optional[str] = None,
+        device: str | torch.device = "cuda", **kwargs,
     ) -> "SamplerService":
-        """Load a flow checkpoint (.npz or reference .pt) onto ``device``."""
-        return cls(BaseFlowModel.from_checkpoint(path, device=device), **kwargs)
+        """Load a flow checkpoint (.npz or reference .pt) onto ``device``;
+        ``vae_path`` makes it a latent service (sample latents, decode to
+        pixels)."""
+        model = BaseFlowModel.from_checkpoint(path, device=device)
+        if vae_path is not None:
+            from rectified_flow_vision_tpu_torch.models.autoencoder import ConvVAE
+
+            kwargs.update(vae=ConvVAE.load(vae_path, device=device))
+        return cls(model, **kwargs)
 
     # ---- lifecycle ---------------------------------------------------------
 
@@ -79,11 +98,16 @@ class SamplerService:
         noise = torch.zeros(self._noise_shape, dtype=torch.float32, device=self.device)
         for n, sampler in self._samplers.items():
             t0 = time.perf_counter()
-            sampler(noise)
+            self._run(sampler, noise)
             _sync(self.device)
             stats[n] = time.perf_counter() - t0
             log.info("warmed num_steps=%d in %.1fs", n, stats[n])
         return stats
+
+    def _run(self, sampler, noise: torch.Tensor) -> torch.Tensor:
+        """One batch: the sampler, then the decode of a latent service."""
+        out = sampler(noise)
+        return out if self._decode is None else self._decode(out)
 
     def _noise(self) -> torch.Tensor:
         return torch.randn(
@@ -106,19 +130,24 @@ class SamplerService:
         outs = []
         remaining = n
         while remaining > 0:
-            outs.append(sampler(self._noise()))
+            outs.append(self._run(sampler, self._noise()))
             remaining -= self.batch_size
         result = torch.clamp(torch.cat(outs)[:n], -1.0, 1.0)
         return _from_nhwc(result, data_format).cpu().numpy()
 
     def throughput(self, num_steps: int, iters: int = 8) -> float:
-        """Steady-state images/sec, each batch fed the previous batch's output."""
+        """Steady-state images/sec, each batch fed the previous batch's output
+        (a latent service decodes every batch besides)."""
         sampler = self._samplers[num_steps]
         x = sampler(self._noise())
+        if self._decode is not None:
+            self._decode(x)
         _sync(self.device)
         t0 = time.perf_counter()
         for _ in range(iters):
             x = sampler(x)
+            if self._decode is not None:
+                self._decode(x)
         _sync(self.device)
         return self.batch_size * iters / (time.perf_counter() - t0)
 
@@ -129,6 +158,9 @@ def main() -> None:
     python -m rectified_flow_vision_tpu_torch.serving \
         --checkpoint checkpoints/rectified_flow_k1_final.npz \
         --num 16 --steps 4 --out results/served_samples.npy
+
+    With ``--vae checkpoints/dit256/vae.npz`` the checkpoint is a latent-space
+    flow model and the samples are decoded to pixels.
     """
     import argparse
     from pathlib import Path
@@ -142,11 +174,15 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--out", default="results/served_samples.npy")
+    parser.add_argument("--vae", default=None, metavar="VAE_NPZ",
+                        help="ConvVAE checkpoint: serve a latent-space flow model, "
+                             "decoding samples to pixels")
     parser.add_argument("--bench", action="store_true", help="also print steady-state throughput")
     args = parser.parse_args()
 
     svc = SamplerService.from_checkpoint(
         args.checkpoint,
+        vae_path=args.vae,
         device=args.device,
         step_counts=(args.steps,),
         batch_size=min(args.batch_size, max(args.num, 1)),

@@ -30,6 +30,13 @@ Because the reference checkpoint's config records only image_size and
 in_channels, the architecture (model_channels, channel_mult,
 num_res_blocks) is inferred from the state-dict shapes, making `.pt` files
 fully self-describing for ``BaseFlowModel.from_checkpoint``.
+
+DiT and the ConvVAE have no reference ``.pt`` format: the port's modules are
+named after the JAX param tree itself (``blocks.3.qkv``, ``enc.down0.conv``),
+so one generic pair (``tree_to_state_dict`` / ``state_dict_to_tree``) carries
+any such tree across: ``{w, b}`` with a 4-d ``w`` is a conv, with a 2-d ``w``
+a dense layer, ``{scale, bias}`` a norm, and any other leaf (DiT's
+``pos_embed``) a bare parameter.
 """
 
 from __future__ import annotations
@@ -274,3 +281,60 @@ def params_to_state_dict(
     _inv_norm(params["output_conv"]["norm"], out, "velocity_net.output_conv.0")
     _inv_conv(params["output_conv"]["conv"], out, "velocity_net.output_conv.2")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Trees whose module names are the tree's own keys (DiT, ConvVAE)
+# ---------------------------------------------------------------------------
+
+
+def tree_to_state_dict(tree: Params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A JAX-layout param tree -> a numpy state dict with ``.``-joined names
+    under ``prefix``."""
+    out: Dict[str, np.ndarray] = {}
+    for name, node in tree.items():
+        key = f"{prefix}{name}"
+        if not isinstance(node, dict):
+            out[key] = np.asarray(node)
+        elif set(node) == {"w", "b"}:
+            if np.ndim(node["w"]) == 4:
+                _inv_conv(node, out, key)
+            else:
+                _inv_dense(node, out, key)
+        elif set(node) == {"scale", "bias"}:
+            _inv_norm(node, out, key)
+        else:
+            out.update(tree_to_state_dict(node, f"{key}."))
+    return out
+
+
+def state_dict_to_tree(sd: Dict[str, np.ndarray], prefix: str = "") -> Params:
+    """The inverse of ``tree_to_state_dict`` for the keys under ``prefix``."""
+    names = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    tree: Params = {}
+    for name, arr in names.items():
+        *path, last = name.split(".")
+        if last == "bias" and ".".join(path + ["weight"]) in names:
+            continue  # taken with its weight
+        if last == "weight":
+            module = prefix + ".".join(path)
+            ndim = np.ndim(arr)
+            leaf: Any = (
+                _conv(sd, module) if ndim == 4
+                else _dense(sd, module) if ndim == 2
+                else _norm(sd, module)
+            )
+        else:  # a bare parameter
+            path, leaf = path + [last], arr
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def backbone_state_dict_to_params(sd: Dict[str, np.ndarray], backbone: str) -> Params:
+    """A flow model's numpy state dict as the JAX package's param tree."""
+    if backbone == "dit":
+        return state_dict_to_tree(sd, "velocity_net.")
+    return state_dict_to_params(sd)[0]

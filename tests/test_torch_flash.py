@@ -1,0 +1,158 @@
+"""The port's flash attention and standalone dropout (plain versions) on the CPU.
+
+Inputs come from a numpy seed and go through the JAX function and its
+counterpart. On the CPU the JAX ``_attention`` takes its XLA branch (the
+backend is not a TPU), which is the library kernel's plain reference; the port
+takes ``flash_attention_plain``. Tolerances: fp32 atol 1e-5 forward (the same
+fp32 arithmetic, summed in another order), 1e-4 for dq, dk, dv; bf16 rtol 2e-2
+(probabilities and outputs are rounded to bf16 on both sides, at the same
+points). The hand-written backward is also held against torch autograd of the
+plain forward. The dropout is held to the contract of
+``tests/test_pallas.py::TestDropoutKernels::test_dropout_kernel_mask_stats_and_determinism``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rectified_flow_vision_tpu.models import dit as JD
+from rectified_flow_vision_tpu_torch.ops import build
+from rectified_flow_vision_tpu_torch.ops import dropout as TDR
+from rectified_flow_vision_tpu_torch.ops import flash_attention as TFA
+from rectified_flow_vision_tpu_torch.ops import fused as TF
+from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as TD
+from rectified_flow_vision_tpu_torch.ops import primitives as TP
+
+FLASH = (2, 1024, 2, 64)  # the dispatch rule's flash route
+SHORT = (2, 192, 3, 32)  # below the threshold: plain on every device
+
+
+def _qkv(shape, seed=0, scale=1.5):
+    r = np.random.default_rng(seed)
+    return tuple((r.standard_normal(shape) * scale).astype(np.float32) for _ in range(3))
+
+
+def _jax_attention(q, k, v, dtype=jnp.float32):
+    return JD._attention(*(jnp.asarray(a, dtype) for a in (q, k, v)), use_flash=True)
+
+
+class TestForward:
+    @pytest.mark.parametrize("shape", [FLASH, SHORT], ids=["flash_shape", "short"])
+    def test_plain_matches_jax_fp32(self, shape):
+        q, k, v = _qkv(shape)
+        want = np.asarray(_jax_attention(q, k, v))
+        got = TF.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+        assert got.shape == shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+    @pytest.mark.parametrize("shape", [FLASH, SHORT], ids=["flash_shape", "short"])
+    def test_plain_matches_jax_bf16(self, shape):
+        q, k, v = _qkv(shape, seed=1)
+        want = np.asarray(_jax_attention(q, k, v, jnp.bfloat16).astype(jnp.float32))
+        got = TF.flash_attention(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2, atol=2e-2)
+
+    def test_dispatch_follows_the_jax_rule(self):
+        assert TFA.FLASH_MIN_SEQ == JD._FLASH_MIN_SEQ
+        for t in (64, 1000, 1024, 1088, 1152, 16384):
+            want = t >= JD._FLASH_MIN_SEQ and JD._flash_block_sizes(t) is not None
+            assert TFA.use_flash(t) == want, t
+
+    def test_views_of_one_projection_need_no_copy(self):
+        """q, k, v as DiT hands them over share their strides, so the kernel
+        wrapper reads them in place; unrelated layouts are copied once."""
+        qkv = torch.zeros((2, 128, 3, 2, 64))
+        q, k, v = qkv.unbind(2)
+        same = TFA._shared_strides(q, k, v)
+        assert all(a is b for a, b in zip(same, (q, k, v)))
+        odd = TFA._shared_strides(q, k.transpose(1, 2).contiguous().transpose(1, 2), v)
+        assert all(a.is_contiguous() for a in odd)
+
+    def test_lse_is_the_log_sum_exp_of_the_scaled_logits(self):
+        q, k, _ = _qkv(SHORT, seed=2)
+        lse = TFA.flash_attention_lse_plain(torch.from_numpy(q), torch.from_numpy(k))
+        logits = np.einsum("bthd,bshd->bhts", q, k) / np.sqrt(q.shape[-1])
+        want = np.log(np.exp(logits - logits.max(-1, keepdims=True)).sum(-1)) + logits.max(-1)
+        np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+class TestBackward:
+    @pytest.mark.parametrize("shape", [FLASH, SHORT], ids=["flash_shape", "short"])
+    def test_plain_backward_matches_jax_grad(self, shape):
+        q, k, v = _qkv(shape, seed=3)
+        g = np.random.default_rng(4).standard_normal(shape).astype(np.float32)
+        _, vjp = jax.vjp(lambda *a: JD._attention(*a, use_flash=True),
+                         *(jnp.asarray(a) for a in (q, k, v)))
+        want = vjp(jnp.asarray(g))
+        tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+        out = TFA.flash_attention_plain(tq, tk, tv)
+        lse = TFA.flash_attention_lse_plain(tq, tk)
+        got = TFA.flash_attention_backward_plain(tq, tk, tv, out, lse, tg)
+        for name, a, b in zip("qkv", got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-4,
+                                       err_msg=f"d{name}")
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+    def test_plain_backward_matches_autograd_of_the_plain_forward(self, dtype):
+        q, k, v = (torch.from_numpy(a).to(dtype).requires_grad_() for a in _qkv(SHORT, seed=5))
+        g = torch.from_numpy(np.random.default_rng(6).standard_normal(SHORT)
+                             .astype(np.float32)).to(dtype)
+        out = TFA.flash_attention_plain(q, k, v)
+        want = torch.autograd.grad(out, (q, k, v), g)
+        lse = TFA.flash_attention_lse_plain(q, k)
+        got = TFA.flash_attention_backward_plain(
+            q.detach(), k.detach(), v.detach(), out.detach(), lse.detach(), g)
+        tol = 1e-5 if dtype == torch.float32 else 3e-2
+        for a, b in zip(got, want):
+            assert a.dtype == dtype
+            scale = max(float(b.float().abs().max()), 1.0)
+            assert float((a.float() - b.float()).abs().max()) <= tol * scale
+
+    def test_cpu_tensors_launch_no_kernel_and_others_raise(self):
+        build.reset_launches()
+        q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv((1, 1024, 1, 32), seed=7))
+        TF.flash_attention(q, k, v).sum().backward()
+        assert q.grad is not None and sum(build.LAUNCHES.values()) == 0
+        meta = torch.empty((1, 1024, 1, 64), device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            TFA.flash_attention_cuda(meta, meta, meta)
+        with pytest.raises(ValueError, match="CUDA"):
+            TFA.flash_attention_backward_cuda(meta, meta, meta, meta, meta, meta)
+
+
+class TestDropout:
+    def test_contract_of_the_tpu_kernel(self):
+        """Same seed same mask, another seed another mask, kept fraction within
+        1% of keep at 2^20 elements, kept values x / keep."""
+        x = torch.ones((1024, 1024))
+        a, b = TDR.dropout_plain(x, 7, 0.3), TDR.dropout_plain(x, 7, 0.3)
+        c = TDR.dropout_plain(x, 8, 0.3)
+        assert torch.equal(a, b) and not torch.equal(a, c)
+        assert abs(float((a != 0).float().mean()) - 0.7) < 0.01
+        np.testing.assert_allclose(a[a != 0].numpy(), 1.0 / 0.7, rtol=1e-5)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+    def test_primitive_dropout_is_the_plain_version(self, dtype):
+        x = torch.from_numpy(np.random.default_rng(8).standard_normal((3, 8, 8, 16))
+                             .astype(np.float32)).to(dtype)
+        out = TP.dropout(x, 0.4, 21, train=True)
+        assert out.dtype == dtype
+        assert torch.equal(out, TDR.dropout_plain(x, 21, 0.4))
+        assert torch.equal(out != 0, TD.keep_mask(x.shape, 21, 0.4, x.device) & (x != 0))
+        assert TP.dropout(x, 0.4, 21, train=False) is x
+        assert TP.dropout(x, 0.0, 21, train=True) is x
+        assert TP.dropout(x, 0.4, None, train=True) is x
+
+    def test_gradient_is_the_same_mask_on_the_cotangent(self):
+        x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 64))
+                             .astype(np.float32)).requires_grad_()
+        g = torch.from_numpy(np.random.default_rng(10).standard_normal((2, 64)).astype(np.float32))
+        (grad,) = torch.autograd.grad(TP.dropout(x, 0.25, 5, train=True), x, g)
+        assert torch.equal(grad, TDR.dropout_plain(g, 5, 0.25))
+
+    def test_non_cpu_tensor_takes_the_kernel_or_raises(self):
+        with pytest.raises(ValueError, match="CUDA"):
+            TDR.dropout_cuda(torch.empty((4, 4), device="meta"), 3, 0.1)

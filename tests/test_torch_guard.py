@@ -71,10 +71,11 @@ def test_kernel_sources_are_listed():
 
     on_disk = {p.name for p in (PORT / "ops" / "csrc").glob("*.cu")}
     assert on_disk == set(build.SOURCES)
-    assert "gn_silu_dropout.cu" in build.SOURCES
+    assert {"gn_silu_dropout.cu", "flash_attention.cu", "dropout.cu"} <= set(build.SOURCES)
     # every kernel has a launch counter and every C entry point a signature
     assert set(build.LAUNCHES) == {
-        "gn_silu", "conv3x3", "attention_block", "gn_silu_dropout", "dropout_mask_apply"
+        "gn_silu", "conv3x3", "attention_block", "gn_silu_dropout", "dropout_mask_apply",
+        "flash_attention", "flash_attention_backward", "dropout",
     }
     text = "".join((PORT / "ops" / "csrc" / name).read_text() for name in build.SOURCES)
     for entry in build._SIGNATURES:
@@ -91,6 +92,9 @@ def test_kernel_sources_are_listed():
         ("reflow", dict(mesh=object()), "A9"),
         ("reflow", dict(fsdp=True), "A9"),
         ("reflow", dict(resume_dir="state"), "A7"),
+        ("dit", dict(mesh=object()), "A9"),
+        ("dit", dict(seq_axis="seq"), "A9"),
+        ("dit", dict(pipeline_apply=True), "A9"),
     ],
     ids=lambda v: v if isinstance(v, str) else "-".join(v),
 )
@@ -100,6 +104,7 @@ def test_unported_trainer_options_raise_and_name_their_roadmap_item(trainer, opt
     import numpy as np
 
     from rectified_flow_vision_tpu_torch.models import (
+        DiT,
         RectifiedFlowModel,
         train_base_flow,
         train_rectified_flow,
@@ -112,29 +117,41 @@ def test_unported_trainer_options_raise_and_name_their_roadmap_item(trainer, opt
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md item {item}"):
         if trainer == "base":
             train_base_flow(model, [x], epochs=1, **option)
-        else:
+        elif trainer == "reflow":
             train_rectified_flow(model, x, x, epochs=1, data_format="NHWC", **option)
+        else:
+            dit = DiT(input_size=8, hidden_size=32, depth=1, num_heads=2)
+            lat, t = torch.zeros((1, 8, 8, 4)), torch.zeros((1,))
+            if "pipeline_apply" in option:
+                dit.pipeline_apply(lat, t, object())
+            else:
+                dit(lat, t, **option)
     roadmap = (ROOT / "ROADMAP.md").read_text()
     assert f"\n{item[1:]}. " in roadmap  # the item exists in section A
 
 
 def test_entry_points_default_to_cuda():
-    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel, ConvVAE
     from rectified_flow_vision_tpu_torch.serving import SamplerService
 
-    assert inspect.signature(BaseFlowModel).parameters["device"].default == "cuda"
-    assert inspect.signature(SamplerService.from_checkpoint).parameters["device"].default == "cuda"
+    for entry in (BaseFlowModel, SamplerService.from_checkpoint, ConvVAE, ConvVAE.load):
+        assert inspect.signature(entry).parameters["device"].default == "cuda", entry
 
 
 def test_default_device_without_a_card_raises():
     """The default entry point does not carry on on the CPU when no card is
     found."""
-    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel, ConvVAE
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         BaseFlowModel(image_size=8, model_channels=16, channel_mult=[1], num_res_blocks=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        BaseFlowModel(image_size=8, in_channels=4, backbone="dit", hidden_size=32, depth=1,
+                      num_heads=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ConvVAE(image_size=32, base_channels=16)
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -19,6 +19,8 @@ import torch
 from rectified_flow_vision_tpu_torch.ops import attention as A
 from rectified_flow_vision_tpu_torch.ops import build
 from rectified_flow_vision_tpu_torch.ops import conv3x3 as C
+from rectified_flow_vision_tpu_torch.ops import dropout as DR
+from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
 from rectified_flow_vision_tpu_torch.ops import fused
 from rectified_flow_vision_tpu_torch.ops import gn_silu as G
 from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as D
@@ -209,7 +211,8 @@ def test_train_forward_and_backward_launch_counts(dev):
     # 6 residual blocks: norm1 (+ the head) gn_silu, norm2 gn_silu_dropout;
     # conv1, conv2 and one upsample conv; one mid attention
     assert build.LAUNCHES == {"gn_silu": 7, "gn_silu_dropout": 6, "dropout_mask_apply": 6,
-                              "conv3x3": 13, "attention_block": 1}
+                              "conv3x3": 13, "attention_block": 1, "flash_attention": 0,
+                              "flash_attention_backward": 0, "dropout": 0}
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
     cpu = BaseFlowModel(image_size=16, model_channels=64, channel_mult=[1, 2],
                         num_res_blocks=1, dropout=0.1, device="cpu", params=model.params)
@@ -264,7 +267,8 @@ def test_small_unet_on_the_card_matches_the_cpu(dev, dtype):
         got = gpu(x.to(dev), t.to(dev), dtype=dt).float().cpu()
     # 4 residual blocks x 2 + the head; 16 channels are outside conv3x3's contract
     assert build.LAUNCHES == {"gn_silu": 9, "conv3x3": 0, "attention_block": 1,
-                              "gn_silu_dropout": 0, "dropout_mask_apply": 0}
+                              "gn_silu_dropout": 0, "dropout_mask_apply": 0,
+                              "flash_attention": 0, "flash_attention_backward": 0, "dropout": 0}
     tol = 1e-3 if dtype == "float32" else 0.03 * float(want.abs().max())
     assert float((got - want).abs().max()) <= tol
 
@@ -288,3 +292,170 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         D.gn_silu_dropout_cuda(x, s, s, torch.tensor([3], device=dev), 0.1)  # int64
     with pytest.raises(ValueError, match="contiguous"):
         D.dropout_mask_apply_cuda(x.transpose(1, 2), 3, 0.1)
+
+
+# ---- flash attention and the standalone dropout ---------------------------------
+
+
+def _qkv(dev, dtype, b, t, h, d, seed=8, packed=True):
+    """q, k, v as DiT hands them over: views of one [B, T, 3, H, D] projection
+    (or three separate tensors), scaled so that the softmax is far from flat."""
+    g = _gen(dev, seed)
+    qkv = (torch.randn((b, t, 3, h, d), generator=g, device=dev) * 1.5).to(dtype)
+    if packed:
+        return qkv.unbind(2)
+    return tuple(x.contiguous() for x in qkv.unbind(2))
+
+
+# bf16: the kernel rounds unnormalised probabilities and divides at the end,
+# the plain version rounds normalised ones: a few ulps of outputs of size ~1
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,packed", [((2, 1024, 6, 64), True), ((1, 1152, 3, 64), False),
+                                          ((2, 1024, 4, 32), True)])
+def test_flash_attention_forward(dev, dtype, shape, packed):
+    q, k, v = _qkv(dev, dtype, *shape, packed=packed)
+    before = build.LAUNCHES["flash_attention"]
+    out = fused.flash_attention(q, k, v)
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+    torch.testing.assert_close(out.float(), FA.flash_attention_plain(q, k, v).float(),
+                               **FLASH_TOL[dtype])
+    _, lse = FA.flash_attention_cuda(q, k, v)
+    torch.testing.assert_close(lse, FA.flash_attention_lse_plain(q, k), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 1024, 6, 64), (1, 1152, 2, 32)])
+def test_flash_attention_backward(dev, dtype, shape):
+    """dq, dk, dv of the kernels against the plain backward (the same
+    formulas) and against autograd of the plain forward; two runs give the
+    same bits."""
+    q, k, v = _qkv(dev, dtype, *shape, seed=9)
+    g = torch.randn(shape, generator=_gen(dev, 10), device=dev).to(dtype)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    before = dict(build.LAUNCHES)
+    out = fused.flash_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, g)
+    assert build.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert build.LAUNCHES["flash_attention_backward"] == before["flash_attention_backward"] + 1
+    o, lse = FA.flash_attention_cuda(q, k, v)
+    want = FA.flash_attention_backward_plain(q, k, v, o, lse, g)
+    ref = torch.autograd.grad(FA.flash_attention_plain(*leaves), leaves, g)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b, c in zip(got, want, ref):
+        assert a.dtype == dtype and a.shape == tuple(shape)
+        scale = max(float(b.float().abs().max()), 1.0)
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale
+        assert float((a.float() - c.float()).abs().max()) <= 2 * tol * scale
+    again = torch.autograd.grad(fused.flash_attention(*leaves), leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_attention_dispatch_and_rejections(dev):
+    """Below 1024 tokens, or off a multiple of 128, the plain attention runs
+    on the card too (the JAX package's rule); what the kernel does not take
+    raises."""
+    q, k, v = _qkv(dev, torch.float32, 2, 256, 2, 64)
+    before = build.LAUNCHES["flash_attention"]
+    out = fused.flash_attention(q, k, v)
+    assert build.LAUNCHES["flash_attention"] == before
+    torch.testing.assert_close(out, FA.flash_attention_plain(q, k, v))
+    with pytest.raises(ValueError, match="head dimension"):
+        FA.flash_attention_cuda(*_qkv(dev, torch.float32, 1, 1024, 2, 72))
+    with pytest.raises(ValueError, match="tile"):
+        FA.flash_attention_cuda(*_qkv(dev, torch.float32, 1, 1000, 2, 64))
+    with pytest.raises(ValueError, match="dtype"):
+        FA.flash_attention_cuda(*(x.half() for x in _qkv(dev, torch.float32, 1, 1024, 2, 64)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1024, 1024), (3, 8, 8, 64), (2, 5, 7, 3), (70000, 6), (1023,)])
+def test_dropout(dev, dtype, shape):
+    """The standalone dropout: the plain version's result bit for bit (the
+    mask and the values), through ``P.dropout`` too; its gradient is the same
+    mask on the cotangent."""
+    from rectified_flow_vision_tpu_torch.ops import primitives as P
+
+    x = torch.randn(shape, generator=_gen(dev, 11), device=dev).to(dtype)
+    before = build.LAUNCHES["dropout"]
+    out = DR.dropout_cuda(x, 41, 0.25)
+    assert build.LAUNCHES["dropout"] == before + 1
+    assert torch.equal(out, DR.dropout_plain(x, 41, 0.25))
+    assert torch.equal(DR.dropout_plain(x.cpu(), 41, 0.25), out.cpu())
+    assert torch.equal(P.dropout(x, 0.25, 41, train=True), out)
+    assert not torch.equal(DR.dropout_cuda(x, 42, 0.25) != 0, out != 0)
+    leaf = x.detach().clone().requires_grad_()
+    g = torch.randn(shape, generator=_gen(dev, 12), device=dev).to(dtype)
+    (grad,) = torch.autograd.grad(P.dropout(leaf, 0.25, 41, train=True), leaf, g)
+    assert torch.equal(grad, DR.dropout_plain(g, 41, 0.25))
+    assert build.LAUNCHES["dropout"] == before + 5  # three forwards above, then forward + backward
+
+
+def test_dropout_contract_at_2_to_20(dev):
+    """The contract of the TPU kernel's own test: same seed same mask, another
+    seed another mask, kept fraction within 1% of keep, kept values x / keep."""
+    x = torch.ones((1024, 1024), device=dev)
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    a, b = DR.dropout_cuda(x, seed, 0.3), DR.dropout_cuda(x, seed, 0.3)
+    c = DR.dropout_cuda(x, seed + 1, 0.3)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert abs(float((a != 0).float().mean()) - 0.7) < 0.01
+    torch.testing.assert_close(a[a != 0], torch.full_like(a[a != 0], 1 / 0.7))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_small_dit_on_the_card_matches_the_cpu(dev, dtype):
+    """A narrow DiT whose 64x64 input gives 1024 tokens: the flash kernels on
+    the card against the plain path on the CPU, forward and every gradient,
+    with all parameters random (a fresh DiT is the zero function)."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+
+    cfg = dict(image_size=64, in_channels=4, backbone="dit", hidden_size=128, depth=2,
+               num_heads=2, compute_dtype=dtype, seed=0)
+    cpu = BaseFlowModel(device="cpu", **cfg)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    gpu = BaseFlowModel(device=dev, **cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    x1, x0 = torch.randn((2, 2, 64, 64, 4), generator=g).unbind(0)
+    t = torch.rand((2,), generator=g)
+    want = cpu.loss_fn(x1, x0=x0, t=t)
+    want.backward()
+    build.reset_launches()
+    got = gpu.loss_fn(x1.to(dev), x0=x0.to(dev), t=t.to(dev))
+    got.backward()
+    assert build.LAUNCHES["flash_attention"] == 2 and build.LAUNCHES["flash_attention_backward"] == 2
+    rel = 1e-4 if dtype == "float32" else 3e-2
+    assert abs(float(got) - float(want)) <= rel * abs(float(want))
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        scale = max(float(pc.grad.abs().max()), 1e-6)
+        tol = 2e-3 if dtype == "float32" else 6e-2
+        assert float((pg.grad.cpu() - pc.grad).abs().max()) <= tol * scale, name
+
+
+def test_dit_remat_on_the_card_reruns_the_forward_kernel(dev):
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+
+    cfg = dict(image_size=64, in_channels=4, backbone="dit", hidden_size=128, depth=2,
+               num_heads=2, seed=1, device=dev)
+    x1 = torch.randn((2, 64, 64, 4), generator=_gen(dev, 13), device=dev)
+    out = []
+    for remat in (False, True):
+        model = BaseFlowModel(remat=remat, **cfg)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.randn(p.shape, generator=_gen(dev, 14), device=dev) * 0.05)
+        build.reset_launches()
+        loss = model.loss_fn(x1, torch.Generator(device=dev).manual_seed(1))
+        loss.backward()
+        out.append((loss.detach(), [p.grad for p in model.parameters()], dict(build.LAUNCHES)))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a, b)
+    assert out[0][2]["flash_attention"] == 2 and out[1][2]["flash_attention"] == 4
+    assert out[0][2]["flash_attention_backward"] == out[1][2]["flash_attention_backward"] == 2
