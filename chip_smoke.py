@@ -11,12 +11,14 @@ card, outside a checkout, or when any phase fails. Phases, in order:
 2. build the CUDA kernels from ``rectified_flow_vision_tpu_torch/ops/csrc``;
 3. kernels: every kernel at every shape the flagship UNet's eval and train
    forwards give it (batch 256; shapes recorded from CPU forwards of the same
-   model), the flash-attention forward at the DiT-S/2 latent shapes (batch 256
-   and 64, 1024 tokens, 6 heads of 64) and at 16384 tokens, its backward at
-   batch 64, and the standalone dropout at three sizes, in bf16 and fp32,
+   model), the attention block at 1024 tokens (256, 32, 32, 256), the
+   flash-attention forward at the DiT-S/2 latent shapes (batch 256 and 64,
+   1024 tokens, 6 heads of 64) and at 16384 tokens, its backward at batch
+   64, and the standalone dropout at three sizes, in bf16 and fp32,
    against its plain PyTorch version on the same inputs within a stated
    tolerance, with the kernel's, the plain version's and one PyTorch library
-   call's times, and the card's least time (bound). The dropout kernels also:
+   call's times, and the card's least time (bound), with TFLOP/s where
+   operations bound the kernel. The dropout kernels also:
    the mask equal to the plain version's bit for bit, the dropped fraction,
    same seed same output, other seed other mask;
 4. model: a full-width UNet forward in fp32 at batch 4, kernels on the card
@@ -151,6 +153,7 @@ VAE = dict(image_size=256, in_channels=3, latent_channels=4, base_channels=64, d
 LATENT = dict(images=256, vae_epochs=3, vae_batch=32, batch=64, base_epochs=8, warmup_epochs=1,
               reflow_epochs=4, lr=1e-4, ema=0.999, pairs=256, pair_batch=256, teacher_steps=4,
               straight_points=4, samples=16)
+ATTN_1024 = (32, 32, 256)  # (H, W, C) of a 128x128 UNet's mid-block attention
 FLASH_FWD_SHAPES = ((BATCH, DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM),
                     (LATENT["batch"], DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM),
                     (2, 16384, DIT_HEADS, DIT_HEAD_DIM))
@@ -315,7 +318,10 @@ def kernel_cases(torch, shape_calls, drop_calls):
                       lambda es, m=m, cin=cin, cout=cout:
                       (m * cin + m * cout + 9 * cin * cout) * es + cout * 4,
                       2 * m * 9 * cin * cout))
-    for (h, w, c), n in sorted(shape_calls["attention_block"].items()):
+    # the flagship's 16x16 mid block, and a 128x128 UNet's 32x32 one (1024
+    # tokens; no path of this script runs it: 0 calls)
+    attn_shapes = sorted(shape_calls["attention_block"].items()) + [(ATTN_1024, 0)]
+    for (h, w, c), n in attn_shapes:
         def make(dt, h=h, w=w, c=c):
             x = randn(BATCH, h, w, c, dtype=dt)
             bound = 1 / math.sqrt(c)
@@ -483,11 +489,15 @@ def kernel_phase(torch, shape_calls, drop_calls):
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
             )
             rows.append(row)
+            rate = ""
+            if row["bound_by"] == "operations" or name == "conv3x3":
+                rate = (f" | {flops / k_ms / 1e9:.1f} TFLOP/s kernel, "
+                        f"{flops / l_ms / 1e9:.1f} library")
             log(f"kernel {name:18s} {dname:8s} {str(tuple(shape)):24s} x{count:<2d} "
                 f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} (rtol {rtol}, atol {atol}) "
                 f"{'ok' if ok else 'MISMATCH'} | kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
                 f"library {l_ms:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
-                + note)
+                + rate + note)
             del kernel, plain, library, got, want
         torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
@@ -583,8 +593,9 @@ KERNEL_GROUPS = (
     ("gn_apply_dropout", "gn_silu_dropout (apply)"),
     ("dropout_kernel", "dropout"),
     ("dropout_mask_apply", "dropout_mask_apply"),
-    ("gn_stats", "gn statistics (gn_silu and gn_silu_dropout)"),
+    ("gn_stats", "gn statistics (gn_silu, gn_silu_dropout, attention_block)"),
     ("gn_apply", "gn_silu (apply)"),
+    ("gn_norm", "attention_block"),
     ("attn_", "attention_block"),
     ("adam", "optimizer"),
     ("multi_tensor", "optimizer"),

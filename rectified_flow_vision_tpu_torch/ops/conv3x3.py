@@ -4,8 +4,15 @@ Replaces the Pallas TPU kernel ``rectified_flow_vision_tpu/ops/conv_pallas.py``
 ``conv3x3`` (five TPU tilings of one op: ``_conv3x3_taps``,
 ``_conv3x3_padded``, ``_conv3x3_packed``, ``_conv3x3_image``); one Hopper
 kernel (``csrc/conv3x3.cu``) honours the same contract. It is an implicit
-GEMM (M = N*H*W, N = Cout, K = 9*Cin) bound by operations on the H100: the
-bf16 path runs on the tensor cores through WMMA, the fp32 path on fp32 FMAs.
+GEMM (M = N*H*W, N = Cout, K = 9*Cin) bound by operations on the H100 (the
+flagship forward's 30 calls: 3.09 TFLOP, 3.1 ms at 989 TFLOP/s). The bf16
+path is warp-specialised and persistent: a block tile of 128 or 256 pixels
+takes every output channel (up to 256) so each tap's input tile is fetched
+once; TMA brings the tap's pixels as a box of image rows over x viewed as a
+4D tensor, its zero fill standing in for the halo, and the weights as a
+[Cout, 9*Cin] box, into a ring of 128-byte-swizzled stages that two
+warpgroups consume with ``wgmma``. ``tile_config`` picks the tile, the ring's
+depth and the box. The fp32 path runs on fp32 FMAs (no TF32).
 
 The weight is ``(Cout, 3, 3, Cin)`` (OHWI): the K axis is ordered
 (dy, dx, ci), which is a torch OIHW weight ``permute(0, 2, 3, 1)``. The
@@ -36,6 +43,37 @@ def supports(x_shape, w_shape, stride: int) -> bool:
     return h >= 8 and 8 <= wdt <= 256
 
 
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
+MAX_STAGES = 8
+
+
+def tile_config(h: int, w: int, cin: int, cout: int) -> dict:
+    """The bf16 wgmma kernel's tiling for one shape (the convs, and the
+    attention block's projections as one-tap convs): ``bn`` output channels
+    per tile (the smallest of 64, 128, 192, 256 that holds Cout, else the
+    largest that divides it, else 256; columns past Cout are not stored),
+    ``bm`` pixels per tile (256 where bn <= 128, so that each k-step's weights
+    serve twice the rows, else 128), the A box of ``hb`` image rows x ``wb``
+    columns (``wb`` the power of two >= W, at most 128; ``hb * wb`` = bm),
+    the ring's ``stages`` (as many bm x 128 + bn x 128-byte stages as fit,
+    at most 8), the block's dynamic shared memory and the number of tiles
+    per image."""
+    tiles = (64, 128, 192, 256)
+    if cout <= 256:
+        bn = next(b for b in tiles if b >= cout)
+    else:
+        bn = next((b for b in reversed(tiles) if cout % b == 0), 256)
+    bm = 256 if bn <= 128 else 128
+    wb = min(128, 1 << max(0, (w - 1).bit_length()))
+    hb = bm // wb
+    stage = bm * 64 * 2 + bn * 64 * 2
+    reserve = 1024 + 2 * MAX_STAGES * 8  # 1024-byte alignment of the ring, mbarriers
+    stages = min(MAX_STAGES, (SMEM_LIMIT - reserve) // stage)
+    smem = stages * stage + 1024 + 2 * stages * 8
+    n_tiles = -(-h // hb) * -(-w // wb) * -(-cout // bn)
+    return dict(bn=bn, bm=bm, wb=wb, hb=hb, stages=stages, smem=smem, tiles_per_image=n_tiles)
+
+
 def conv3x3_plain(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     """Plain PyTorch 3x3/pad-1 conv; conv in x's dtype, fp32 bias, then x's dtype
     (as ``P.conv2d``)."""
@@ -57,10 +95,12 @@ def conv3x3_cuda(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     build.require(w, "w", device=x.device, dtype=x.dtype, shape=(cout, 3, 3, cin))
     build.require(b, "b", device=x.device, dtype=torch.float32, shape=(cout,))
     lib = build.library()
+    cfg = tile_config(h, wdt, cin, cout)
     out = torch.empty((n, h, wdt, cout), device=x.device, dtype=x.dtype)
     rc = lib.rfv_conv3x3(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        n, h, wdt, cin, cout, build.DTYPE_CODES[x.dtype], build.stream_ptr(x),
+        n, h, wdt, cin, cout, cfg["bn"], cfg["stages"], cfg["wb"], cfg["hb"],
+        build.DTYPE_CODES[x.dtype], build.stream_ptr(x),
     )
     build.check(rc, "conv3x3")
     build.LAUNCHES["conv3x3"] += 1

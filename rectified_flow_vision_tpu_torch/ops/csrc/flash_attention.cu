@@ -36,10 +36,12 @@
 // product's k index in its rows); the forward copies the next key tile with
 // cp.async under the current tile's arithmetic. Probabilities are rounded to
 // bf16 (unnormalised) before P V, as the operand of a bf16 product must be.
+// The mma.sync, ldmatrix and repacking helpers live in mma.cuh, shared with
+// the UNet attention block (attention.cu).
 // float32: SIMT, 256 threads with 4 x 4 outputs each, exact fp32 FMAs (no
 // TF32), for the fp32 model path and checks. wgmma, TMA and warp
 // specialisation are not used yet; they are the way to the card's peak rate.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -48,63 +50,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // ------------------------------------------------------------------ bf16 ----
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A operand (16 x 16) from a row-major tile m[row][k] of pitch LD:
-// rows r0 + {g, g + 8}, columns k0 + 2 * t4 + {0, 1, 8, 9}.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* m, int r0, int k0, int g,
-                                       int t4) {
-  const bf16* p = m + (r0 + g) * LD + k0 + 2 * t4;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * LD);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * LD + 8);
-}
-
-// Two B operands (16 x 8 each) with B[k][n] = m[n0 + n][k0 + k], for the
-// k-steps at k0 (b[0], b[1]) and k0 + 16 (b[2], b[3]): the tile holds the
-// product's n index in its rows (K in Q K^T). One ldmatrix.x4: lanes 8 i ..
-// 8 i + 7 address the rows of the 8 x 8 block at columns k0 + 8 i.
-template <int LD>
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const bf16* m, int n0, int k0,
-                                            int lane) {
-  const uint32_t s = static_cast<uint32_t>(
-      __cvta_generic_to_shared(m + (n0 + (lane & 7)) * LD + k0 + 8 * (lane >> 3)));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(s));
-}
-
-// Two B operands (16 x 8 each) with B[k][n] = m[k0 + k][n0 + n], for the
-// n-tiles at n0 (b[0], b[1]) and n0 + 8 (b[2], b[3]): the tile holds the
-// product's k index in its rows (V in P V), read transposed. One
-// ldmatrix.x4.trans: blocks (rows k0, k0 + 8) x (columns n0, n0 + 8).
-template <int LD>
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const bf16* m, int k0, int n0,
-                                            int lane) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(
-      m + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + n0 + 8 * (lane >> 4)));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(s));
-}
+using namespace rfv_mma;
 
 // 64 x D bf16 tile from global rows of pitch `pitch` into shared rows of
 // pitch D + 8, 16 bytes per cp.async.
@@ -457,9 +403,10 @@ __global__ void __launch_bounds__(128)
 // ------------------------------------------------------------------ fp32 ----
 //
 // 256 threads as 16 x 16; thread (ty, tx) owns rows ty + 16 i and columns
-// tx + 16 j of every 64-wide product. Tiles sit in shared memory with an odd
-// pitch (D + 1, 65), so the column reads of a warp fall on distinct banks and
-// its row reads are broadcasts.
+// tx + 16 j of every 64-wide product (the tile products gemm_nt / gemm_nn /
+// gemm_tn of mma.cuh). Tiles sit in shared memory with an odd pitch (D + 1,
+// 65), so the column reads of a warp fall on distinct banks and its row
+// reads are broadcasts.
 
 constexpr int SP = TILE + 1;  // pitch of a 64 x 64 logit tile
 
@@ -474,61 +421,6 @@ __device__ __forceinline__ void load_tile_f32(float* s, const float* gsrc, long 
     d[1] = val.y;
     d[2] = val.z;
     d[3] = val.w;
-  }
-}
-
-// acc[i][j] += sum_d a[ty + 16 i][d] * b[tx + 16 j][d], d < K
-template <int K, int PA, int PB>
-__device__ __forceinline__ void gemm_nt(const float* a, const float* b, float (&acc)[4][4],
-                                        int ty, int tx) {
-#pragma unroll 8
-  for (int d = 0; d < K; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = a[(ty + 16 * i) * PA + d];
-      bv[i] = b[(tx + 16 * i) * PB + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_m a[ty + 16 i][m] * b[m][tx + 16 j], m < 64, j < NJ
-template <int NJ, int PA, int PB>
-__device__ __forceinline__ void gemm_nn(const float* a, const float* b, float (&acc)[4][NJ],
-                                        int ty, int tx) {
-#pragma unroll 8
-  for (int m = 0; m < TILE; ++m) {
-    float av[4], bv[NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * PA + m];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) bv[j] = b[m * PB + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_m a[m][ty + 16 i] * b[m][tx + 16 j], m < 64, j < NJ
-template <int NJ, int PA, int PB>
-__device__ __forceinline__ void gemm_tn(const float* a, const float* b, float (&acc)[4][NJ],
-                                        int ty, int tx) {
-#pragma unroll 8
-  for (int m = 0; m < TILE; ++m) {
-    float av[4], bv[NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[m * PA + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) bv[j] = b[m * PB + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 

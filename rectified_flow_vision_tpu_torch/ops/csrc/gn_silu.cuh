@@ -1,8 +1,10 @@
 // GroupNorm statistics and the normalise / affine / SiLU pass over an NHWC
-// tensor, shared by gn_silu.cu and gn_silu_dropout.cu (design notes in
-// gn_silu.cu). The apply pass optionally ends in dropout: kept values are
-// scaled by 1/keep in fp32 and dropped ones are zero, before the one rounding
-// to the output type; the bits come from dropout_bits (common.cuh).
+// tensor, shared by gn_silu.cu, gn_silu_dropout.cu and attention.cu (design
+// notes in gn_silu.cu). The apply pass optionally ends in dropout: kept
+// values are scaled by 1/keep in fp32 and dropped ones are zero, before the
+// one rounding to the output type; the bits come from dropout_bits
+// (common.cuh). Without SILU it is the plain GroupNorm (the attention
+// block's normalised input).
 #pragma once
 
 #include "common.cuh"
@@ -67,7 +69,7 @@ struct Dropout {
   float inv_keep;
 };
 
-template <typename T, int V, bool DROP>
+template <typename T, int V, bool DROP, bool SILU>
 __device__ __forceinline__ void gn_apply_body(const T* __restrict__ x,
                                               const float* __restrict__ scale,
                                               const float* __restrict__ bias,
@@ -108,7 +110,7 @@ __device__ __forceinline__ void gn_apply_body(const T* __restrict__ x,
 #pragma unroll
     for (int e = 0; e < V; ++e) {
       const float z = (v[e] - m) * r * scale[c0 + e] + bias[c0 + e];
-      v[e] = z / (1.f + expf(-z));
+      v[e] = SILU ? z / (1.f + expf(-z)) : z;
     }
     if constexpr (DROP) {
       uint32_t bits[V];
@@ -120,14 +122,22 @@ __device__ __forceinline__ void gn_apply_body(const T* __restrict__ x,
   }
 }
 
-// Two entry kernels with names of their own, so that a profiler trace tells
-// gn_silu's apply pass from gn_silu_dropout's.
+// Entry kernels with names of their own, so that a profiler trace tells
+// gn_silu's apply pass from gn_silu_dropout's and the attention block's.
 template <typename T, int V>
 __global__ void __launch_bounds__(kApplyThreads)
     gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                     const float* __restrict__ bias, const float2* __restrict__ part,
                     T* __restrict__ y, int HW, int C, int G, int S, float eps) {
-  gn_apply_body<T, V, false>(x, scale, bias, part, y, HW, C, G, S, eps, Dropout{});
+  gn_apply_body<T, V, false, true>(x, scale, bias, part, y, HW, C, G, S, eps, Dropout{});
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kApplyThreads)
+    gn_norm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                   const float* __restrict__ bias, const float2* __restrict__ part,
+                   T* __restrict__ y, int HW, int C, int G, int S, float eps) {
+  gn_apply_body<T, V, false, false>(x, scale, bias, part, y, HW, C, G, S, eps, Dropout{});
 }
 
 template <typename T, int V>
@@ -136,10 +146,10 @@ __global__ void __launch_bounds__(kApplyThreads)
                             const float* __restrict__ bias, const float2* __restrict__ part,
                             T* __restrict__ y, int HW, int C, int G, int S, float eps,
                             Dropout drop) {
-  gn_apply_body<T, V, true>(x, scale, bias, part, y, HW, C, G, S, eps, drop);
+  gn_apply_body<T, V, true, true>(x, scale, bias, part, y, HW, C, G, S, eps, drop);
 }
 
-template <typename T, int V, bool DROP>
+template <typename T, int V, bool DROP, bool SILU>
 int launch(const void* x, const void* scale, const void* bias, void* part, void* y, int B,
            int HW, int C, int G, float eps, Dropout drop, cudaStream_t st) {
   const int cv = C / V;
@@ -160,31 +170,36 @@ int launch(const void* x, const void* scale, const void* bias, void* part, void*
   if constexpr (DROP)
     gn_apply_dropout_kernel<T, V><<<grid, kApplyThreads, 0, st>>>(xt, sc, bi, pt, yt, HW, C, G,
                                                                  S, eps, drop);
-  else
+  else if constexpr (SILU)
     gn_apply_kernel<T, V><<<grid, kApplyThreads, 0, st>>>(xt, sc, bi, pt, yt, HW, C, G, S, eps);
+  else
+    gn_norm_kernel<T, V><<<grid, kApplyThreads, 0, st>>>(xt, sc, bi, pt, yt, HW, C, G, S, eps);
   return (int)cudaGetLastError();
 }
 
 // The widest vector (16 bytes at most) that divides a group's channels, so
 // that a vector never straddles two groups.
-template <typename T, int V, bool DROP>
+template <typename T, int V, bool DROP, bool SILU>
 int launch_widest(const void* x, const void* scale, const void* bias, void* part, void* y,
                   int B, int HW, int C, int G, float eps, Dropout drop, cudaStream_t st) {
   if constexpr (V == 1) {
-    return launch<T, 1, DROP>(x, scale, bias, part, y, B, HW, C, G, eps, drop, st);
+    return launch<T, 1, DROP, SILU>(x, scale, bias, part, y, B, HW, C, G, eps, drop, st);
   } else {
     if ((C / G) % V == 0)
-      return launch<T, V, DROP>(x, scale, bias, part, y, B, HW, C, G, eps, drop, st);
-    return launch_widest<T, V / 2, DROP>(x, scale, bias, part, y, B, HW, C, G, eps, drop, st);
+      return launch<T, V, DROP, SILU>(x, scale, bias, part, y, B, HW, C, G, eps, drop, st);
+    return launch_widest<T, V / 2, DROP, SILU>(x, scale, bias, part, y, B, HW, C, G, eps, drop,
+                                               st);
   }
 }
 
-template <bool DROP>
+template <bool DROP, bool SILU = true>
 int launch_dtype(const void* x, const void* scale, const void* bias, void* part, void* y, int B,
                  int HW, int C, int G, float eps, Dropout drop, int dtype, cudaStream_t st) {
   if (dtype == RFV_DTYPE_BF16)
-    return launch_widest<bf16, 8, DROP>(x, scale, bias, part, y, B, HW, C, G, eps, drop, st);
-  return launch_widest<float, 4, DROP>(x, scale, bias, part, y, B, HW, C, G, eps, drop, st);
+    return launch_widest<bf16, 8, DROP, SILU>(x, scale, bias, part, y, B, HW, C, G, eps, drop,
+                                              st);
+  return launch_widest<float, 4, DROP, SILU>(x, scale, bias, part, y, B, HW, C, G, eps, drop,
+                                             st);
 }
 
 }  // namespace rfv_gn

@@ -6,7 +6,9 @@ fixture, not at import). On a machine with a card and nvcc:
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
 Shapes are small but cover ragged tiles (M not a multiple of the conv's
-128-row tile, 35 tokens in attention, C not a multiple of 32) and group
+128-row tile, boxes wider or taller than the image, 35 tokens in attention,
+C not a multiple of 32), every conv shape of the flagship forward, the
+attention block at 1024 and 4096 tokens, head widths 4 to 64, and group
 widths that take gn_silu's narrower vectors (2 and 3 channels a group). Tolerances as in chip_smoke.py:
 fp32 1e-4 (gn_silu) / 1e-3 (conv3x3, attention; reordered sums, cuDNN's
 algorithm choice), bf16 one rounding against two or three (2e-2 rtol, 3e-2
@@ -79,9 +81,50 @@ def test_conv3x3(dev, dtype, shape, cout):
     torch.testing.assert_close(out.float(), C.conv3x3_plain(x, w, b).float(), **_tol(dtype))
 
 
+# (N, H, W, Cin, Cout): the flagship forward's ten shapes at batch 2, then a
+# tile M that is no multiple of 128 and H below the box (9 x 8), W at both
+# ends of the contract (8, 256, and 10: a box wider than the image), Cout
+# 192 and 512 (two output-channel tiles), Cin 576 (81 k-steps)
+CONV_SHAPES = [
+    (2, 64, 64, 64, 64), (2, 64, 64, 192, 64), (2, 64, 64, 128, 128),
+    (2, 32, 32, 64, 128), (2, 32, 32, 128, 128), (2, 32, 32, 384, 128), (2, 32, 32, 256, 256),
+    (2, 16, 16, 128, 256), (2, 16, 16, 256, 256), (2, 16, 16, 512, 256),
+    (1, 9, 8, 64, 64), (2, 12, 8, 64, 128), (1, 8, 256, 64, 64), (1, 11, 10, 128, 192),
+    (1, 8, 8, 576, 512), (3, 16, 16, 64, 192),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv3x3_main_path_and_edges(dev, dtype, shape):
+    n, h, w, cin, cout = shape
+    g = _gen(dev, 15)
+    x = torch.randn((n, h, w, cin), generator=g, device=dev).to(dtype)
+    wt = ((torch.rand((cout, 3, 3, cin), generator=g, device=dev) * 2 - 1)
+          / (9 * cin) ** 0.5).to(dtype)
+    b = torch.randn(cout, generator=g, device=dev) * 0.1
+    before = build.LAUNCHES["conv3x3"]
+    out = C.conv3x3_cuda(x, wt, b)
+    assert build.LAUNCHES["conv3x3"] == before + 1
+    torch.testing.assert_close(out.float(), C.conv3x3_plain(x, wt, b).float(), **_tol(dtype))
+    # a batch slice that does not start at the storage's first element
+    big = torch.randn((n + 1, h, w, cin), generator=g, device=dev).to(dtype)
+    torch.testing.assert_close(C.conv3x3_cuda(big[1:], wt, b).float(),
+                               C.conv3x3_plain(big[1:], wt, b).float(), **_tol(dtype))
+
+
+def test_conv3x3_tile_config_matches_the_library(dev):
+    """The wrapper's shared-memory figure is the one the kernel launches with."""
+    lib = build.library()
+    for h, w, cin, cout in [(s[1], s[2], s[3], s[4]) for s in CONV_SHAPES]:
+        cfg = C.tile_config(h, w, cin, cout)
+        assert lib.rfv_conv3x3_smem(cfg["bn"], cfg["stages"]) == cfg["smem"] <= C.SMEM_LIMIT
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 16, 16, 256), (3, 8, 8, 128), (2, 8, 8, 16),
-                                   (1, 5, 7, 64)])
+                                   (1, 5, 7, 64), (2, 32, 32, 256), (1, 64, 64, 128),
+                                   (1, 5, 7, 16)])
 def test_attention_block(dev, dtype, shape):
     g = _gen(dev, 2)
     c = shape[-1]
@@ -292,6 +335,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         D.gn_silu_dropout_cuda(x, s, s, torch.tensor([3], device=dev), 0.1)  # int64
     with pytest.raises(ValueError, match="contiguous"):
         D.dropout_mask_apply_cuda(x.transpose(1, 2), 3, 0.1)
+    # attention_block: any number of tokens (1024 here, no longer rejected);
+    # channels that the heads or groups do not divide, or heads wider than
+    # 128, are outside the contract
+    c = 64
+    args = (torch.ones(c, device=dev), torch.zeros(c, device=dev),
+            torch.randn((3 * c, c), device=dev) * 0.1, torch.zeros(3 * c, device=dev),
+            torch.randn((c, c), device=dev) * 0.1, torch.zeros(c, device=dev))
+    big = torch.randn((1, 32, 32, c), device=dev)
+    assert A.attention_block_cuda(big, *args).shape == big.shape
+    with pytest.raises(ValueError, match="not supported"):
+        A.attention_block_cuda(big, *args, num_heads=3)
+    with pytest.raises(ValueError, match="not supported"):
+        A.attention_block_cuda(big, *args, num_groups=6)
+    wide = torch.randn((1, 4, 4, 256), device=dev)
+    c = 256
+    with pytest.raises(ValueError, match="not supported"):
+        A.attention_block_cuda(wide, torch.ones(c, device=dev), torch.zeros(c, device=dev),
+                               torch.zeros((3 * c, c), device=dev), torch.zeros(3 * c, device=dev),
+                               torch.zeros((c, c), device=dev), torch.zeros(c, device=dev),
+                               num_heads=1)
 
 
 # ---- flash attention and the standalone dropout ---------------------------------

@@ -179,10 +179,45 @@ class TestConv3x3:
         assert JC.supports(x_shape, (kh, kw, i, o), stride) is ok
 
 
+    @pytest.mark.parametrize("h,w,cin,cout", [
+        (64, 64, 64, 64), (64, 64, 192, 64), (64, 64, 128, 128), (32, 32, 64, 128),
+        (32, 32, 128, 128), (32, 32, 384, 128), (32, 32, 256, 256), (16, 16, 128, 256),
+        (16, 16, 256, 256), (16, 16, 512, 256), (9, 8, 64, 64), (8, 256, 64, 64),
+        (11, 10, 128, 192), (8, 8, 576, 512), (8, 200, 64, 320),
+        # the attention block's projections (C -> 3C, C -> C) as one-tap convs
+        (16, 16, 256, 768), (32, 32, 128, 384), (8, 8, 16, 48), (5, 7, 64, 192),
+    ])
+    def test_tile_config(self, h, w, cin, cout):
+        """The bf16 wgmma kernel's tiling: every output channel in one tile up
+        to 256 (else a divisor of Cout), a box of whole image rows (Wb a power
+        of two covering W up to 128) of 256 pixels where the channel tile is
+        narrow, a ring of at least four stages that fits the H100's 232,448
+        bytes of shared memory a block."""
+        cfg = TC.tile_config(h, w, cin, cout)
+        bn = cfg["bn"]
+        assert bn in (64, 128, 192, 256)
+        if cout <= 256:
+            assert bn >= cout and (bn == 64 or bn - 64 < cout)
+        else:
+            assert cout % bn == 0 or (bn == 256 and cout % 64)
+        assert cfg["bm"] == (256 if bn <= 128 else 128)
+        assert cfg["wb"] * cfg["hb"] == cfg["bm"] and cfg["wb"] & (cfg["wb"] - 1) == 0
+        assert cfg["wb"] >= min(w, 128) and (cfg["wb"] < 2 * w or cfg["wb"] == 8)
+        stage = cfg["bm"] * 64 * 2 + bn * 64 * 2
+        assert 4 <= cfg["stages"] <= TC.MAX_STAGES
+        assert cfg["smem"] == cfg["stages"] * stage + 1024 + 16 * cfg["stages"]
+        assert cfg["smem"] <= TC.SMEM_LIMIT == 232448
+        assert cfg["smem"] + stage > TC.SMEM_LIMIT or cfg["stages"] == TC.MAX_STAGES
+        rows, cols = -(-h // cfg["hb"]), -(-w // cfg["wb"])
+        assert cfg["tiles_per_image"] == rows * cols * -(-cout // bn)
+
+
 class TestAttentionBlock:
-    @pytest.mark.parametrize("shape", [(2, 16, 16, 256), (1, 8, 8, 64)])
+    @pytest.mark.parametrize("shape", [(2, 16, 16, 256), (1, 8, 8, 64), (1, 32, 32, 256)])
     def test_plain_matches_pallas_and_xla_fp32(self, shape):
-        """fp32: GEMMs + fp32 softmax, reordered sums (1e-4)."""
+        """fp32: GEMMs + fp32 softmax, reordered sums (1e-4). (1, 32, 32, 256)
+        is a 128x128 UNet's mid block: 1024 tokens, which the CUDA kernels
+        take too."""
         c = shape[-1]
         x = _rng(7).standard_normal(shape).astype(np.float32)
         p = _attn_params(c)
@@ -191,6 +226,21 @@ class TestAttentionBlock:
         xla = JP.spatial_attention(_j(x), _jax_tree(p, jnp.float32), num_heads=4, num_groups=8)
         np.testing.assert_allclose(_np(out), _np(pallas), rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(_np(out), _np(xla), rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("c,heads,groups,dtype,ok", [
+        (256, 4, 8, torch.bfloat16, True), (256, 4, 8, torch.float32, True),
+        (16, 4, 8, torch.bfloat16, True), (512, 4, 8, torch.float32, True),
+        (512, 2, 8, torch.float32, False),  # heads of 256
+        (64, 3, 8, torch.bfloat16, False), (64, 4, 6, torch.bfloat16, False),
+        (12, 4, 4, torch.bfloat16, False), (12, 4, 4, torch.float32, True),  # TMA: C % 8
+        (2048, 16, 32, torch.bfloat16, True), (4096, 32, 32, torch.bfloat16, False),
+        (64, 4, 64, torch.float32, False),  # more than 32 groups
+    ])
+    def test_kernel_contract(self, c, heads, groups, dtype, ok):
+        """What the CUDA kernels take: any number of tokens; C divided by the
+        heads (at most 128 wide) and by at most 32 groups; C / V <= 256 for
+        the GroupNorm statistics pass."""
+        assert TA.supports(c, heads, groups, dtype) is ok
 
     def test_plain_matches_xla_bf16(self):
         """bf16: the plain version rounds where ``P.spatial_attention`` does
