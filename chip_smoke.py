@@ -14,13 +14,17 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    model), the attention block at 1024 tokens (256, 32, 32, 256), the
    flash-attention forward at the DiT-S/2 latent shapes (batch 256 and 64,
    1024 tokens, 6 heads of 64) and at 16384 tokens, its backward at batch
-   64, and the standalone dropout at three sizes, in bf16 and fp32,
+   64, both at DiT-XL/2's widths (batch 64, 1024 tokens, 16 heads of 72),
+   and the standalone dropout at three sizes, in bf16 and fp32,
    against its plain PyTorch version on the same inputs within a stated
    tolerance, with the kernel's, the plain version's and one PyTorch library
    call's times, and the card's least time (bound), with TFLOP/s where
    operations bound the kernel. The dropout kernels also:
    the mask equal to the plain version's bit for bit, the dropped fraction,
-   same seed same output, other seed other mask;
+   same seed same output, other seed other mask. Then each bf16 flash
+   kernel alone (forward; delta, dkv and dq of the backward) by the
+   profiler's device time, with TFLOP/s and share of the bound, beside
+   SDPA's forward and backward;
 4. model: a full-width UNet forward in fp32 at batch 4, kernels on the card
    against the plain path on the CPU;
 5. serve: ``SamplerService`` at full width, batch 256, steps (1, 2, 4), bf16,
@@ -44,7 +48,9 @@ card, outside a checkout, or when any phase fails. Phases, in order:
 11. DiT model and gradient: DiT-S/2 (hidden 384, depth 12, 6 heads, patch 2,
     64x64x4 latents, ``remat``) in fp32 at batch 4 with all-random parameters:
     the forward, the loss and every parameter's gradient on the card (flash
-    kernels forward and backward) against the plain path on the CPU;
+    kernels forward and backward) against the plain path on the CPU; then
+    DiT-XL/2's widths (16 heads of 72) at depth 2, batch 2, the same in fp32
+    and the forward in bf16;
 12. latent serve: ``SamplerService`` with a ConvVAE (256x256x3, base 64,
     downsample 4; seeded weights for both), batch 256, steps (1, 2, 4), bf16
     flow and bf16 decode, three requests; exact flash launch counts, outputs
@@ -135,6 +141,10 @@ GRAD_RTOL, GRAD_ATOL, LOSS_ATOL = 2e-3, 1e-6, 1e-4
 # masks; cuDNN's backward may sum in another order from run to run, and bf16
 # steps carry that on, so epoch losses are held to this relative difference
 TRAJECTORY_RTOL = 2e-2
+# bf16 DiT forward, card vs CPU, both rounding to bf16 after every op but in
+# other places (the flash kernel divides by the row sum at the end): a few
+# bf16 ulps of the output's scale through two blocks
+XL_BF16_RTOL = 5e-2
 TRAIN_STEP_LAUNCHES = {"gn_silu": 15, "gn_silu_dropout": 14, "dropout_mask_apply": 14,
                        "conv3x3": 30, "attention_block": 1}
 EVAL_FORWARD_LAUNCHES = {"gn_silu": 29, "gn_silu_dropout": 0, "dropout_mask_apply": 0,
@@ -158,6 +168,9 @@ FLASH_FWD_SHAPES = ((BATCH, DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM),
                     (LATENT["batch"], DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM),
                     (2, 16384, DIT_HEADS, DIT_HEAD_DIM))
 FLASH_BWD_SHAPE = (LATENT["batch"], DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM)
+# DiT-XL/2 (hidden 1152, 16 heads of 72) on the same latents: no path of
+# this script runs it, the kernel phase holds it against the plain versions
+FLASH_XL_SHAPE = (LATENT["batch"], DIT_TOKENS, 16, 72)
 DROPOUT_SHAPES = ((1024, 1024), (64, 1024, 384), (256, 64, 64, 64))
 
 
@@ -353,13 +366,28 @@ def kernel_cases(torch, shape_calls, drop_calls):
     return cases + flash_cases(torch, randn) + dropout_cases(torch, randn, seed)
 
 
+def flash_fwd_cost(shape):
+    """(bytes at 2 bytes an element, flops) of one forward call: q, k, v read
+    and o written once, the fp32 lse written; 4 B H T^2 D flops."""
+    b, t, h, d = shape
+    return 4 * b * t * h * d * 2 + 4 * b * h * t, 4 * b * h * t * t * d
+
+
+def flash_bwd_cost(shape):
+    """(bytes, flops) of one backward call: q, k, v, o, d_out read and dq, dk,
+    dv written once, lse read; five products of 2 B H T^2 D flops each."""
+    b, t, h, d = shape
+    return 8 * b * t * h * d * 2 + 4 * b * h * t, 10 * b * h * t * t * d
+
+
 def flash_cases(torch, randn):
     """Flash attention forward at the DiT-S/2 latent shapes (12 calls per DiT
-    forward at batch 256; 24 per ``remat`` train step at batch 64) and at 16384
-    tokens, and its backward at batch 64 (12 calls per train step). q, k, v
-    are the three views of one [B, T, 3, H, D] tensor, as DiT hands them over.
-    Bound: forward 4 B H T^2 D flops, backward 2.5 times that; every input
-    read once, every output written once."""
+    forward at batch 256; 24 per ``remat`` train step at batch 64), at 16384
+    tokens and at DiT-XL/2's widths, and its backward at batch 64 (12 calls
+    per train step) and at DiT-XL/2's widths. q, k, v are the three views of
+    one [B, T, 3, H, D] tensor, as DiT hands them over. Bound: forward
+    4 B H T^2 D flops, backward 2.5 times that; every input read once, every
+    output written once."""
     import torch.nn.functional as F
 
     from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
@@ -369,7 +397,7 @@ def flash_cases(torch, randn):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
 
     cases = []
-    for shape in FLASH_FWD_SHAPES:
+    for shape in FLASH_FWD_SHAPES + (FLASH_XL_SHAPE,):
         b, t, h, d = shape
 
         def make(dt, shape=shape):
@@ -381,29 +409,109 @@ def flash_cases(torch, randn):
                 lambda: sdpa(q, k, v),
             )
         elems = b * t * h * d
-        calls = {BATCH: DIT_DEPTH, LATENT["batch"]: 2 * DIT_DEPTH}.get(b, 0)
+        calls = 0 if shape == FLASH_XL_SHAPE else {BATCH: DIT_DEPTH,
+                                                   LATENT["batch"]: 2 * DIT_DEPTH}.get(b, 0)
         cases.append(("flash_attention", shape, calls, make,
                       lambda es, e=elems, r=b * h * t: 4 * e * es + 4 * r,
-                      4 * b * h * t * t * d))
+                      flash_fwd_cost(shape)[1]))
 
-    b, t, h, d = FLASH_BWD_SHAPE
-
-    def make(dt):
-        q, k, v = randn(b, t, 3, h, d, dtype=dt).unbind(2)
-        g = randn(b, t, h, d, dtype=dt)
-        out, lse = FA.flash_attention_cuda(q, k, v)
-        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        lib_out = sdpa(*leaves)
-        return (
-            lambda: FA.flash_attention_backward_cuda(q, k, v, out, lse, g),
-            lambda: FA.flash_attention_backward_plain(q, k, v, out, lse, g),
-            lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True),
-        )
-    elems = b * t * h * d
-    cases.append(("flash_attention_backward", FLASH_BWD_SHAPE, DIT_DEPTH, make,
-                  lambda es, e=elems, r=b * h * t: 8 * e * es + 4 * r,
-                  10 * b * h * t * t * d))
+    for shape, calls in ((FLASH_BWD_SHAPE, DIT_DEPTH), (FLASH_XL_SHAPE, 0)):
+        def make(dt, shape=shape):
+            b, t, h, d = shape
+            q, k, v = randn(b, t, 3, h, d, dtype=dt).unbind(2)
+            g = randn(b, t, h, d, dtype=dt)
+            out, lse = FA.flash_attention_cuda(q, k, v)
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            lib_out = sdpa(*leaves)
+            return (
+                lambda: FA.flash_attention_backward_cuda(q, k, v, out, lse, g),
+                lambda: FA.flash_attention_backward_plain(q, k, v, out, lse, g),
+                lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True),
+            )
+        b, t, h, d = shape
+        elems = b * t * h * d
+        cases.append(("flash_attention_backward", shape, calls, make,
+                      lambda es, e=elems, r=b * h * t: 8 * e * es + 4 * r,
+                      flash_bwd_cost(shape)[1]))
     return cases
+
+
+FLASH_KERNELS = (("flash_fwd", "forward"), ("flash_delta", "delta"), ("flash_dkv", "dkv"),
+                 ("flash_dq", "dq"))
+
+
+def flash_breakdown(torch) -> None:
+    """Each bf16 flash kernel alone: device ms per call by kernel (forward;
+    delta, dkv and dq of the backward) from the profiler over 10 calls each,
+    at the DiT-S/2 shapes (forward at batch 256, backward at batch 64) and at
+    DiT-XL/2's widths, with TFLOP/s (of the products each kernel runs, at the
+    true head width) and the share of the bound, beside SDPA's forward and
+    backward timed with CUDA events in the same run. The split backward
+    recomputes S and dP in dq (seven products where the bound counts five),
+    so it can reach at most 5/7 of its bound."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
+
+    reps = 10
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    for shape in (FLASH_FWD_SHAPES[0], FLASH_BWD_SHAPE, FLASH_XL_SHAPE):
+        b, t, h, d = shape
+        q, k, v = (torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16).unbind(2))
+        g = torch.randn((b, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        out, lse = FA.flash_attention_cuda(q, k, v)
+
+        def run():
+            for _ in range(reps):
+                FA.flash_attention_cuda(q, k, v)
+                FA.flash_attention_backward_cuda(q, k, v, out, lse, g)
+
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        path = ROOT / "build" / "flash_breakdown_trace.json"
+        path.parent.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(path))
+        ms = Counter()
+        for e in json.loads(path.read_text())["traceEvents"]:
+            if e.get("cat") == "kernel" and "dur" in e:
+                for key, label in FLASH_KERNELS:
+                    if key in e["name"]:
+                        ms[label] += e["dur"] / 1e3 / reps
+                        break
+        if set(ms) != {label for _, label in FLASH_KERNELS}:
+            fail(f"flash breakdown {shape}: the trace holds {dict(ms)}")
+
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        tq, tk, tv = (x.transpose(1, 2) for x in leaves)
+        sdpa_f = time_ms(torch, lambda: F.scaled_dot_product_attention(tq, tk, tv))
+        lib_out = F.scaled_dot_product_attention(tq, tk, tv).transpose(1, 2)
+        sdpa_b = time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True))
+        del leaves, tq, tk, tv, lib_out
+
+        def bound(cost):
+            nbytes, flops = cost
+            return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]) * 1e3
+
+        fb, bb = bound(flash_fwd_cost(shape)), bound(flash_bwd_cost(shape))
+        prod = 2 * b * h * t * t * d  # flops of one T x T x D product
+        delta_bytes = 2 * b * t * h * d * 2 + 4 * b * h * t
+        bwd = ms["delta"] + ms["dkv"] + ms["dq"]
+        log(f"flash kernels {shape} bf16, ms per call (profiler): forward {ms['forward']:.4f} "
+            f"({2 * prod / ms['forward'] / 1e9:.1f} TFLOP/s, {fb / ms['forward']:.3f} of its "
+            f"bound {fb:.4f}) vs SDPA {sdpa_f:.4f} ({2 * prod / sdpa_f / 1e9:.1f} TFLOP/s, "
+            f"{fb / sdpa_f:.3f}); backward {bwd:.4f} = delta {ms['delta']:.4f} "
+            f"({delta_bytes / ms['delta'] / 1e6:.1f} GB/s) + dkv {ms['dkv']:.4f} "
+            f"({4 * prod / ms['dkv'] / 1e9:.1f} TFLOP/s) + dq {ms['dq']:.4f} "
+            f"({3 * prod / ms['dq'] / 1e9:.1f} TFLOP/s), {bb / bwd:.3f} of its bound {bb:.4f} "
+            f"(at most 5/7 for the split design) vs SDPA {sdpa_b:.4f} "
+            f"({5 * prod / sdpa_b / 1e9:.1f} TFLOP/s, {bb / sdpa_b:.3f})")
+        del q, k, v, g, out, lse
+        torch.cuda.empty_cache()
 
 
 def dropout_cases(torch, randn, seed):
@@ -962,6 +1070,70 @@ def dit_model_phase(torch, build) -> None:
         fail("DiT loss or gradients on the card differ from the CPU plain path")
 
 
+def dit_xl_phase(torch, build) -> None:
+    """DiT-XL/2's widths (hidden 1152, 16 heads of 72, patch 2) on 64x64x4
+    latents (1024 tokens), depth cut from 28 to 2, batch 2, all parameters
+    random: the fp32 forward, loss and every gradient on the card (flash
+    kernels at head width 72, ``remat``) against the CPU plain path, as for
+    DiT-S/2; the bf16 forward against the CPU's bf16 plain path."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+
+    depth = 2
+    cfg = dict(image_size=64, in_channels=4, backbone="dit", patch_size=2, hidden_size=1152,
+               depth=depth, num_heads=16, remat=True)
+    cpu = BaseFlowModel(seed=SEED, device="cpu", **cfg)
+    randomize_zero_leaves(torch, cpu, SEED + 9)
+    gpu = BaseFlowModel(seed=SEED, device="cuda", **cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(SEED + 10)
+    x1 = torch.tanh(torch.randn((2, 64, 64, 4), generator=g))
+    x0 = torch.randn((2, 64, 64, 4), generator=g)
+    t = torch.rand((2,), generator=g)
+
+    errs = {}
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        build.reset_launches()
+        with torch.no_grad():
+            want = cpu.velocity_net(x0, t, dtype=dt).float()
+            got = gpu.velocity_net(x0.cuda(), t.cuda(), dtype=dt).float().cpu()
+        if dict(build.LAUNCHES) != all_counts(build, flash_attention=depth):
+            fail(f"DiT-XL widths {dname} forward launched {dict(build.LAUNCHES)}")
+        if not torch.isfinite(got).all():
+            fail(f"DiT-XL widths {dname} forward: non-finite output")
+        scale = float(want.abs().max())
+        errs[dname] = float((got - want).abs().max())
+        tol = MODEL_ATOL if dt == torch.float32 else XL_BF16_RTOL * scale
+        if not errs[dname] <= tol or scale < 0.05:
+            fail(f"DiT-XL widths {dname} forward differs from the plain path by {errs[dname]:.3e} "
+                 f"(tolerance {tol:.3e}, max|v| {scale:.3f})")
+
+    ref = cpu.loss_fn(x1, x0=x0, t=t)
+    ref.backward()
+    build.reset_launches()
+    loss = gpu.loss_fn(x1.cuda(), x0=x0.cuda(), t=t.cuda())
+    loss.backward()
+    torch.cuda.synchronize()
+    expect = all_counts(build, flash_attention=2 * depth, flash_attention_backward=depth)
+    if dict(build.LAUNCHES) != expect:
+        fail(f"DiT-XL widths loss + backward launched {dict(build.LAUNCHES)}, expected {expect}")
+    loss_err = abs(float(loss.detach()) - float(ref.detach()))
+    worst, worst_name = 0.0, ""
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        if pg.grad is None or not torch.isfinite(pg.grad).all():
+            fail(f"DiT-XL widths gradient of {name} is missing or non-finite")
+        err = float((pg.grad.cpu() - pc.grad).abs().max())
+        ratio = err / (GRAD_RTOL * float(pc.grad.abs().max()) + GRAD_ATOL)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    log(f"DiT-XL/2 widths (hidden 1152, 16 heads of 72), depth {depth}, batch 2, all parameters "
+        f"random: forward vs the CPU plain path max_abs fp32 {errs['float32']:.3e} (atol "
+        f"{MODEL_ATOL}), bf16 {errs['bfloat16']:.3e} (rtol {XL_BF16_RTOL} of max|v|); fp32 loss "
+        f"{float(loss.detach()):.6f} (|diff| {loss_err:.2e}, atol {LOSS_ATOL}); worst gradient "
+        f"{worst_name} at {worst:.3f} of its tolerance ({GRAD_RTOL} x max|g| + {GRAD_ATOL})")
+    if loss_err > LOSS_ATOL or worst > 1.0:
+        fail("DiT-XL widths loss or gradients on the card differ from the CPU plain path")
+
+
 def latent_serve_phase(torch, build):
     """Latent serving at full width: a DiT-S/2 flow on 64x64x4 latents and a
     ConvVAE decode to 256x256x3, batch 256, bf16 flow and bf16 decode."""
@@ -1231,6 +1403,7 @@ def main() -> None:
     if per_train != TRAIN_STEP_LAUNCHES:
         fail(f"flagship train step calls {per_train}, expected {TRAIN_STEP_LAUNCHES}")
     rows = kernel_phase(torch, shape_calls, train_calls["gn_silu_dropout"])
+    flash_breakdown(torch)
     model_phase(torch, UNet)
     serve_launches, svc = serve_phase(torch, build)
     trace_phase(torch, svc)
@@ -1243,6 +1416,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     dropout_launches = dropout_phase(torch, build)
     dit_model_phase(torch, build)
+    dit_xl_phase(torch, build)
     latent_serve_launches = latent_serve_phase(torch, build)
     torch.cuda.empty_cache()
     latent_train_launches, dit_trained, latents = latent_train_phase(torch, build)

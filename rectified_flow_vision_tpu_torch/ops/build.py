@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = (
     "gn_silu.cu", "gn_silu_dropout.cu", "conv3x3.cu", "attention.cu", "flash_attention.cu",
-    "dropout.cu", "runtime.cu",
+    "flash_attention_f32.cu", "dropout.cu", "runtime.cu",
 )
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -67,9 +67,10 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
-    "rfv_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _I, _P],
+    "rfv_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _F, _I, _P],
     "rfv_flash_attention_bwd": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _I,
+        _P,
     ],
     "rfv_dropout": [_P, _P, _P, _L, _L, _U, _F, _I, _P],
 }

@@ -9,665 +9,739 @@
 //
 // Bound on the H100: operations. A forward call does 4*B*H*T^2*D flops over
 // 4*B*T*H*D elements, T flops per element moved (1024 at the DiT-S/2 latent
-// shape, above the card's ~295 bf16 flops per byte ridge); the backward does
-// 2.5 times the forward's flops.
+// shape, above the card's ~295 bf16 flops per byte ridge); the backward's
+// five products do 2.5 times the forward's flops. The split dkv / dq design
+// recomputes S and dP in both kernels (seven products), so it can reach at
+// most 5/7 of the backward's bound.
 //
 // Layout. q, k and v share one set of element strides (batch, token, head;
 // the last axis is contiguous), so the three views of one [B, T, 3, H, D]
 // projection are read in place. o and d_out are contiguous [B, T, H, D];
 // lse and delta are fp32 [B, H, T]; dq, dk and dv share a second set of
-// strides (the backward writes them into one [B, T, 3, H, D] buffer).
+// strides (the backward writes them into one [B, T, 3, H, D] buffer). The
+// head width D is a multiple of 8 from 8 to 128.
 //
-// Forward: one block per (batch, head, 64 query rows), a loop over 64-key
-// tiles; logits, the running maximum and the running sum in fp32; the output
-// accumulator is rescaled as the maximum moves and divided by the sum at the
-// end, with one rounding. It also writes the per-row log-sum-exp.
-//
-// Backward: delta = rowsum(d_out * o), then two kernels that recompute the
-// probabilities from q, k and the saved log-sum-exp: dkv (one block per key
-// tile, loop over query tiles) and dq (one block per query tile, loop over key
-// tiles). No atomics: each output element is summed by one thread in a fixed
-// order, so two runs give the same bits.
-//
-// bfloat16: tensor cores through mma.sync m16n8k16 (fp32 accumulate), four
-// warps of 16 rows each; the logits' accumulator registers are repacked in
-// place as the A operand of the next product, and every B operand comes from
-// shared memory through ldmatrix.x4 (transposed where the tile holds the
-// product's k index in its rows); the forward copies the next key tile with
-// cp.async under the current tile's arithmetic. Probabilities are rounded to
-// bf16 (unnormalised) before P V, as the operand of a bf16 product must be.
-// The mma.sync, ldmatrix and repacking helpers live in mma.cuh, shared with
-// the UNet attention block (attention.cu).
-// float32: SIMT, 256 threads with 4 x 4 outputs each, exact fp32 FMAs (no
-// TF32), for the fp32 model path and checks. wgmma, TMA and warp
-// specialisation are not used yet; they are the way to the card's peak rate.
+// bfloat16: persistent, warp-specialised, wgmma + TMA (the design of
+// conv3x3.cu).
+//  - Every q, k, v, d_out tile arrives by TMA over the tensor viewed as 4D
+//    (D, H, T, B), 128-byte swizzled, as boxes of 64 columns: D is padded to
+//    DP = 64 (D <= 64) or 128 (two boxes) in shared memory, and the box's
+//    columns past D are zero-filled by the TMA unit, so they add nothing to
+//    any product; the scale stays 1/sqrt(D) of the true D, and output
+//    columns past D are not stored. No thread computes an address.
+//  - 384 threads: warpgroup 0 is the producer (one thread issues the loads
+//    into rings of stages signalled on mbarriers, 24 registers after
+//    setmaxnreg); warpgroups 1 and 2 are consumers (240 registers), each
+//    owning 64 rows of a tile. One block per SM walks the tiles of
+//    (batch, head, 128 rows), the row tile fastest, so that the blocks in
+//    flight share their K and V (or Q and dO) in L2, and the producer loads
+//    the next tile while the consumers finish this one.
+//  - First products (S = Q K^T, dP = dO V^T and their transposes) take the
+//    operand that stays for the whole tile (Q; dO; K and V of dkv at
+//    DP = 64, where their registers fit beside dK and dV) as A fragments
+//    loaded once from shared memory by ldmatrix, so that only B streams
+//    from shared memory; both K-major. Second products (P V, dS K, P^T dO,
+//    dS^T Q) take A from registers, the first product's fp32 accumulator
+//    rounded to bf16 in place, and B from shared memory MN-major (the
+//    transposed form of wgmma).
+//  - Forward: K and V in tiles of 128 keys through a 3-4-stage ring, on
+//    barriers of their own so that Q K^T starts before V lands. Software
+//    pipeline: one issue batch holds Q K^T of key tile j and P V of tile
+//    j - 1, and the online softmax of tile j (fp32 on the accumulator
+//    registers, ex2.approx, row maxima reduced across each quad) runs while
+//    P V is on the tensor cores. The two warpgroups take turns to issue
+//    (named barriers), so that one's softmax runs under the other's
+//    products. The output is divided by the row sum once, rounded once and
+//    stored with 16-byte stores; the per-row log-sum-exp goes to lse.
+//    Probabilities are rounded to bf16 (unnormalised) before P V, as the
+//    operand of a bf16 product must be.
+//  - Backward: delta = rowsum(dO * O) (a pass of coalesced 16-byte loads),
+//    then dkv (tiles of 128 keys; Q and dO tiles of 64 queries with their
+//    lse and delta streamed through the ring; dK and dV accumulate in
+//    registers) and dq (tiles of 128 queries; K and V tiles of 64 keys
+//    streamed; its warpgroups take turns as the forward's). No atomics:
+//    each output element is summed by one thread in a fixed order, so two
+//    runs give the same bits.
+// float32: SIMT kernels (flash_attention_f32.cu).
+#include "flash_attention.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int TILE = 64;  // query rows and key rows per tile, both kernels
+using namespace rfv_wgmma;
+using rfv_mma::pack_bf16;
+
+constexpr int THREADS = 384;  // producer + two consumer warpgroups
+constexpr int ROW = 128;      // bytes of one swizzled box row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
 
-// ------------------------------------------------------------------ bf16 ----
+// Query rows and keys of a block and of a ring tile, per kernel.
+constexpr int FWD_Q = 128, FWD_K = 128;
+constexpr int DKV_K = 128, DKV_Q = 64;
+constexpr int DQ_Q = 128, DQ_K = 64;
 
-using namespace rfv_mma;
+// A rows x DP bf16 tile: DP / 64 boxes of rows x 64 columns, each rows x 128
+// bytes, one after the other.
+template <int DP>
+__host__ __device__ constexpr int tile_bytes(int rows) { return rows * DP * 2; }
 
-// 64 x D bf16 tile from global rows of pitch `pitch` into shared rows of
-// pitch D + 8, 16 bytes per cp.async.
-template <int D>
-__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* gsrc, long long pitch) {
-  constexpr int CH = D / 8;
-  for (int c = threadIdx.x; c < TILE * CH; c += blockDim.x) {
-    const int r = c / CH, cc = c - r * CH;
-    cp_async16(s + r * (D + 8) + cc * 8, gsrc + (size_t)r * pitch + cc * 8, 16);
-  }
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int D>
-__global__ void __launch_bounds__(128)
-    flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          float* __restrict__ lse, int T, int H, long long sb, long long st,
-                          long long sh, float scale) {
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) bf16 Qs[TILE * LD];
-  __shared__ __align__(16) bf16 KVs[2][2][TILE * LD];  // [stage][k, v]
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const size_t base = (size_t)b * sb + (size_t)h * sh;
-
-  load_tile_async<D>(Qs, q + base + (size_t)qt * TILE * st, st);
-  cp_async_commit();
-  load_tile_async<D>(KVs[0][0], k + base, st);
-  load_tile_async<D>(KVs[0][1], v + base, st);
-  cp_async_commit();
-  cp_async_wait<1>();  // q has arrived; the first key tile may still be in flight
-  __syncthreads();
-  uint32_t qa[D / 16][4];
+// The DP / 64 boxes of the rows x DP tile of head h at tokens t0.. of batch b.
+template <int DP>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int rows, int b, int t0, int h) {
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) load_a<LD>(qa[ks], Qs, warp * 16, ks * 16, g, t4);
-
-  float oacc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.f;
-  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
-  const float sl2 = scale * kLog2e;
-
-  for (int kt = 0; kt < T / TILE; ++kt) {
-    // tile kt has arrived, and the stage that held tile kt - 1 is free: the
-    // next tile's copy runs under this tile's arithmetic
-    cp_async_wait<0>();
-    __syncthreads();
-    if (kt + 1 < T / TILE) {
-      load_tile_async<D>(KVs[(kt + 1) & 1][0], k + base + (size_t)(kt + 1) * TILE * st, st);
-      load_tile_async<D>(KVs[(kt + 1) & 1][1], v + base + (size_t)(kt + 1) * TILE * st, st);
-      cp_async_commit();
-    }
-    const bf16* Ks = KVs[kt & 1][0];
-    const bf16* Vs = KVs[kt & 1][1];
-
-    float s[TILE / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < TILE / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < TILE / 8; ++nt)
-#pragma unroll
-      for (int kp = 0; kp < D / 32; ++kp) {
-        uint32_t bf[4];
-        load_b_rows<LD>(bf, Ks, nt * 8, kp * 32, lane);
-        mma_bf16(s[nt], qa[2 * kp], bf[0], bf[1]);
-        mma_bf16(s[nt], qa[2 * kp + 1], bf[2], bf[3]);
-      }
-
-    // online softmax on the raw logits; rows g (s[.][0..1]) and g + 8 (s[.][2..3])
-    float mx[2] = {mrow[0], mrow[1]};
-#pragma unroll
-    for (int nt = 0; nt < TILE / 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-    const float alpha0 = exp2f((mrow[0] - mx[0]) * sl2);
-    const float alpha1 = exp2f((mrow[1] - mx[1]) * sl2);
-    mrow[0] = mx[0];
-    mrow[1] = mx[1];
-    float rs0 = 0.f, rs1 = 0.f;
-    uint32_t pa[TILE / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < TILE / 8; ++nt) {
-      const float p0 = exp2f((s[nt][0] - mx[0]) * sl2);
-      const float p1 = exp2f((s[nt][1] - mx[0]) * sl2);
-      const float p2 = exp2f((s[nt][2] - mx[1]) * sl2);
-      const float p3 = exp2f((s[nt][3] - mx[1]) * sl2);
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      pa[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    lrow[0] = lrow[0] * alpha0 + rs0;
-    lrow[1] = lrow[1] * alpha1 + rs1;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      oacc[dt][0] *= alpha0;
-      oacc[dt][1] *= alpha0;
-      oacc[dt][2] *= alpha1;
-      oacc[dt][3] *= alpha1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < TILE / 16; ++kk)
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bf[4];
-        load_b_cols<LD>(bf, Vs, kk * 16, dp * 16, lane);
-        mma_bf16(oacc[2 * dp], pa[kk], bf[0], bf[1]);
-        mma_bf16(oacc[2 * dp + 1], pa[kk], bf[2], bf[3]);
-      }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 1);
-    lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 2);
-  }
-  const int row0 = qt * TILE + warp * 16 + g;
-  const float inv0 = 1.f / lrow[0], inv1 = 1.f / lrow[1];
-  bf16* o0 = o + (((size_t)b * T + row0) * H + h) * D + 2 * t4;
-  bf16* o1 = o0 + (size_t)8 * H * D;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(o0 + dt * 8) = pack_bf16(oacc[dt][0] * inv0, oacc[dt][1] * inv0);
-    *reinterpret_cast<uint32_t*>(o1 + dt * 8) = pack_bf16(oacc[dt][2] * inv1, oacc[dt][3] * inv1);
-  }
-  if (t4 == 0) {
-    float* l = lse + ((size_t)b * H + h) * T + row0;
-    l[0] = mrow[0] * scale + logf(lrow[0]);
-    l[8] = mrow[1] * scale + logf(lrow[1]);
-  }
+  for (int r = 0; r < DP / 64; ++r) tma_load_4d(dst + r * rows * ROW, map, bar, 64 * r, h, t0, b);
 }
 
-// dk, dv of one 64-key tile. Everything is computed transposed, keys in the
-// rows, so that each warp owns 16 keys' accumulators.
-template <int D>
-__global__ void __launch_bounds__(128)
-    flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ d_out,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H,
-                          long long sb, long long st, long long sh, long long gb, long long gt,
-                          long long gh, float scale) {
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) bf16 Ks[TILE * LD];
-  __shared__ __align__(16) bf16 Vs[TILE * LD];
-  __shared__ __align__(16) bf16 Qs[TILE * LD];
-  __shared__ __align__(16) bf16 Gs[TILE * LD];  // d_out
-  __shared__ float Ls[TILE], Ds[TILE];
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const size_t base = (size_t)b * sb + (size_t)h * sh;
-  const size_t obase = (size_t)b * T * H * D + (size_t)h * D;  // o / d_out, contiguous
-  const long long opitch = (long long)H * D;
-  const float* lse_bh = lse + ((size_t)b * H + h) * T;
-  const float* delta_bh = delta + ((size_t)b * H + h) * T;
-
-  load_tile_async<D>(Ks, k + base + (size_t)kt * TILE * st, st);
-  load_tile_async<D>(Vs, v + base + (size_t)kt * TILE * st, st);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t ka[D / 16][4], va[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    load_a<LD>(ka[ks], Ks, warp * 16, ks * 16, g, t4);
-    load_a<LD>(va[ks], Vs, warp * 16, ks * 16, g, t4);
-  }
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
-  const float sl2 = scale * kLog2e;
-
-  for (int qt = 0; qt < T / TILE; ++qt) {
-    __syncthreads();
-    load_tile_async<D>(Qs, q + base + (size_t)qt * TILE * st, st);
-    load_tile_async<D>(Gs, d_out + obase + (size_t)qt * TILE * opitch, opitch);
-    cp_async_commit();
-    if (threadIdx.x < TILE) {
-      Ls[threadIdx.x] = lse_bh[qt * TILE + threadIdx.x] * kLog2e;
-      Ds[threadIdx.x] = delta_bh[qt * TILE + threadIdx.x];
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < TILE / 16; ++kk) {  // 16 queries at a time
-      float sT[2][4], dpT[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
-#pragma unroll
-      for (int kp = 0; kp < D / 32; ++kp)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          uint32_t bf[4];
-          load_b_rows<LD>(bf, Qs, kk * 16 + j * 8, kp * 32, lane);
-          mma_bf16(sT[j], ka[2 * kp], bf[0], bf[1]);  // S^T[n, m] = sum_d K[n, d] Q[m, d]
-          mma_bf16(sT[j], ka[2 * kp + 1], bf[2], bf[3]);
-          load_b_rows<LD>(bf, Gs, kk * 16 + j * 8, kp * 32, lane);
-          mma_bf16(dpT[j], va[2 * kp], bf[0], bf[1]);  // dP^T[n, m] = sum_d V[n, d] dO[m, d]
-          mma_bf16(dpT[j], va[2 * kp + 1], bf[2], bf[3]);
-        }
-      uint32_t pa[4], dsa[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int m0 = kk * 16 + j * 8 + 2 * t4;  // this thread's two query columns
-        const float l0 = Ls[m0], l1 = Ls[m0 + 1], d0 = Ds[m0], d1 = Ds[m0 + 1];
-        const float p0 = exp2f(sT[j][0] * sl2 - l0), p1 = exp2f(sT[j][1] * sl2 - l1);
-        const float p2 = exp2f(sT[j][2] * sl2 - l0), p3 = exp2f(sT[j][3] * sl2 - l1);
-        pa[j * 2] = pack_bf16(p0, p1);
-        pa[j * 2 + 1] = pack_bf16(p2, p3);
-        dsa[j * 2] = pack_bf16(p0 * (dpT[j][0] - d0), p1 * (dpT[j][1] - d1));
-        dsa[j * 2 + 1] = pack_bf16(p2 * (dpT[j][2] - d0), p3 * (dpT[j][3] - d1));
-      }
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bf[4];
-        load_b_cols<LD>(bf, Gs, kk * 16, dp * 16, lane);
-        mma_bf16(dva[2 * dp], pa, bf[0], bf[1]);  // dV[n, d] += P^T[n, m] dO[m, d]
-        mma_bf16(dva[2 * dp + 1], pa, bf[2], bf[3]);
-        load_b_cols<LD>(bf, Qs, kk * 16, dp * 16, lane);
-        mma_bf16(dka[2 * dp], dsa, bf[0], bf[1]);  // dK[n, d] += dS^T[n, m] Q[m, d]
-        mma_bf16(dka[2 * dp + 1], dsa, bf[2], bf[3]);
-      }
-    }
-  }
-
-  const int row0 = kt * TILE + warp * 16 + g;
-  const size_t gbase = (size_t)b * gb + (size_t)h * gh + (size_t)row0 * gt + 2 * t4;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(dk + gbase + dt * 8) =
-        pack_bf16(dka[dt][0] * scale, dka[dt][1] * scale);
-    *reinterpret_cast<uint32_t*>(dk + gbase + 8 * gt + dt * 8) =
-        pack_bf16(dka[dt][2] * scale, dka[dt][3] * scale);
-    *reinterpret_cast<uint32_t*>(dv + gbase + dt * 8) = pack_bf16(dva[dt][0], dva[dt][1]);
-    *reinterpret_cast<uint32_t*>(dv + gbase + 8 * gt + dt * 8) =
-        pack_bf16(dva[dt][2], dva[dt][3]);
-  }
+// K-major operand: k-step kk (16 columns) of rows r0 .. r0 + 63 (A) or of all
+// rows (B) of a tile of `rows` rows at shared address `tile`.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int r0, int kk) {
+  return desc_sw128(tile + (kk >> 2) * rows * ROW + r0 * ROW + (kk & 3) * 32);
 }
 
-template <int D>
-__global__ void __launch_bounds__(128)
-    flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ d_out,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int T, int H, long long sb, long long st,
-                         long long sh, long long gb, long long gt, long long gh, float scale) {
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) bf16 Qs[TILE * LD];
-  __shared__ __align__(16) bf16 Gs[TILE * LD];  // d_out
-  __shared__ __align__(16) bf16 Ks[TILE * LD];
-  __shared__ __align__(16) bf16 Vs[TILE * LD];
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const size_t base = (size_t)b * sb + (size_t)h * sh;
-  const size_t obase = (size_t)b * T * H * D + (size_t)h * D;
-  const long long opitch = (long long)H * D;
-
-  load_tile_async<D>(Qs, q + base + (size_t)qt * TILE * st, st);
-  load_tile_async<D>(Gs, d_out + obase + (size_t)qt * TILE * opitch, opitch);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qa[D / 16][4], ga[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    load_a<LD>(qa[ks], Qs, warp * 16, ks * 16, g, t4);
-    load_a<LD>(ga[ks], Gs, warp * 16, ks * 16, g, t4);
-  }
-  const int row0 = qt * TILE + warp * 16 + g;
-  const size_t stat = ((size_t)b * H + h) * T + row0;
-  const float l0 = lse[stat] * kLog2e, l1 = lse[stat + 8] * kLog2e;
-  const float d0 = delta[stat], d1 = delta[stat + 8];
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[dt][e] = 0.f;
-  const float sl2 = scale * kLog2e;
-
-  for (int kt = 0; kt < T / TILE; ++kt) {
-    __syncthreads();
-    load_tile_async<D>(Ks, k + base + (size_t)kt * TILE * st, st);
-    load_tile_async<D>(Vs, v + base + (size_t)kt * TILE * st, st);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < TILE / 16; ++kk) {  // 16 keys at a time
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kp = 0; kp < D / 32; ++kp)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          uint32_t bf[4];
-          load_b_rows<LD>(bf, Ks, kk * 16 + j * 8, kp * 32, lane);
-          mma_bf16(s[j], qa[2 * kp], bf[0], bf[1]);  // S[m, n] = sum_d Q[m, d] K[n, d]
-          mma_bf16(s[j], qa[2 * kp + 1], bf[2], bf[3]);
-          load_b_rows<LD>(bf, Vs, kk * 16 + j * 8, kp * 32, lane);
-          mma_bf16(dp[j], ga[2 * kp], bf[0], bf[1]);  // dP[m, n] = sum_d dO[m, d] V[n, d]
-          mma_bf16(dp[j], ga[2 * kp + 1], bf[2], bf[3]);
-        }
-      uint32_t dsa[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p0 = exp2f(s[j][0] * sl2 - l0), p1 = exp2f(s[j][1] * sl2 - l0);
-        const float p2 = exp2f(s[j][2] * sl2 - l1), p3 = exp2f(s[j][3] * sl2 - l1);
-        dsa[j * 2] = pack_bf16(p0 * (dp[j][0] - d0), p1 * (dp[j][1] - d0));
-        dsa[j * 2 + 1] = pack_bf16(p2 * (dp[j][2] - d1), p3 * (dp[j][3] - d1));
-      }
-#pragma unroll
-      for (int dp2 = 0; dp2 < D / 16; ++dp2) {
-        uint32_t bf[4];
-        load_b_cols<LD>(bf, Ks, kk * 16, dp2 * 16, lane);
-        mma_bf16(dqa[2 * dp2], dsa, bf[0], bf[1]);  // dQ[m, d] += dS[m, n] K[n, d]
-        mma_bf16(dqa[2 * dp2 + 1], dsa, bf[2], bf[3]);
-      }
-    }
-  }
-
-  const size_t gbase = (size_t)b * gb + (size_t)h * gh + (size_t)row0 * gt + 2 * t4;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(dq + gbase + dt * 8) =
-        pack_bf16(dqa[dt][0] * scale, dqa[dt][1] * scale);
-    *reinterpret_cast<uint32_t*>(dq + gbase + 8 * gt + dt * 8) =
-        pack_bf16(dqa[dt][2] * scale, dqa[dt][3] * scale);
-  }
+// MN-major B operand: k-step kk (rows 16 kk .. 16 kk + 15) of such a tile,
+// N running over its columns (the next box `rows` x 128 bytes on).
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int kk) {
+  return desc_sw128_mn(tile + kk * 16 * ROW, rows * ROW);
 }
 
-// ------------------------------------------------------------------ fp32 ----
-//
-// 256 threads as 16 x 16; thread (ty, tx) owns rows ty + 16 i and columns
-// tx + 16 j of every 64-wide product (the tile products gemm_nt / gemm_nn /
-// gemm_tn of mma.cuh). Tiles sit in shared memory with an odd pitch (D + 1,
-// 65), so the column reads of a warp fall on distinct banks and its row
-// reads are broadcasts.
-
-constexpr int SP = TILE + 1;  // pitch of a 64 x 64 logit tile
-
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* s, const float* gsrc, long long pitch) {
-  constexpr int CH = D / 4;
-  for (int c = threadIdx.x; c < TILE * CH; c += blockDim.x) {
-    const int r = c / CH, cc = c - r * CH;
-    const float4 val = *reinterpret_cast<const float4*>(gsrc + (size_t)r * pitch + cc * 4);
-    float* d = s + r * (D + 1) + cc * 4;
-    d[0] = val.x;
-    d[1] = val.y;
-    d[2] = val.z;
-    d[3] = val.w;
-  }
-}
-
-template <int D>
-constexpr int fwd_f32_smem() { return (3 * TILE * (D + 1) + TILE * SP + 3 * TILE) * 4; }
-template <int D>
-constexpr int dkv_f32_smem() { return (4 * TILE * (D + 1) + 2 * TILE * SP + 2 * TILE) * 4; }
-template <int D>
-constexpr int dq_f32_smem() { return (4 * TILE * (D + 1) + TILE * SP + 2 * TILE) * 4; }
-
-template <int D>
-__global__ void __launch_bounds__(256)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int T, int H, long long sb, long long st,
-                         long long sh, float scale) {
-  constexpr int P = D + 1, NJ = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + TILE * P;
-  float* Vs = Ks + TILE * P;
-  float* Ss = Vs + TILE * P;
-  float* Ms = Ss + TILE * SP;  // running maximum, running sum, rescale factor
-  float* Lsum = Ms + TILE;
-  float* Al = Lsum + TILE;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t base = (size_t)b * sb + (size_t)h * sh;
-
-  load_tile_f32<D>(Qs, q + base + (size_t)qt * TILE * st, st);
-  if (tid < TILE) {
-    Ms[tid] = -INFINITY;
-    Lsum[tid] = 0.f;
-  }
-  float oacc[4][NJ];
+// Rows g (half 0) and g + 8 (half 1) of a warp's 16 rows of an m64nDP
+// accumulator, times mul0 / mul1, rounded to bf16 and stored 16 bytes at a
+// time at dst0 / dst1; columns at or past D are not stored.
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], float mul0, float mul1,
+                                           bf16* dst0, bf16* dst1, int D, int lane) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int half = 0; half < 2; ++half) {
+    bf16* dst = half ? dst1 : dst0;
+    const float mul = half ? mul1 : mul0;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) oacc[i][j] = 0.f;
-
-  for (int kt = 0; kt < T / TILE; ++kt) {
-    __syncthreads();
-    load_tile_f32<D>(Ks, k + base + (size_t)kt * TILE * st, st);
-    load_tile_f32<D>(Vs, v + base + (size_t)kt * TILE * st, st);
-    __syncthreads();
-    float s[4][4] = {};
-    gemm_nt<D, P, P>(Qs, Ks, s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ss[(ty + 16 * i) * SP + tx + 16 * j] = s[i][j] * scale;
-    __syncthreads();
-    {  // four neighbouring lanes share a row, 16 columns each
-      const int r = tid >> 2, part = tid & 3;
-      float* srow = Ss + r * SP + part * 16;
-      const float m_old = Ms[r];
-      float mx = m_old;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, srow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = expf(srow[c] - mx);
-        srow[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float alpha = expf(m_old - mx);
-        Al[r] = alpha;
-        Ms[r] = mx;
-        Lsum[r] = Lsum[r] * alpha + sum;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = Al[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) oacc[i][j] *= alpha;
-    }
-    gemm_nn<NJ, SP, P>(Ss, Vs, oacc, ty, tx);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const float inv = 1.f / Lsum[r];
-    float* orow = o + (((size_t)b * T + qt * TILE + r) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = oacc[i][j] * inv;
-  }
-  if (tid < TILE)
-    lse[((size_t)b * H + h) * T + qt * TILE + tid] = Ms[tid] + logf(Lsum[tid]);
-}
-
-template <int D>
-__global__ void __launch_bounds__(256)
-    flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ d_out,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int T, int H,
-                         long long sb, long long st, long long sh, long long gb, long long gt,
-                         long long gh, float scale) {
-  constexpr int P = D + 1, NJ = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + TILE * P;
-  float* Qs = Vs + TILE * P;
-  float* Gs = Qs + TILE * P;  // d_out
-  float* Ps = Gs + TILE * P;
-  float* dSs = Ps + TILE * SP;
-  float* Ls = dSs + TILE * SP;
-  float* Ds = Ls + TILE;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t base = (size_t)b * sb + (size_t)h * sh;
-  const size_t obase = (size_t)b * T * H * D + (size_t)h * D;
-  const long long opitch = (long long)H * D;
-  const float* lse_bh = lse + ((size_t)b * H + h) * T;
-  const float* delta_bh = delta + ((size_t)b * H + h) * T;
-
-  load_tile_f32<D>(Ks, k + base + (size_t)kt * TILE * st, st);
-  load_tile_f32<D>(Vs, v + base + (size_t)kt * TILE * st, st);
-  float dka[4][NJ], dva[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  for (int qt = 0; qt < T / TILE; ++qt) {
-    __syncthreads();
-    load_tile_f32<D>(Qs, q + base + (size_t)qt * TILE * st, st);
-    load_tile_f32<D>(Gs, d_out + obase + (size_t)qt * TILE * opitch, opitch);
-    if (tid < TILE) {
-      Ls[tid] = lse_bh[qt * TILE + tid];
-      Ds[tid] = delta_bh[qt * TILE + tid];
-    }
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    gemm_nt<D, P, P>(Qs, Ks, s, ty, tx);   // rows: queries, columns: keys
-    gemm_nt<D, P, P>(Gs, Vs, dp, ty, tx);  // dP[m, n] = dO[m] . V[n]
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ty + 16 * i;
-      const float l = Ls[m], dl = Ds[m];
+    for (int a = 0; a < DP / 32; ++a) {
+      uint32_t v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] * scale - l);
-        Ps[m * SP + tx + 16 * j] = p;
-        dSs[m * SP + tx + 16 * j] = p * (dp[i][j] - dl);
+        const int i = 4 * a + j;
+        v[j] = pack_bf16(acc[4 * i + 2 * half] * mul, acc[4 * i + 2 * half + 1] * mul);
+      }
+      const uint4 out = quad_transpose(v, lane);
+      const int col = 8 * (4 * a + (lane & 3));
+      if (col < D) *reinterpret_cast<uint4*>(dst + col) = out;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// --------------------------------------------------------------- forward ----
+
+// The online softmax of one warpgroup's 64 x 128 logit tiles, on the
+// accumulator registers: a thread holds rows g (s[4i], s[4i + 1]) and g + 8
+// (s[4i + 2], s[4i + 3]); row maxima are reduced across the quad. Each tile
+// updates the running maximum and (per-thread partial) sum, writes the
+// unnormalised probabilities as bf16 A fragments and leaves the factor by
+// which the output accumulated so far is to be rescaled. Maxima and sums
+// are taken over four interleaved partials, so that no chain of dependent
+// instructions runs the length of a row.
+struct OnlineSoftmax {
+  float sl2;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, alpha0 = 1.f, alpha1 = 1.f;
+  __device__ __forceinline__ explicit OnlineSoftmax(float scale) : sl2(scale * kLog2e) {}
+
+  __device__ __forceinline__ void tile(const float (&s)[FWD_K / 2], uint32_t (&p)[FWD_K / 16][4]) {
+    float a0[4], a1[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a0[j] = fmaxf(s[4 * j], s[4 * j + 1]);
+      a1[j] = fmaxf(s[4 * j + 2], s[4 * j + 3]);
+    }
+#pragma unroll
+    for (int i = 4; i < FWD_K / 8; ++i) {
+      a0[i & 3] = fmaxf(a0[i & 3], fmaxf(s[4 * i], s[4 * i + 1]));
+      a1[i & 3] = fmaxf(a1[i & 3], fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+    float mx0 = fmaxf(fmaxf(m0, fmaxf(a0[0], a0[1])), fmaxf(a0[2], a0[3]));
+    float mx1 = fmaxf(fmaxf(m1, fmaxf(a1[0], a1[1])), fmaxf(a1[2], a1[3]));
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    alpha0 = fast_exp2((m0 - mx0) * sl2);
+    alpha1 = fast_exp2((m1 - mx1) * sl2);
+    m0 = mx0;
+    m1 = mx1;
+    const float sub0 = mx0 * sl2, sub1 = mx1 * sl2;
+    float r0[4] = {0.f, 0.f, 0.f, 0.f}, r1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < FWD_K / 8; ++i) {
+      const float p0 = fast_exp2(fmaf(s[4 * i], sl2, -sub0));
+      const float p1 = fast_exp2(fmaf(s[4 * i + 1], sl2, -sub0));
+      const float p2 = fast_exp2(fmaf(s[4 * i + 2], sl2, -sub1));
+      const float p3 = fast_exp2(fmaf(s[4 * i + 3], sl2, -sub1));
+      r0[i & 3] += p0 + p1;
+      r1[i & 3] += p2 + p3;
+      p[i >> 1][(i & 1) * 2] = pack_bf16(p0, p1);
+      p[i >> 1][(i & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * alpha0 + ((r0[0] + r0[1]) + (r0[2] + r0[3]));
+    l1 = l1 * alpha1 + ((r1[0] + r1[1]) + (r1[2] + r1[3]));
+  }
+
+  template <int DP>
+  __device__ __forceinline__ void rescale(float (&o)[DP / 2]) const {
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      o[4 * i] *= alpha0;
+      o[4 * i + 1] *= alpha0;
+      o[4 * i + 2] *= alpha1;
+      o[4 * i + 3] *= alpha1;
+    }
+  }
+};
+
+__device__ __forceinline__ void advance(int& stage, uint32_t& phase, int stages) {
+  if (++stage == stages) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+template <int DP>
+__host__ __device__ constexpr int fwd_smem(int stages) {
+  return 1024 + tile_bytes<DP>(FWD_Q) + stages * 2 * tile_bytes<DP>(FWD_K) + (2 + 3 * stages) * 8;
+}
+
+// Persistent: block i takes the output tiles i, i + gridDim.x, ... of
+// (batch, head, 128 query rows), query tile fastest, so that the blocks in
+// flight share K and V in L2. The producer loads the next tile's Q as soon
+// as the consumers hold this one's in registers, and runs on into its keys
+// while they finish this tile.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                           float* __restrict__ lse, int T, int H, int D, int tiles, int stages,
+                           float scale) {
+  constexpr int QB = tile_bytes<DP>(FWD_Q), KB = tile_bytes<DP>(FWD_K);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* ring = qs + QB;  // stage s: K at ring + 2 KB s, V right after it
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + stages * 2 * KB);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* v_full = k_full + stages;
+  uint64_t* empty = v_full + stages;
+  const int nq = T / FWD_Q, nk = T / FWD_K;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);  // one arrival per consumer warp
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&k_full[i], 1);
+      mbar_init(&v_full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0, it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+        const int qt = t % nq, h = (t / nq) % H, b = t / nq / H;
+        mbar_wait(q_empty, (it & 1) ^ 1);
+        mbar_expect_tx(q_full, QB);
+        load_tile<DP>(qs, &tm_q, q_full, FWD_Q, b, qt * FWD_Q, h);
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* st = ring + stage * 2 * KB;
+          mbar_expect_tx(&k_full[stage], KB);
+          load_tile<DP>(st, &tm_k, &k_full[stage], FWD_K, b, kt * FWD_K, h);
+          mbar_expect_tx(&v_full[stage], KB);
+          load_tile<DP>(st + KB, &tm_v, &v_full[stage], FWD_K, b, kt * FWD_K, h);
+          advance(stage, phase, stages);
+        }
       }
     }
-    __syncthreads();
-    gemm_tn<NJ, SP, P>(Ps, Gs, dva, ty, tx);   // dV[n, d] += P[m, n] dO[m, d]
-    gemm_tn<NJ, SP, P>(dSs, Qs, dka, ty, tx);  // dK[n, d] += dS[m, n] Q[m, d]
-  }
+  } else {
+    // ---- consumers: warpgroup c owns query rows 64 c .. 64 c + 63 of a tile ----
+    // Software pipeline: a turn issues S = Q K^T of key tile kt and O += P V
+    // of key tile kt - 1 (rescaled first by the factor tile kt - 1's softmax
+    // found), then the softmax of tile kt runs while P V is still on the
+    // tensor cores (and the other warpgroup's products after it). Key tile 0
+    // (no P V yet) and the last P V are peeled off, so that no product is
+    // issued on a branch.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const uint32_t qa = smem_u32(qs);
+    const TurnTaking turns(c);
+    int stage = 0;
+    uint32_t phase = 0, it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+      const int qt = t % nq, h = (t / nq) % H, b = t / nq / H;
+      const bool final_tile = t + (int)gridDim.x >= tiles;
+      uint32_t qf[DP / 16][4];  // this warp's 16 rows of Q, A fragments
+      mbar_wait(q_full, it & 1);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = (size_t)b * gb + (size_t)h * gh + (size_t)(kt * TILE + ty + 16 * i) * gt;
+      for (int kk = 0; kk < DP / 16; ++kk)
+        load_a_sw128(qf[kk], qa, FWD_Q, 64 * c + 16 * warp, kk, lane);
+      if (lane == 0) mbar_arrive(q_empty);
+
+      OnlineSoftmax sm(scale);
+      float oacc[DP / 2];
+      zero(oacc);
+      uint32_t pa[FWD_K / 16][4];  // P of the previous key tile, bf16 A fragments
+      {
+        float s[FWD_K / 2];
+        mbar_wait(&k_full[stage], phase);
+        turns.take();
+        fence();
+        const uint32_t ka = smem_u32(ring + stage * 2 * KB);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dk[row + tx + 16 * j] = dka[i][j] * scale;
-      dv[row + tx + 16 * j] = dva[i][j];
+        for (int kk = 0; kk < DP / 16; ++kk)
+          WgmmaRS<FWD_K, 0>::mma(s, qf[kk], kmajor(ka, FWD_K, 0, kk), kk > 0);
+        commit();
+        turns.pass(final_tile && nk == 1);
+        wait<0>();
+        fence_regs(s);
+        sm.tile(s, pa);
+      }
+      int pstage = stage;
+      uint32_t pphase = phase;
+      advance(stage, phase, stages);
+      for (int kt = 1; kt < nk; ++kt) {
+        const uint32_t ka = smem_u32(ring + stage * 2 * KB);
+        const uint32_t pva = smem_u32(ring + pstage * 2 * KB) + KB;  // V of key tile kt - 1
+        float s[FWD_K / 2];
+        uint32_t pn[FWD_K / 16][4];
+        mbar_wait(&k_full[stage], phase);
+        mbar_wait(&v_full[pstage], pphase);
+        turns.take();
+        sm.rescale<DP>(oacc);
+        fence_regs(oacc);
+        fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          WgmmaRS<FWD_K, 0>::mma(s, qf[kk], kmajor(ka, FWD_K, 0, kk), kk > 0);
+        commit();
+#pragma unroll
+        for (int kk = 0; kk < FWD_K / 16; ++kk)
+          WgmmaRS<DP, 1>::mma(oacc, pa[kk], mnmajor(pva, FWD_K, kk), 1);
+        commit();
+        turns.pass(final_tile && kt == nk - 1);
+        wait<1>();  // S is done; P V may still run
+        fence_regs(s);
+        sm.tile(s, pn);
+        wait<0>();  // P V of key tile kt - 1: its stage is free
+        fence_regs(oacc);
+        fence_regs(pa);
+        if (lane == 0) mbar_arrive(&empty[pstage]);
+#pragma unroll
+        for (int i = 0; i < FWD_K / 16; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) pa[i][j] = pn[i][j];
+        pstage = stage;
+        pphase = phase;
+        advance(stage, phase, stages);
+      }
+
+      // the last key tile's P V
+      mbar_wait(&v_full[pstage], pphase);
+      sm.rescale<DP>(oacc);
+      fence_regs(oacc);
+      fence();
+      const uint32_t pva = smem_u32(ring + pstage * 2 * KB) + KB;
+#pragma unroll
+      for (int kk = 0; kk < FWD_K / 16; ++kk)
+        WgmmaRS<DP, 1>::mma(oacc, pa[kk], mnmajor(pva, FWD_K, kk), 1);
+      commit();
+      wait<0>();
+      fence_regs(oacc);
+      if (lane == 0) mbar_arrive(&empty[pstage]);
+
+      float l0 = sm.l0, l1 = sm.l1;
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const int row0 = qt * FWD_Q + 64 * c + 16 * warp + (lane >> 2);
+      bf16* o0 = o + (((size_t)b * T + row0) * H + h) * D;
+      store_rows<DP>(oacc, 1.f / l0, 1.f / l1, o0, o0 + (size_t)8 * H * D, D, lane);
+      if ((lane & 3) == 0) {
+        float* l = lse + ((size_t)b * H + h) * T + row0;
+        l[0] = sm.m0 * scale + logf(l0);
+        l[8] = sm.m1 * scale + logf(l1);
+      }
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(256)
-    flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ d_out,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int T, int H, long long sb, long long st,
-                        long long sh, long long gb, long long gt, long long gh, float scale) {
-  constexpr int P = D + 1, NJ = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Gs = Qs + TILE * P;  // d_out
-  float* Ks = Gs + TILE * P;
-  float* Vs = Ks + TILE * P;
-  float* dSs = Vs + TILE * P;
-  float* Ls = dSs + TILE * SP;
-  float* Ds = Ls + TILE;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t base = (size_t)b * sb + (size_t)h * sh;
-  const size_t obase = (size_t)b * T * H * D + (size_t)h * D;
-  const long long opitch = (long long)H * D;
+// ------------------------------------------------------------------- dkv ----
 
-  load_tile_f32<D>(Qs, q + base + (size_t)qt * TILE * st, st);
-  load_tile_f32<D>(Gs, d_out + obase + (size_t)qt * TILE * opitch, opitch);
-  if (tid < TILE) {
-    Ls[tid] = lse[((size_t)b * H + h) * T + qt * TILE + tid];
-    Ds[tid] = delta[((size_t)b * H + h) * T + qt * TILE + tid];
-  }
-  float dqa[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dqa[i][j] = 0.f;
+template <int DP>
+__host__ __device__ constexpr int dkv_smem(int stages) {
+  return 1024 + 2 * tile_bytes<DP>(DKV_K) + stages * (2 * tile_bytes<DP>(DKV_Q) + 2 * DKV_Q * 4) +
+         (2 + 2 * stages) * 8;
+}
 
-  for (int kt = 0; kt < T / TILE; ++kt) {
-    __syncthreads();
-    load_tile_f32<D>(Ks, k + base + (size_t)kt * TILE * st, st);
-    load_tile_f32<D>(Vs, v + base + (size_t)kt * TILE * st, st);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    gemm_nt<D, P, P>(Qs, Ks, s, ty, tx);
-    gemm_nt<D, P, P>(Gs, Vs, dp, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ty + 16 * i;
-      const float l = Ls[m], dl = Ds[m];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dSs[m * SP + tx + 16 * j] = expf(s[i][j] * scale - l) * (dp[i][j] - dl);
+// dK and dV of 128 keys; everything is computed transposed, keys in the rows,
+// so that each consumer warpgroup owns 64 keys' accumulators. Persistent over
+// the (batch, head, 128 keys) tiles, as the forward. The two warpgroups issue
+// as they come: taking turns made this kernel slower (PERF.md).
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_g,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H, int D,
+                           long long gb, long long gt, long long gh, int tiles, int stages,
+                           float scale) {
+  constexpr int KB = tile_bytes<DP>(DKV_K), QB = tile_bytes<DP>(DKV_Q);
+  constexpr int STAT = 2 * DKV_Q;  // floats of a stage's lse and delta
+  // K and V as A fragments where they fit the registers beside dK and dV
+  // (then the next tile's K and V load under this tile's work)
+  constexpr bool AREG = DP == 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + KB;
+  uint8_t* ring = vs + KB;  // stage s: Q at ring + 2 QB s, dO right after it
+  float* stats = reinterpret_cast<float*>(ring + stages * 2 * QB);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + stages * STAT);
+  uint64_t* kv_empty = kv_full + 1;
+  uint64_t* full = kv_empty + 1;
+  uint64_t* empty = full + stages;
+  const int nkt = T / DKV_K, nq = T / DKV_Q;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 8);
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
     }
-    __syncthreads();
-    gemm_nn<NJ, SP, P>(dSs, Ks, dqa, ty, tx);  // dQ[m, d] += dS[m, n] K[n, d]
+    mbar_init_fence();
   }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0, it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+        const int kt = t % nkt, h = (t / nkt) % H, b = t / nkt / H;
+        mbar_wait(kv_empty, (it & 1) ^ 1);
+        mbar_expect_tx(kv_full, 2 * KB);
+        load_tile<DP>(ks, &tm_k, kv_full, DKV_K, b, kt * DKV_K, h);
+        load_tile<DP>(vs, &tm_v, kv_full, DKV_K, b, kt * DKV_K, h);
+        const float* lse_bh = lse + ((size_t)b * H + h) * T;
+        const float* delta_bh = delta + ((size_t)b * H + h) * T;
+        for (int qt = 0; qt < nq; ++qt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* st = ring + stage * 2 * QB;
+          float* sst = stats + stage * STAT;
+          mbar_expect_tx(&full[stage], 2 * QB + STAT * 4);
+          load_tile<DP>(st, &tm_q, &full[stage], DKV_Q, b, qt * DKV_Q, h);
+          load_tile<DP>(st + QB, &tm_g, &full[stage], DKV_Q, b, qt * DKV_Q, h);
+          bulk_load(sst, lse_bh + qt * DKV_Q, DKV_Q * 4, &full[stage]);
+          bulk_load(sst + DKV_Q, delta_bh + qt * DKV_Q, DKV_Q * 4, &full[stage]);
+          advance(stage, phase, stages);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup c owns keys 64 c .. 64 c + 63 of a tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const uint32_t ka = smem_u32(ks), va = smem_u32(vs);
+    const float sl2 = scale * kLog2e;
+    int stage = 0;
+    uint32_t phase = 0, it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+      const int kt = t % nkt, h = (t / nkt) % H, b = t / nkt / H;
+      float dka[DP / 2], dva[DP / 2];
+      zero(dka);
+      zero(dva);
+      uint32_t kf[AREG ? DP / 16 : 1][4], vf[AREG ? DP / 16 : 1][4];
+      mbar_wait(kv_full, it & 1);
+      if constexpr (AREG) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = (size_t)b * gb + (size_t)h * gh + (size_t)(qt * TILE + ty + 16 * i) * gt;
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          load_a_sw128(kf[kk], ka, DKV_K, 64 * c + 16 * warp, kk, lane);
+          load_a_sw128(vf[kk], va, DKV_K, 64 * c + 16 * warp, kk, lane);
+        }
+        if (lane == 0) mbar_arrive(kv_empty);
+      }
+      for (int qt = 0; qt < nq; ++qt) {
+        const uint32_t qa = smem_u32(ring + stage * 2 * QB), ga = qa + QB;
+        const float* ls = stats + stage * STAT;
+        const float* ds = ls + DKV_Q;
+        float sT[DKV_Q / 2], dpT[DKV_Q / 2];
+        mbar_wait(&full[stage], phase);
+        fence();
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dq[row + tx + 16 * j] = dqa[i][j] * scale;
+        for (int kk = 0; kk < DP / 16; ++kk) {  // S^T[n, m] = sum_d K[n, d] Q[m, d]
+          if constexpr (AREG)
+            WgmmaRS<DKV_Q, 0>::mma(sT, kf[kk], kmajor(qa, DKV_Q, 0, kk), kk > 0);
+          else
+            Wgmma<DKV_Q>::mma(sT, kmajor(ka, DKV_K, 64 * c, kk), kmajor(qa, DKV_Q, 0, kk), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {  // dP^T[n, m] = sum_d V[n, d] dO[m, d]
+          if constexpr (AREG)
+            WgmmaRS<DKV_Q, 0>::mma(dpT, vf[kk], kmajor(ga, DKV_Q, 0, kk), kk > 0);
+          else
+            Wgmma<DKV_Q>::mma(dpT, kmajor(va, DKV_K, 64 * c, kk), kmajor(ga, DKV_Q, 0, kk),
+                              kk > 0);
+        }
+        commit();
+        wait<0>();
+        fence_regs(sT);
+        fence_regs(dpT);
+
+        // this thread's query columns 8i + 2 (lane % 4) + {0, 1}
+        uint32_t pa[DKV_Q / 16][4], dsa[DKV_Q / 16][4];
+#pragma unroll
+        for (int i = 0; i < DKV_Q / 8; ++i) {
+          const int m = 8 * i + 2 * (lane & 3);
+          const float2 l = *reinterpret_cast<const float2*>(ls + m);
+          const float2 d = *reinterpret_cast<const float2*>(ds + m);
+          const float l0 = l.x * kLog2e, l1 = l.y * kLog2e;
+          const float p0 = fast_exp2(fmaf(sT[4 * i], sl2, -l0));
+          const float p1 = fast_exp2(fmaf(sT[4 * i + 1], sl2, -l1));
+          const float p2 = fast_exp2(fmaf(sT[4 * i + 2], sl2, -l0));
+          const float p3 = fast_exp2(fmaf(sT[4 * i + 3], sl2, -l1));
+          pa[i >> 1][(i & 1) * 2] = pack_bf16(p0, p1);
+          pa[i >> 1][(i & 1) * 2 + 1] = pack_bf16(p2, p3);
+          dsa[i >> 1][(i & 1) * 2] =
+              pack_bf16(p0 * (dpT[4 * i] - d.x), p1 * (dpT[4 * i + 1] - d.y));
+          dsa[i >> 1][(i & 1) * 2 + 1] =
+              pack_bf16(p2 * (dpT[4 * i + 2] - d.x), p3 * (dpT[4 * i + 3] - d.y));
+        }
+        fence_regs(dva);
+        fence_regs(dka);
+        fence();
+#pragma unroll
+        for (int kk = 0; kk < DKV_Q / 16; ++kk) {
+          WgmmaRS<DP, 1>::mma(dva, pa[kk], mnmajor(ga, DKV_Q, kk), 1);   // dV += P^T dO
+          WgmmaRS<DP, 1>::mma(dka, dsa[kk], mnmajor(qa, DKV_Q, kk), 1);  // dK += dS^T Q
+        }
+        commit();
+        wait<0>();
+        fence_regs(dva);
+        fence_regs(dka);
+        fence_regs(pa);
+        fence_regs(dsa);
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        advance(stage, phase, stages);
+      }
+      if (!AREG && lane == 0) mbar_arrive(kv_empty);  // the last product that read K, V is done
+
+      const int row0 = kt * DKV_K + 64 * c + 16 * warp + (lane >> 2);
+      const size_t base = (size_t)b * gb + (size_t)h * gh + (size_t)row0 * gt;
+      store_rows<DP>(dka, scale, scale, dk + base, dk + base + 8 * gt, D, lane);
+      store_rows<DP>(dva, 1.f, 1.f, dv + base, dv + base + 8 * gt, D, lane);
+    }
   }
 }
 
-// delta[b, h, t] = sum_d d_out[b, t, h, d] * o[b, t, h, d]; one warp per row.
+// -------------------------------------------------------------------- dq ----
+
+template <int DP>
+__host__ __device__ constexpr int dq_smem(int stages) {
+  return 1024 + 2 * tile_bytes<DP>(DQ_Q) + stages * 2 * tile_bytes<DP>(DQ_K) + (2 + 2 * stages) * 8;
+}
+
+// dQ of 128 queries; persistent over the (batch, head, 128 queries) tiles.
+// Its warpgroups take turns to issue their products, as the forward's.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_g,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int T, int H, int D, long long gb, long long gt,
+                          long long gh, int tiles, int stages, float scale) {
+  constexpr int QB = tile_bytes<DP>(DQ_Q), KB = tile_bytes<DP>(DQ_K);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* gs = qs + QB;
+  uint8_t* ring = gs + QB;  // stage s: K at ring + 2 KB s, V right after it
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(ring + stages * 2 * KB);
+  uint64_t* qg_empty = qg_full + 1;
+  uint64_t* full = qg_empty + 1;
+  uint64_t* empty = full + stages;
+  const int nq = T / DQ_Q, nk = T / DQ_K;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
+    mbar_init(qg_empty, 8);
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0, it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+        const int qt = t % nq, h = (t / nq) % H, b = t / nq / H;
+        mbar_wait(qg_empty, (it & 1) ^ 1);
+        mbar_expect_tx(qg_full, 2 * QB);
+        load_tile<DP>(qs, &tm_q, qg_full, DQ_Q, b, qt * DQ_Q, h);
+        load_tile<DP>(gs, &tm_g, qg_full, DQ_Q, b, qt * DQ_Q, h);
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* st = ring + stage * 2 * KB;
+          mbar_expect_tx(&full[stage], 2 * KB);
+          load_tile<DP>(st, &tm_k, &full[stage], DQ_K, b, kt * DQ_K, h);
+          load_tile<DP>(st + KB, &tm_v, &full[stage], DQ_K, b, kt * DQ_K, h);
+          advance(stage, phase, stages);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup c owns query rows 64 c .. 64 c + 63 of a tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const uint32_t qa = smem_u32(qs), ga = smem_u32(gs);
+    const float sl2 = scale * kLog2e;
+    const TurnTaking turns(c);
+    int stage = 0;
+    uint32_t phase = 0, it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+      const int qt = t % nq, h = (t / nq) % H, b = t / nq / H;
+      const bool final_tile = t + (int)gridDim.x >= tiles;
+      const int row0 = qt * DQ_Q + 64 * c + 16 * warp + (lane >> 2);
+      const size_t stat = ((size_t)b * H + h) * T + row0;
+      const float l0 = lse[stat] * kLog2e, l1 = lse[stat + 8] * kLog2e;
+      const float d0 = delta[stat], d1 = delta[stat + 8];
+      float dqa[DP / 2];
+      zero(dqa);
+      uint32_t qf[DP / 16][4], gf[DP / 16][4];  // this warp's rows of Q and dO, A fragments
+      mbar_wait(qg_full, it & 1);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        load_a_sw128(qf[kk], qa, DQ_Q, 64 * c + 16 * warp, kk, lane);
+        load_a_sw128(gf[kk], ga, DQ_Q, 64 * c + 16 * warp, kk, lane);
+      }
+      if (lane == 0) mbar_arrive(qg_empty);
+      for (int kt = 0; kt < nk; ++kt) {
+        const uint32_t ka = smem_u32(ring + stage * 2 * KB), va = ka + KB;
+        float s[DQ_K / 2], dp[DQ_K / 2];
+        mbar_wait(&full[stage], phase);
+        turns.take();
+        fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)  // S[m, n] = sum_d Q[m, d] K[n, d]
+          WgmmaRS<DQ_K, 0>::mma(s, qf[kk], kmajor(ka, DQ_K, 0, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)  // dP[m, n] = sum_d dO[m, d] V[n, d]
+          WgmmaRS<DQ_K, 0>::mma(dp, gf[kk], kmajor(va, DQ_K, 0, kk), kk > 0);
+        commit();
+        turns.pass(false);
+        wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        uint32_t dsa[DQ_K / 16][4];
+#pragma unroll
+        for (int i = 0; i < DQ_K / 8; ++i) {
+          const float p0 = fast_exp2(fmaf(s[4 * i], sl2, -l0));
+          const float p1 = fast_exp2(fmaf(s[4 * i + 1], sl2, -l0));
+          const float p2 = fast_exp2(fmaf(s[4 * i + 2], sl2, -l1));
+          const float p3 = fast_exp2(fmaf(s[4 * i + 3], sl2, -l1));
+          dsa[i >> 1][(i & 1) * 2] = pack_bf16(p0 * (dp[4 * i] - d0), p1 * (dp[4 * i + 1] - d0));
+          dsa[i >> 1][(i & 1) * 2 + 1] =
+              pack_bf16(p2 * (dp[4 * i + 2] - d1), p3 * (dp[4 * i + 3] - d1));
+        }
+        turns.take();
+        fence_regs(dqa);
+        fence();
+#pragma unroll
+        for (int kk = 0; kk < DQ_K / 16; ++kk)  // dQ += dS K
+          WgmmaRS<DP, 1>::mma(dqa, dsa[kk], mnmajor(ka, DQ_K, kk), 1);
+        commit();
+        turns.pass(final_tile && kt == nk - 1);
+        wait<0>();
+        fence_regs(dqa);
+        fence_regs(dsa);
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        advance(stage, phase, stages);
+      }
+
+      const size_t base = (size_t)b * gb + (size_t)h * gh + (size_t)row0 * gt;
+      store_rows<DP>(dqa, scale, scale, dq + base, dq + base + 8 * gt, D, lane);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- delta ----
+
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) { load16(p, v); }
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  float a[4], b[4];
+  load16(p, a);
+  load16(p + 4, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[e] = a[e];
+    v[4 + e] = b[e];
+  }
+}
+
+// delta[b, h, t] = sum_d d_out[b, t, h, d] * o[b, t, h, d] over the contiguous
+// rows (b, t, h) of D elements: `lanes` neighbouring threads per row (a power
+// of two with 8 lanes >= D), 8 elements a thread, reduced by shuffles.
 template <typename T>
 __global__ void __launch_bounds__(256)
     flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ d_out,
-                       float* __restrict__ delta, long long rows, int Tn, int H, int D) {
-  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= rows) return;  // whole warps leave together
-  const int lane = threadIdx.x & 31;
-  const T* orow = o + row * D;
-  const T* grow = d_out + row * D;
+                       float* __restrict__ delta, long long rows, int Tn, int H, int D,
+                       int lanes) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = idx / lanes;
+  const int part = (int)(idx % lanes);
   float sum = 0.f;
-  for (int d = lane; d < D; d += 32) sum = fmaf(to_f32(orow[d]), to_f32(grow[d]), sum);
+  if (row < rows && 8 * part < D) {
+    float a[8], g[8];
+    load8(o + row * D + 8 * part, a);
+    load8(d_out + row * D + 8 * part, g);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) {
+    for (int e = 0; e < 8; ++e) sum = fmaf(a[e], g[e], sum);
+  }
+  for (int off = lanes >> 1; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (part == 0 && row < rows) {
     const long long bt = row / H;
     const int h = (int)(row - bt * H);
     const long long b = bt / Tn;
@@ -676,65 +750,94 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int T,
-               int H, long long sb, long long st, long long sh, float scale, int dtype,
-               cudaStream_t stream) {
-  const dim3 grid(T / TILE, H, B);
-  if (dtype == RFV_DTYPE_BF16) {
-    flash_fwd_bf16_kernel<D><<<grid, 128, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), lse, T, H, sb, st, sh, scale);
-  } else {
-    constexpr int smem = fwd_f32_smem<D>();
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_fwd_f32_kernel<D><<<grid, 256, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), lse, T, H, sb, st, sh, scale);
-  }
+template <typename T>
+int launch_delta(const void* o, const void* d_out, float* delta, int B, int Tn, int H, int D,
+                 cudaStream_t stream) {
+  const long long rows = (long long)B * Tn * H;
+  int lanes = 1;
+  while (8 * lanes < D) lanes <<= 1;
+  const long long threads = rows * lanes;
+  flash_delta_kernel<T><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(d_out), delta, rows, Tn, H, D, lanes);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* d_out,
-               const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int T, int H,
-               long long sb, long long st, long long sh, long long gb, long long gt,
-               long long gh, float scale, int dtype, cudaStream_t stream) {
-  const long long rows = (long long)B * T * H;
-  const unsigned dgrid = (unsigned)((rows + 7) / 8);
-  const dim3 grid(T / TILE, H, B);
-  if (dtype == RFV_DTYPE_BF16) {
-    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-               *vb = static_cast<const bf16*>(v), *gob = static_cast<const bf16*>(d_out);
-    flash_delta_kernel<bf16><<<dgrid, 256, 0, stream>>>(static_cast<const bf16*>(o), gob, delta,
-                                                        rows, T, H, D);
-    flash_dkv_bf16_kernel<D><<<grid, 128, 0, stream>>>(
-        qb, kb, vb, gob, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, sb,
-        st, sh, gb, gt, gh, scale);
-    flash_dq_bf16_kernel<D><<<grid, 128, 0, stream>>>(qb, kb, vb, gob, lse, delta,
-                                                      static_cast<bf16*>(dq), T, H, sb, st, sh,
-                                                      gb, gt, gh, scale);
-  } else {
-    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
-                *vf = static_cast<const float*>(v), *gof = static_cast<const float*>(d_out);
-    constexpr int smem_dkv = dkv_f32_smem<D>(), smem_dq = dq_f32_smem<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_dkv_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(flash_dq_f32_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
-    if (err != cudaSuccess) return (int)err;
-    flash_delta_kernel<float><<<dgrid, 256, 0, stream>>>(static_cast<const float*>(o), gof,
-                                                         delta, rows, T, H, D);
-    flash_dkv_f32_kernel<D><<<grid, 256, smem_dkv, stream>>>(
-        qf, kf, vf, gof, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), T, H, sb,
-        st, sh, gb, gt, gh, scale);
-    flash_dq_f32_kernel<D><<<grid, 256, smem_dq, stream>>>(qf, kf, vf, gof, lse, delta,
-                                                           static_cast<float*>(dq), T, H, sb, st,
-                                                           sh, gb, gt, gh, scale);
-  }
+// ------------------------------------------------------------------ host ----
+
+// Tensor map of a [B, T, H, D] bf16 tensor with element strides (sb, st, sh,
+// 1), viewed as (D, H, T, B): boxes of 64 columns x `rows` tokens of one head,
+// 128-byte swizzled, columns past D read as zeros.
+int tensor_map(CUtensorMap* map, const void* base, int B, int T, int H, int D, long long sb,
+               long long st, long long sh, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dim[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t stride[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dim,
+                            stride, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Persistent grid: one block per SM, or one per tile where there are fewer.
+inline int grid_for(int tiles) { return tiles < sm_count() ? tiles : sm_count(); }
+
+template <int DP>
+int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int T,
+             int H, int D, long long sb, long long st, long long sh, float scale,
+             cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int e;
+  if ((e = tensor_map(&tq, q, B, T, H, D, sb, st, sh, FWD_Q)) ||
+      (e = tensor_map(&tk, k, B, T, H, D, sb, st, sh, FWD_K)) ||
+      (e = tensor_map(&tv, v, B, T, H, D, sb, st, sh, FWD_K)))
+    return e;
+  constexpr int stages = DP == 64 ? 4 : 3;  // two tiles held by the pipeline, the rest ahead
+  constexpr int smem = fwd_smem<DP>(stages);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = B * H * (T / FWD_Q);
+  flash_fwd_wgmma_kernel<DP><<<grid_for(tiles), THREADS, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(o), lse, T, H, D,
+                                                   tiles, stages, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int bwd_bf16(const void* q, const void* k, const void* v, const void* d_out, const float* lse,
+             const float* delta, void* dq, void* dk, void* dv, int B, int T, int H, int D,
+             long long sb, long long st, long long sh, long long gb, long long gt, long long gh,
+             float scale, cudaStream_t stream) {
+  const long long ot = (long long)H * D, ob = (long long)T * ot;  // d_out: contiguous
+  CUtensorMap q1, g1, k1, v1, q2, g2, k2, v2;
+  int e;
+  if ((e = tensor_map(&q1, q, B, T, H, D, sb, st, sh, DKV_Q)) ||
+      (e = tensor_map(&g1, d_out, B, T, H, D, ob, ot, D, DKV_Q)) ||
+      (e = tensor_map(&k1, k, B, T, H, D, sb, st, sh, DKV_K)) ||
+      (e = tensor_map(&v1, v, B, T, H, D, sb, st, sh, DKV_K)) ||
+      (e = tensor_map(&q2, q, B, T, H, D, sb, st, sh, DQ_Q)) ||
+      (e = tensor_map(&g2, d_out, B, T, H, D, ob, ot, D, DQ_Q)) ||
+      (e = tensor_map(&k2, k, B, T, H, D, sb, st, sh, DQ_K)) ||
+      (e = tensor_map(&v2, v, B, T, H, D, sb, st, sh, DQ_K)))
+    return e;
+  constexpr int dkv_stages = DP == 64 ? 4 : 3, dq_stages = DP == 64 ? 4 : 3;
+  constexpr int smem_dkv = dkv_smem<DP>(dkv_stages), smem_dq = dq_smem<DP>(dq_stages);
+  cudaError_t err = cudaFuncSetAttribute(flash_dkv_wgmma_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_dq_wgmma_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+  if (err != cudaSuccess) return (int)err;
+  const int dkv_tiles = B * H * (T / DKV_K), dq_tiles = B * H * (T / DQ_Q);
+  flash_dkv_wgmma_kernel<DP><<<grid_for(dkv_tiles), THREADS, smem_dkv, stream>>>(
+      q1, k1, v1, g1, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, D, gb,
+      gt, gh, dkv_tiles, dkv_stages, scale);
+  flash_dq_wgmma_kernel<DP><<<grid_for(dq_tiles), THREADS, smem_dq, stream>>>(
+      q2, k2, v2, g2, lse, delta, static_cast<bf16*>(dq), T, H, D, gb, gt, gh, dq_tiles,
+      dq_stages, scale);
   return (int)cudaGetLastError();
 }
 
@@ -742,15 +845,23 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 
 // q, k, v: [B, T, H, D] in `dtype` with element strides (sb, st, sh) and a
 // contiguous last axis; o: [B, T, H, D] contiguous; lse: [B, H, T] float32.
-// Requires T % 64 == 0, D in {32, 64}, B, H <= 65535, 16-byte aligned rows.
+// dp: the width the kernels are compiled for, as ops/flash_attention.py
+// kernel_head_dim gives it (bf16: 64 or 128; fp32: D rounded up to 16).
+// Requires T % 128 == 0, D % 8 == 0, 8 <= D <= dp <= 128, B, H <= 65535,
+// 16-byte aligned rows.
 extern "C" int rfv_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                       void* lse, int B, int T, int H, int D, long long sb,
+                                       void* lse, int B, int T, int H, int D, int dp, long long sb,
                                        long long st, long long sh, float scale, int dtype,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (D == 64) return launch_fwd<64>(q, k, v, o, l, B, T, H, sb, st, sh, scale, dtype, s);
-  if (D == 32) return launch_fwd<32>(q, k, v, o, l, B, T, H, sb, st, sh, scale, dtype, s);
+  if (T % 128 || D % 8 || D < 8 || D > dp) return (int)cudaErrorInvalidValue;
+  if (dtype == RFV_DTYPE_F32)
+    return rfv_flash::fwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                              static_cast<const float*>(v), static_cast<float*>(o), l, B, T, H, D,
+                              dp, sb, st, sh, scale, s);
+  if (dp == 64) return fwd_bf16<64>(q, k, v, o, l, B, T, H, D, sb, st, sh, scale, s);
+  if (dp == 128) return fwd_bf16<128>(q, k, v, o, l, B, T, H, D, sb, st, sh, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -760,17 +871,28 @@ extern "C" int rfv_flash_attention_fwd(const void* q, const void* k, const void*
 extern "C" int rfv_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* o, const void* d_out, const void* lse,
                                        void* delta, void* dq, void* dk, void* dv, int B, int T,
-                                       int H, int D, long long sb, long long st, long long sh,
-                                       long long gb, long long gt, long long gh, float scale,
-                                       int dtype, void* stream) {
+                                       int H, int D, int dp, long long sb, long long st,
+                                       long long sh, long long gb, long long gt, long long gh,
+                                       float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (D == 64)
-    return launch_bwd<64>(q, k, v, o, d_out, l, dl, dq, dk, dv, B, T, H, sb, st, sh, gb, gt, gh,
-                          scale, dtype, s);
-  if (D == 32)
-    return launch_bwd<32>(q, k, v, o, d_out, l, dl, dq, dk, dv, B, T, H, sb, st, sh, gb, gt, gh,
-                          scale, dtype, s);
-  return (int)cudaErrorInvalidValue;
+  if (T % 128 || D % 8 || D < 8 || D > dp) return (int)cudaErrorInvalidValue;
+  if (dtype == RFV_DTYPE_F32) {
+    const int e = launch_delta<float>(o, d_out, dl, B, T, H, D, s);
+    if (e) return e;
+    return rfv_flash::bwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                              static_cast<const float*>(v), static_cast<const float*>(d_out), l,
+                              dl, static_cast<float*>(dq), static_cast<float*>(dk),
+                              static_cast<float*>(dv), B, T, H, D, dp, sb, st, sh, gb, gt, gh,
+                              scale, s);
+  }
+  if (dp != 64 && dp != 128) return (int)cudaErrorInvalidValue;
+  const int e = launch_delta<bf16>(o, d_out, dl, B, T, H, D, s);
+  if (e) return e;
+  if (dp == 64)
+    return bwd_bf16<64>(q, k, v, d_out, l, dl, dq, dk, dv, B, T, H, D, sb, st, sh, gb, gt, gh,
+                        scale, s);
+  return bwd_bf16<128>(q, k, v, d_out, l, dl, dq, dk, dv, B, T, H, D, sb, st, sh, gb, gt, gh,
+                       scale, s);
 }

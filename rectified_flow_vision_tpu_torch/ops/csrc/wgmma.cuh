@@ -1,14 +1,31 @@
-// wgmma.mma_async m64nNk16, bf16 inputs, fp32 accumulators, both operands
-// from shared memory through matrix descriptors (K-major, no transpose), for
-// N = 64, 128, 192 and 256: the conv's block tile takes every output channel
-// of its rows (conv3x3.cu). The accumulator of one warpgroup thread holds
-// N / 2 floats: d[4 i + {0, 1}] = (row 16 w + lane / 4, column 8 i + 2 (lane % 4)
-// + {0, 1}) and d[4 i + {2, 3}] the same columns 8 rows further down, for
-// warp w of the warpgroup. `scale_d` = 0 ignores d's old contents.
+// Hopper building blocks of the bf16 kernels that run on wgmma and TMA
+// (conv3x3.cu, flash_attention.cu).
+//
+// wgmma.mma_async m64nNk16, bf16 inputs, fp32 accumulators. Wgmma<N>: both
+// operands from shared memory through matrix descriptors (K-major, no
+// transpose), N = 64, 128, 192 and 256. WgmmaRS<N, TB>: A from registers, B
+// from shared memory, K-major (TB = 0) or MN-major (TB = 1, transposed: the
+// second products of attention, P V, dS K, P^T dO, dS^T Q, whose B operand
+// is stored with its k index in the rows), N = 64 and 128. The accumulator
+// of one warpgroup thread holds N / 2 floats: d[4 i + {0, 1}] = (row
+// 16 w + lane / 4, column 8 i + 2 (lane % 4) + {0, 1}) and d[4 i + {2, 3}] the
+// same columns 8 rows further down, for warp w of the warpgroup. An A fragment in registers is the same layout for
+// 16 columns: a[0] = (row g, columns 2 (lane % 4) + {0, 1}), a[1] = row g + 8,
+// a[2] and a[3] the same 8 columns further right (g = lane / 4), so two
+// neighbouring 8-column blocks of an accumulator, repacked to bf16, are the A
+// operand of the next product. `scale_d` = 0 ignores d's old contents.
 //
 // The operand lists are written out: PTX names every accumulator register.
+//
+// Also here: mbarrier and TMA helpers, the quad transpose of the epilogues
+// and the driver's tensor-map encoder, for flash_attention.cu. conv3x3.cu
+// keeps its own copies of them: built on these, its kernels measured 1-10%
+// slower per conv shape on the H100 (chip_smoke.py kernel phase, BN = 128
+// the most), for no change of its arithmetic.
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace rfv_wgmma {
@@ -184,6 +201,69 @@ struct Wgmma<256> {
   }
 };
 
+template <int N, int TB>
+struct WgmmaRS;
+
+template <int TB>
+struct WgmmaRS<64, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<128, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+  }
+};
+
 __device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -192,6 +272,43 @@ template <int N>
 __device__ __forceinline__ void wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+
+// Pin the accumulators (or A fragments) of an asynchronous product to this
+// point of the program: after wait(), so that no read of them is scheduled
+// above it; before fence(), so that no write is scheduled below the product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// Two consumer warpgroups (c = 0, 1) that take turns to issue their
+// products, on named barriers 1 and 2: while one waits for its products and
+// runs its softmax, the other's products hold the tensor cores. Warpgroup 1
+// lets warpgroup 0 go first; each turn ends with pass(), except warpgroup
+// 1's last, so that every arrival on a barrier is matched by a wait.
+struct TurnTaking {
+  int mine, other;
+  __device__ __forceinline__ explicit TurnTaking(int c) : mine(1 + c), other(2 - c) {
+    if (c == 1) arrive(other);
+  }
+  __device__ __forceinline__ void take() const {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(mine) : "memory");
+  }
+  __device__ __forceinline__ void pass(bool last) const {
+    if (!(last && mine == 2)) arrive(other);
+  }
+  static __device__ __forceinline__ void arrive(int id) {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+  }
+};
 
 // Matrix descriptor of a K-major tile whose rows are 128 bytes (64 bf16),
 // stored as TMA writes it with 128-byte swizzle: 8-row groups 1024 bytes
@@ -206,6 +323,145 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr) {
   d |= (uint64_t)(1024 >> 4) << 32;
   d |= (uint64_t)1 << 62;
   return d;
+}
+
+// Matrix descriptor of an MN-major B operand (the product's k index in the
+// rows, N contiguous) from the same TMA layout: rows of 64 bf16 (128 bytes)
+// along N, 128-byte swizzle. 8 k-rows form a 1024-byte atom; the next 8
+// k-rows are 1024 bytes on (stride byte offset); the next 64 columns of N
+// are `lbo` bytes on (leading byte offset: the next TMA box of the tile).
+// Advancing k by 16 rows adds 2048 bytes to the start address.
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t smem_addr, uint32_t lbo) {
+  uint64_t d = 0;
+  d |= (uint64_t)((smem_addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+// The A fragment of rows r0 .. r0 + 15 (this warp's) and k-step kk of a
+// K-major tile that TMA wrote with 128-byte swizzle: boxes of `rows` rows x
+// 64 columns, 16-byte chunk j of row r stored at chunk j ^ (r % 8). One
+// ldmatrix.x4: lanes 8 i .. 8 i + 7 address the rows of a[i].
+__device__ __forceinline__ void load_a_sw128(uint32_t (&a)[4], uint32_t tile, int rows, int r0,
+                                             int kk, int lane) {
+  const int i = lane >> 3;
+  const int r = r0 + (lane & 7) + 8 * (i & 1);
+  const int chunk = 2 * (kk & 3) + (i >> 1);
+  const uint32_t addr = tile + (kk >> 2) * rows * 128 + r * 128 + ((chunk ^ (r & 7)) << 4);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// ---- mbarriers and TMA ----------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The 128-byte swizzle repeats every 1024 bytes: swizzled tiles start on that grid.
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                    ~static_cast<uintptr_t>(1023));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n}\n" ::"r"(a),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// A plain copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global to shared memory, completing on `bar` like a TMA tile.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- epilogue ----------------------------------------------------------------
+
+// Four neighbouring 8-column blocks of an accumulator row, rounded to bf16
+// pairs (v[j]: block j, this lane's two columns 2 (lane % 4) + {0, 1}),
+// transposed across the four lanes of a quad: lane q gets block q's eight
+// columns in order, for one 16-byte store.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&v)[4], int lane) {
+  const int q = lane & 3;
+  uint32_t o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int want = (q - r) & 3;
+    const uint32_t send = want == 0 ? v[0] : want == 1 ? v[1] : want == 2 ? v[2] : v[3];
+    const int src = (q + r) & 3;
+    const uint32_t got = __shfl_sync(0xffffffffu, send, (lane & ~3) | src);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = j == src ? got : o[j];
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// ---- host ------------------------------------------------------------------
+
+typedef decltype(&cuTensorMapEncodeTiled) EncodeTiled;
+
+// cuTensorMapEncodeTiled is a driver-API call; the library links only the
+// runtime, so it is reached through the runtime's driver entry point.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+inline int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
 }
 
 }  // namespace rfv_wgmma

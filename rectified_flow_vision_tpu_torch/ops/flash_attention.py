@@ -7,6 +7,12 @@ non-causal multi-head attention over q, k, v ``[B, T, H, D]``, scale
 1/sqrt(D), fp32 softmax. Bound by operations on the H100
 (``csrc/flash_attention.cu``); nothing of size T^2 reaches device memory.
 
+Head widths: every D with D % 8 == 0 and 8 <= D <= 128 (DiT-S, B and L give
+64, XL 72). ``kernel_head_dim`` gives the width the kernels are compiled for
+that takes D: the bf16 kernels pad D in shared memory to 64 or 128 (one or
+two 128-byte TMA boxes, columns past D zero-filled), the fp32 kernels to the
+next multiple of 16.
+
 ``use_flash`` is the JAX package's rule on shape (``dit.py:131-135``): the
 kernel where T >= 1024 and T % 128 == 0, below that the plain attention that
 the JAX package computes outside any kernel, on every device.
@@ -37,13 +43,27 @@ Tensor = torch.Tensor
 
 FLASH_MIN_SEQ = 1024  # the JAX package's _FLASH_MIN_SEQ
 FLASH_SEQ_MULTIPLE = 128  # its smallest valid block (_flash_block_sizes)
-KERNEL_TILE = 64  # query and key rows per tile of the CUDA kernels
-KERNEL_HEAD_DIMS = (32, 64)  # head dimensions the kernels are compiled for
+KERNEL_TILE = 128  # the kernels take T in multiples of their 128-row blocks
+HEAD_DIM_MIN, HEAD_DIM_MAX = 8, 128  # D a multiple of 8 in this range
 
 
 def use_flash(t: int) -> bool:
     """Whether a sequence of ``t`` tokens takes the flash kernel."""
     return t >= FLASH_MIN_SEQ and t % FLASH_SEQ_MULTIPLE == 0
+
+
+def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The head width the kernels are compiled for that takes D = ``d``:
+    bf16 64 (d <= 64) or 128, fp32 ``d`` rounded up to a multiple of 16.
+    Raises for a width the kernels do not take."""
+    if d % 8 or not HEAD_DIM_MIN <= d <= HEAD_DIM_MAX:
+        raise ValueError(
+            f"head dimension {d} not supported: the flash kernels take D a multiple of 8 "
+            f"from {HEAD_DIM_MIN} to {HEAD_DIM_MAX} (DiT-S, B and L give 64, XL 72)"
+        )
+    if dtype == torch.bfloat16:
+        return 64 if d <= 64 else 128
+    return -(-d // 16) * 16
 
 
 def _logits(q: Tensor, k: Tensor) -> Tensor:
@@ -88,7 +108,7 @@ def flash_attention_backward_plain(
     return tuple(g.transpose(1, 2).to(dt) for g in (dq, dk, dv))
 
 
-def _check(q: Tensor, k: Tensor, v: Tensor, kernel: str) -> Tuple[int, int, int, int]:
+def _check(q: Tensor, k: Tensor, v: Tensor, kernel: str) -> Tuple[int, int, int, int, int]:
     build.require_cuda(q, kernel)
     if q.ndim != 4:
         raise ValueError(f"{kernel}: q must be [B, T, H, D], got {tuple(q.shape)}")
@@ -99,26 +119,30 @@ def _check(q: Tensor, k: Tensor, v: Tensor, kernel: str) -> Tuple[int, int, int,
                 f"{kernel}: {name} is {tuple(x.shape)} {x.dtype} on {x.device}, expected "
                 f"{tuple(q.shape)} {q.dtype} on {q.device} (self-attention, as DiT calls it)"
             )
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"{kernel}: head dimension {d} not supported: the kernels are compiled for "
-            f"D in {KERNEL_HEAD_DIMS} (DiT-S, B and L give 64)"
-        )
+    try:
+        dp = kernel_head_dim(d, q.dtype)
+    except ValueError as err:
+        raise ValueError(f"{kernel}: {err}") from None
     if t % KERNEL_TILE or t == 0:
         raise ValueError(f"{kernel}: {t} tokens is not a multiple of the {KERNEL_TILE}-row tile")
     if b > 65535 or h > 65535 or b == 0:
         raise ValueError(f"{kernel}: batch {b} or heads {h} outside the launch grid")
-    return b, t, h, d
+    return b, t, h, d, dp
 
 
 def _shared_strides(q: Tensor, k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """q, k, v as the kernels read them: one set of strides, a contiguous
-    last axis, 16-byte aligned rows. Copies only what does not comply."""
+    last axis, 16-byte aligned rows, and heads, tokens and batches nested in
+    that order (the kernels' tensor maps view them as (D, H, T, B)). Copies
+    only what does not comply."""
     vec = 16 // q.element_size()
+    b, t, h, d = q.shape
+    sb, st, sh, sd = q.stride()
     ok = (
         q.stride() == k.stride() == v.stride()
-        and q.stride(3) == 1
-        and all(s % vec == 0 for s in q.stride()[:3])
+        and sd == 1
+        and all(s % vec == 0 for s in (sb, st, sh))
+        and sh >= d and st >= h * sh and sb >= t * st
         and all(x.data_ptr() % 16 == 0 for x in (q, k, v))
     )
     if ok:
@@ -129,14 +153,14 @@ def _shared_strides(q: Tensor, k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor, Te
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
     """Launch the forward kernel: (out [B, T, H, D] contiguous in q's dtype,
     lse [B, H, T] fp32)."""
-    b, t, h, d = _check(q, k, v, "flash_attention")
+    b, t, h, d, dp = _check(q, k, v, "flash_attention")
     q, k, v = _shared_strides(q, k, v)
     out = torch.empty((b, t, h, d), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
     sb, st, sh, _ = q.stride()
     rc = build.library().rfv_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, t, h, d, sb, st, sh, 1.0 / math.sqrt(d), build.DTYPE_CODES[q.dtype],
+        b, t, h, d, dp, sb, st, sh, 1.0 / math.sqrt(d), build.DTYPE_CODES[q.dtype],
         build.stream_ptr(q),
     )
     build.check(rc, "flash_attention")
@@ -149,7 +173,7 @@ def flash_attention_backward_cuda(
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Launch the backward kernels (delta, dkv, dq): (dq, dk, dv), the three
     slices of one new [B, T, 3, H, D] buffer."""
-    b, t, h, d = _check(q, k, v, "flash_attention_backward")
+    b, t, h, d, dp = _check(q, k, v, "flash_attention_backward")
     q, k, v = _shared_strides(q, k, v)
     build.require(out, "out", device=q.device, dtype=q.dtype, shape=(b, t, h, d))
     build.require(lse, "lse", device=q.device, dtype=torch.float32, shape=(b, h, t))
@@ -163,7 +187,7 @@ def flash_attention_backward_cuda(
     rc = build.library().rfv_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, t, h, d, sb, st, sh, gb, gt, gh, 1.0 / math.sqrt(d), build.DTYPE_CODES[q.dtype],
+        b, t, h, d, dp, sb, st, sh, gb, gt, gh, 1.0 / math.sqrt(d), build.DTYPE_CODES[q.dtype],
         build.stream_ptr(q),
     )
     build.check(rc, "flash_attention_backward")

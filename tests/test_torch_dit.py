@@ -6,7 +6,8 @@ function, in which no error of a block could reach the output. Only the
 initialisation test uses the zeros. Two sizes: the tiny model of
 ``tests/test_dit.py`` (8x8x4 latents, hidden 32, 16 tokens: the plain
 attention) and a narrow one whose 64x64 input gives 1024 tokens, so that the
-flash route's plain version is the one exercised.
+flash route's plain version is the one exercised; and one block at DiT-XL/2's
+widths (16 heads of 72) at 1024 tokens.
 
 Tolerances: fp32 atol 1e-4 on the forward, 1e-5 on the loss, its gradients and
 the parameters after three AdamW steps (what Adam does to a gradient that is
@@ -100,6 +101,32 @@ class TestForward:
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
                                    atol=2e-2 * np.abs(want).max())
+
+    def test_xl_widths_forward_matches_jax_fp32(self, monkeypatch):
+        """DiT-XL/2's widths (hidden 1152, 16 heads of 72, patch 2) at depth 1
+        on 64x64x4 latents: 1024 tokens, so head width 72 takes the flash
+        route. Parameters carried across by ``tree_to_state_dict``; leaves of
+        N(0, 0.02) (DiT's init scale) keep the output of order 1."""
+        hidden, _, heads = JD.DIT_SIZES["XL"]
+        kw = dict(input_size=64, patch_size=2, in_channels=4, hidden_size=hidden, depth=1,
+                  num_heads=heads)
+        jd = JD.DiT(**kw)
+        params = _random_tree(jax.eval_shape(jd.init, jax.random.key(0)), 11, scale=0.02)
+        net = TDIT.DiT(**kw)
+        net.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                             for k, v in TPT.tree_to_state_dict(params).items()}, strict=True)
+        x, t = _inputs(NARROW, 1, seed=12)
+        want = np.asarray(jax.jit(jd.apply)(jax.tree_util.tree_map(jnp.asarray, params),
+                                            jnp.asarray(x), jnp.asarray(t)))
+        seen = []
+        plain = TF.FA.flash_attention_plain
+        monkeypatch.setattr(TF.FA, "flash_attention_plain",
+                            lambda q, k, v: seen.append(tuple(q.shape)) or plain(q, k, v))
+        with torch.no_grad():
+            got = net(torch.from_numpy(x), torch.from_numpy(t)).numpy()
+        assert seen == [(1, 1024, 16, 72)] and got.shape == x.shape
+        assert np.abs(want).max() > 0.1
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
     def test_the_1024_token_model_takes_the_flash_route(self, monkeypatch):
         _, tm = _pair(NARROW)

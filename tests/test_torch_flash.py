@@ -3,7 +3,8 @@
 Inputs come from a numpy seed and go through the JAX function and its
 counterpart. On the CPU the JAX ``_attention`` takes its XLA branch (the
 backend is not a TPU), which is the library kernel's plain reference; the port
-takes ``flash_attention_plain``. Tolerances: fp32 atol 1e-5 forward (the same
+takes ``flash_attention_plain``. Head widths 64 (DiT-S/B/L) and 72 (DiT-XL),
+and the kernels' head-width rule, which needs no card. Tolerances: fp32 atol 1e-5 forward (the same
 fp32 arithmetic, summed in another order), 1e-4 for dq, dk, dv; bf16 rtol 2e-2
 (probabilities and outputs are rounded to bf16 on both sides, at the same
 points). The hand-written backward is also held against torch autograd of the
@@ -26,6 +27,7 @@ from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as TD
 from rectified_flow_vision_tpu_torch.ops import primitives as TP
 
 FLASH = (2, 1024, 2, 64)  # the dispatch rule's flash route
+XL = (1, 1024, 2, 72)  # DiT-XL's head width on the flash route
 SHORT = (2, 192, 3, 32)  # below the threshold: plain on every device
 
 
@@ -39,7 +41,7 @@ def _jax_attention(q, k, v, dtype=jnp.float32):
 
 
 class TestForward:
-    @pytest.mark.parametrize("shape", [FLASH, SHORT], ids=["flash_shape", "short"])
+    @pytest.mark.parametrize("shape", [FLASH, XL, SHORT], ids=["flash_shape", "head_72", "short"])
     def test_plain_matches_jax_fp32(self, shape):
         q, k, v = _qkv(shape)
         want = np.asarray(_jax_attention(q, k, v))
@@ -47,7 +49,7 @@ class TestForward:
         assert got.shape == shape
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
-    @pytest.mark.parametrize("shape", [FLASH, SHORT], ids=["flash_shape", "short"])
+    @pytest.mark.parametrize("shape", [FLASH, XL, SHORT], ids=["flash_shape", "head_72", "short"])
     def test_plain_matches_jax_bf16(self, shape):
         q, k, v = _qkv(shape, seed=1)
         want = np.asarray(_jax_attention(q, k, v, jnp.bfloat16).astype(jnp.float32))
@@ -60,6 +62,21 @@ class TestForward:
         for t in (64, 1000, 1024, 1088, 1152, 16384):
             want = t >= JD._FLASH_MIN_SEQ and JD._flash_block_sizes(t) is not None
             assert TFA.use_flash(t) == want, t
+
+    @pytest.mark.parametrize("d", range(8, 129, 8))
+    def test_every_head_width_from_8_to_128_has_a_kernel(self, d):
+        """bf16 pads D to one or two 64-column TMA boxes, fp32 to the next
+        multiple of 16; DiT-S/B/L (64) and XL (72) are among them."""
+        bf16 = TFA.kernel_head_dim(d, torch.bfloat16)
+        fp32 = TFA.kernel_head_dim(d, torch.float32)
+        assert bf16 == (64 if d <= 64 else 128) and d <= bf16
+        assert fp32 % 16 == 0 and d <= fp32 < d + 16
+
+    @pytest.mark.parametrize("d", [0, 4, 12, 20, 100, 127, 136, 256])
+    def test_other_head_widths_raise_naming_the_range(self, d):
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
+                TFA.kernel_head_dim(d, dtype)
 
     def test_views_of_one_projection_need_no_copy(self):
         """q, k, v as DiT hands them over share their strides, so the kernel
@@ -80,7 +97,7 @@ class TestForward:
 
 
 class TestBackward:
-    @pytest.mark.parametrize("shape", [FLASH, SHORT], ids=["flash_shape", "short"])
+    @pytest.mark.parametrize("shape", [FLASH, XL, SHORT], ids=["flash_shape", "head_72", "short"])
     def test_plain_backward_matches_jax_grad(self, shape):
         q, k, v = _qkv(shape, seed=3)
         g = np.random.default_rng(4).standard_normal(shape).astype(np.float32)

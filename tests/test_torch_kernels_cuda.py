@@ -8,7 +8,8 @@ fixture, not at import). On a machine with a card and nvcc:
 Shapes are small but cover ragged tiles (M not a multiple of the conv's
 128-row tile, boxes wider or taller than the image, 35 tokens in attention,
 C not a multiple of 32), every conv shape of the flagship forward, the
-attention block at 1024 and 4096 tokens, head widths 4 to 64, and group
+attention block at 1024 and 4096 tokens, head widths 4 to 64 (attention
+block) and 8 to 128 (flash attention, DiT-XL's 72 among them), and group
 widths that take gn_silu's narrower vectors (2 and 3 channels a group). Tolerances as in chip_smoke.py:
 fp32 1e-4 (gn_silu) / 1e-3 (conv3x3, attention; reordered sums, cuDNN's
 algorithm choice), bf16 one rounding against two or three (2e-2 rtol, 3e-2
@@ -375,9 +376,17 @@ def _qkv(dev, dtype, b, t, h, d, seed=8, packed=True):
 FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 
+# head widths 8 to 128 (DiT-S/B/L 64, XL 72; the bf16 kernels pad to 64 or
+# 128, the fp32 ones to a multiple of 16), T a multiple of 128, and the
+# 16384-token shape
+FLASH_FWD_CASES = [((2, 1024, 6, 64), True), ((1, 1152, 3, 64), False), ((2, 1024, 4, 32), True),
+                   ((2, 1024, 4, 72), True), ((1, 1152, 2, 72), False), ((1, 1024, 2, 128), True),
+                   ((1, 1152, 2, 128), False), ((1, 1024, 3, 8), True), ((1, 1024, 2, 96), False),
+                   ((2, 16384, 6, 64), True)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape,packed", [((2, 1024, 6, 64), True), ((1, 1152, 3, 64), False),
-                                          ((2, 1024, 4, 32), True)])
+@pytest.mark.parametrize("shape,packed", FLASH_FWD_CASES)
 def test_flash_attention_forward(dev, dtype, shape, packed):
     q, k, v = _qkv(dev, dtype, *shape, packed=packed)
     before = build.LAUNCHES["flash_attention"]
@@ -391,12 +400,14 @@ def test_flash_attention_forward(dev, dtype, shape, packed):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(2, 1024, 6, 64), (1, 1152, 2, 32)])
-def test_flash_attention_backward(dev, dtype, shape):
+@pytest.mark.parametrize("shape,packed", [((2, 1024, 6, 64), True), ((1, 1152, 2, 32), False),
+                                          ((2, 1024, 4, 72), True), ((1, 1152, 2, 72), False),
+                                          ((1, 1024, 2, 128), True), ((1, 1024, 3, 8), False)])
+def test_flash_attention_backward(dev, dtype, shape, packed):
     """dq, dk, dv of the kernels against the plain backward (the same
     formulas) and against autograd of the plain forward; two runs give the
     same bits."""
-    q, k, v = _qkv(dev, dtype, *shape, seed=9)
+    q, k, v = _qkv(dev, dtype, *shape, seed=9, packed=packed)
     g = torch.randn(shape, generator=_gen(dev, 10), device=dev).to(dtype)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     before = dict(build.LAUNCHES)
@@ -426,8 +437,9 @@ def test_flash_attention_dispatch_and_rejections(dev):
     out = fused.flash_attention(q, k, v)
     assert build.LAUNCHES["flash_attention"] == before
     torch.testing.assert_close(out, FA.flash_attention_plain(q, k, v))
-    with pytest.raises(ValueError, match="head dimension"):
-        FA.flash_attention_cuda(*_qkv(dev, torch.float32, 1, 1024, 2, 72))
+    for d in (136, 20):
+        with pytest.raises(ValueError, match="head dimension"):
+            FA.flash_attention_cuda(*_qkv(dev, torch.float32, 1, 1024, 2, d))
     with pytest.raises(ValueError, match="tile"):
         FA.flash_attention_cuda(*_qkv(dev, torch.float32, 1, 1000, 2, 64))
     with pytest.raises(ValueError, match="dtype"):
@@ -469,14 +481,16 @@ def test_dropout_contract_at_2_to_20(dev):
     torch.testing.assert_close(a[a != 0], torch.full_like(a[a != 0], 1 / 0.7))
 
 
+@pytest.mark.parametrize("hidden", [128, 144], ids=["head_64", "head_72"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_small_dit_on_the_card_matches_the_cpu(dev, dtype):
+def test_small_dit_on_the_card_matches_the_cpu(dev, dtype, hidden):
     """A narrow DiT whose 64x64 input gives 1024 tokens: the flash kernels on
     the card against the plain path on the CPU, forward and every gradient,
-    with all parameters random (a fresh DiT is the zero function)."""
+    with all parameters random (a fresh DiT is the zero function); two heads
+    of 64, and of 72 (DiT-XL's head width)."""
     from rectified_flow_vision_tpu_torch.models import BaseFlowModel
 
-    cfg = dict(image_size=64, in_channels=4, backbone="dit", hidden_size=128, depth=2,
+    cfg = dict(image_size=64, in_channels=4, backbone="dit", hidden_size=hidden, depth=2,
                num_heads=2, compute_dtype=dtype, seed=0)
     cpu = BaseFlowModel(device="cpu", **cfg)
     g = torch.Generator().manual_seed(3)

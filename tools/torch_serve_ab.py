@@ -1,15 +1,27 @@
 #!/usr/bin/env python3
-"""Serving throughput of two checkouts of the PyTorch port on one card, in turns.
+"""Throughput of two checkouts of the PyTorch port on one card, in turns.
 
     python3 tools/torch_serve_ab.py PARENT_ROOT [CHANGE_ROOT]
 
 Each root is a checkout that holds ``rectified_flow_vision_tpu_torch/``
 (``CHANGE_ROOT`` defaults to this file's checkout). The order is parent,
 change, change, parent, each in a process of its own that builds that
-checkout's kernels, makes the flagship UNet (64x64, random weights from seed
-0) and reads ``SamplerService.throughput(4)`` at batch 256 in bf16 three
-times. Two versions are only comparable within one run on one card, so the
-card's name and power limit are printed first. Needs a CUDA card and nvcc.
+checkout's kernels and reads, from random weights (seed 0), in bf16:
+
+- ``unet_serve``: ``SamplerService.throughput(4)`` of the flagship UNet
+  (64x64) at batch 256, three readings;
+- ``unet_train``: img/s of ``make_train_epoch`` at batch 256 (6 steps a
+  reading, four readings);
+- ``latent_serve``: ``throughput(4)`` of DiT-S/2 on 64x64x4 latents with the
+  ConvVAE decode to 256x256x3, batch 256, three readings;
+- ``dit_train``: img/s of ``make_train_epoch`` for DiT-S/2 with ``remat`` at
+  batch 64 (6 steps a reading, four readings);
+- ``flash_fwd_ms`` / ``flash_bwd_ms``: the flash kernels' device time (CUDA
+  events, 10 calls after a warm-up) summed over the 12 calls of one DiT-S/2
+  forward at batch 256 and of one train step's backward at batch 64.
+
+Two versions are only comparable within one run on one card, so the card's
+name and power limit are printed first. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -20,18 +32,94 @@ import subprocess
 import sys
 from pathlib import Path
 
-CHILD = """
-import json, sys
+CHILD = r"""
+import json, sys, time
+import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
-from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+from rectified_flow_vision_tpu_torch.models import BaseFlowModel, ConvVAE
+from rectified_flow_vision_tpu_torch.models.base_flow import init_ema, make_optimizer, make_train_epoch
+from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
 from rectified_flow_vision_tpu_torch.serving import SamplerService
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
+DIT = dict(image_size=64, in_channels=4, backbone="dit", dit_size="S", patch_size=2, remat=True)
+out = {}
+
+def randomize_zero_leaves(model, seed):
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not bool(p.any()):
+                p.copy_((torch.randn(p.shape, generator=g) * 0.02).to(p.device))
+
+def train_rates(model, corpus, batch, lr):
+    steps = 6
+    opt = make_optimizer(model, lr, 1000, steps)
+    epoch = make_train_epoch(model, opt, coupled=False, ema=init_ema(model), ema_decay=0.999)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    r = np.random.default_rng(0)
+    perm = lambda n: torch.as_tensor(r.integers(0, len(corpus), (n, batch)), device="cuda")
+    epoch(corpus, perm(1), gen)
+    rates = []
+    for _ in range(4):
+        p = perm(steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch(corpus, p, gen)
+        torch.cuda.synchronize()
+        rates.append(batch * steps / (time.perf_counter() - t0))
+    return rates
+
+def kernel_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(10):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / 10
+
 model = BaseFlowModel(image_size=64, seed=0, sample_dtype="bfloat16", device="cuda")
 svc = SamplerService(model, step_counts=(4,), batch_size=256, seed=0)
-print(json.dumps([svc.throughput(4) for _ in range(3)]))
+out["unet_serve"] = [svc.throughput(4) for _ in range(3)]
+del svc, model
+model = BaseFlowModel(image_size=64, seed=0, compute_dtype="bfloat16", sample_dtype="bfloat16",
+                      device="cuda")
+images = torch.tanh(torch.randn((512, 64, 64, 3), generator=torch.Generator(device="cuda").manual_seed(1),
+                                device="cuda"))
+out["unet_train"] = train_rates(model, images, 256, 2e-4)
+del model, images
+torch.cuda.empty_cache()
+
+model = BaseFlowModel(seed=0, sample_dtype="bfloat16", device="cuda", **DIT)
+randomize_zero_leaves(model, 6)
+vae = ConvVAE(seed=0, device="cuda", image_size=256, in_channels=3, latent_channels=4,
+              base_channels=64, downsample=4)
+svc = SamplerService(model, step_counts=(4,), batch_size=256, seed=0, vae=vae)
+out["latent_serve"] = [svc.throughput(4) for _ in range(3)]
+del svc, model, vae
+torch.cuda.empty_cache()
+model = BaseFlowModel(seed=0, compute_dtype="bfloat16", sample_dtype="bfloat16", device="cuda", **DIT)
+latents = torch.randn((256, 64, 64, 4), generator=torch.Generator(device="cuda").manual_seed(2),
+                      device="cuda")
+out["dit_train"] = train_rates(model, latents, 64, 1e-4)
+del model, latents
+torch.cuda.empty_cache()
+
+g = torch.Generator(device="cuda").manual_seed(3)
+q, k, v = torch.randn((256, 1024, 3, 6, 64), generator=g, device="cuda").bfloat16().unbind(2)
+out["flash_fwd_ms"] = [12 * kernel_ms(lambda: FA.flash_attention_cuda(q, k, v))]
+q, k, v = torch.randn((64, 1024, 3, 6, 64), generator=g, device="cuda").bfloat16().unbind(2)
+d_out = torch.randn((64, 1024, 6, 64), generator=g, device="cuda").bfloat16()
+o, lse = FA.flash_attention_cuda(q, k, v)
+out["flash_bwd_ms"] = [12 * kernel_ms(lambda: FA.flash_attention_backward_cuda(q, k, v, o, lse, d_out))]
+print(json.dumps(out))
 """
+
+METRICS = ("unet_serve", "unet_train", "latent_serve", "dit_train", "flash_fwd_ms", "flash_bwd_ms")
 
 
 def main() -> None:
@@ -44,23 +132,27 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(f"card: {card}", flush=True)
-    readings = {"parent": [], "change": []}
+    readings = {side: {m: [] for m in METRICS} for side in ("parent", "change")}
     for side in ("parent", "change", "change", "parent"):
         root = parent if side == "parent" else change
         res = subprocess.run(
             [sys.executable, "-c", CHILD, str(root)], cwd=root, capture_output=True, text=True,
-            timeout=600,
+            timeout=900,
         )
         if res.returncode != 0:
             sys.exit(f"{side} ({root}) failed:\n{res.stdout}\n{res.stderr}")
-        rates = json.loads(res.stdout.strip().splitlines()[-1])
-        readings[side] += rates
-        print(f"{side:6s} {root}: throughput(4) img/s {rates}", flush=True)
-    med = {k: statistics.median(v) for k, v in readings.items()}
-    print(json.dumps({"card": card, "parent_img_s": readings["parent"],
-                      "change_img_s": readings["change"], "parent_median": med["parent"],
-                      "change_median": med["change"],
-                      "change_over_parent": med["change"] / med["parent"]}))
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        for m in METRICS:
+            readings[side][m] += got[m]
+        print(f"{side:6s} {root}: " + ", ".join(f"{m} {[round(x, 3) for x in got[m]]}"
+                                                for m in METRICS), flush=True)
+    summary = {"card": card}
+    for m in METRICS:
+        med = {side: statistics.median(readings[side][m]) for side in readings}
+        summary[m] = {"parent": readings["parent"][m], "change": readings["change"][m],
+                      "parent_median": med["parent"], "change_median": med["change"],
+                      "change_over_parent": med["change"] / med["parent"]}
+    print(json.dumps(summary))
 
 
 if __name__ == "__main__":
