@@ -14,12 +14,16 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    model), the attention block at 1024 tokens (256, 32, 32, 256), the
    flash-attention forward at the DiT-S/2 latent shapes (batch 256 and 64,
    1024 tokens, 6 heads of 64) and at 16384 tokens, its backward at batch
-   64, both at DiT-XL/2's widths (batch 64, 1024 tokens, 16 heads of 72),
+   64, both at DiT-XL/2's widths (batch 64, 1024 tokens, 16 heads of 72)
+   and at head widths 4, 12, 136 and 256 (batch 64, 1024 tokens, 6 heads),
    and the standalone dropout at three sizes, in bf16 and fp32,
    against its plain PyTorch version on the same inputs within a stated
    tolerance, with the kernel's, the plain version's and one PyTorch library
    call's times, and the card's least time (bound), with TFLOP/s where
-   operations bound the kernel. The dropout kernels also:
+   operations bound the kernel. The GroupNorm backward kernel at every
+   GroupNorm site of the train step (with the dropout mask at the dropout
+   sites), its library time that of ATen's chain (``F.group_norm`` +
+   ``F.silu``, + ``F.dropout``) through autograd. The dropout kernels also:
    the mask equal to the plain version's bit for bit, the dropped fraction,
    same seed same output, other seed other mask. Then each bf16 flash
    kernel alone (forward; delta, dkv and dq of the backward) by the
@@ -33,7 +37,7 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    group and the device's idle share;
 7. gradient: full-width UNet, fp32, batch 4, dropout 0.1, fixed x0, t and
    seeds: the loss and every parameter's gradient on the card (kernels
-   forward, ``dropout_mask_apply`` backward) against the plain path on the CPU;
+   forward, ``gn_silu_backward`` backward) against the plain path on the CPU;
 8. train: at full width, bf16 compute on fp32 masters: ``train_base_flow`` on
    a seeded 512-image corpus (batch 64, EMA 0.999, device-resident epochs),
    heun-teacher ``generate_reflow_pairs`` (pair batch 256),
@@ -44,7 +48,9 @@ card, outside a checkout, or when any phase fails. Phases, in order:
 9. train timing and trace: img/s of ``make_train_epoch`` at batch 256 in bf16,
    peak device memory, and one train step under ``torch.profiler``;
 10. dropout: ``ops.primitives.dropout`` on tensors on the card, forward and
-    gradient (no model of either package calls the standalone kernel);
+    gradient (no model of either package calls the standalone kernel), and
+    ``dropout_mask_apply`` on a cotangent (the backward kernel took its place
+    in the train step);
 11. DiT model and gradient: DiT-S/2 (hidden 384, depth 12, 6 heads, patch 2,
     64x64x4 latents, ``remat``) in fp32 at batch 4 with all-random parameters:
     the forward, the loss and every parameter's gradient on the card (flash
@@ -109,6 +115,13 @@ TOLERANCES = {
     # (values up to 1.11x larger, hence the atol), zero elsewhere.
     ("gn_silu_dropout", "float32"): (1e-4, 1e-4),
     ("gn_silu_dropout", "bfloat16"): (2e-2, 3.5e-2),
+    # gn_silu_backward: the plain version follows the kernel's fp32 formulas
+    # from the same saved statistics and rounds dx once, as the kernel; sums
+    # in another order (the parameter gradients over 256 images). Each
+    # output (dx, dscale, dbias) is held to a share of its largest entry
+    # (SCALED_ATOL).
+    ("gn_silu_backward", "float32"): (0.0, 1e-4),
+    ("gn_silu_backward", "bfloat16"): (0.0, 2e-2),
     # dropout_mask_apply: the same fp32 product and one rounding: exact.
     ("dropout_mask_apply", "float32"): (0.0, 0.0),
     ("dropout_mask_apply", "bfloat16"): (0.0, 0.0),
@@ -126,7 +139,11 @@ TOLERANCES = {
     ("flash_attention_backward", "float32"): (1e-4, 1e-4),
     ("flash_attention_backward", "bfloat16"): (2e-2, 2e-2),
 }
-SCALED_ATOL = {"flash_attention_backward"}
+SCALED_ATOL = {"flash_attention_backward", "gn_silu_backward"}
+# the GroupNorm forwards' second output, the saved fp32 (mean, 1/sigma),
+# against gn_stats_plain: the same fp32 statistics summed in another order
+SAVES_STATS = {"gn_silu", "gn_silu_dropout"}
+STATS_TOL = (1e-5, 1e-5)
 DROP_RATE = 0.1  # the flagship config's dropout
 DROP_FRACTION_TOL = 0.002  # of >= 16.7M elements: 27 standard deviations at least
 # fp32 full-width forward, kernels on the card vs plain on the CPU: ~60
@@ -145,10 +162,10 @@ TRAJECTORY_RTOL = 2e-2
 # other places (the flash kernel divides by the row sum at the end): a few
 # bf16 ulps of the output's scale through two blocks
 XL_BF16_RTOL = 5e-2
-TRAIN_STEP_LAUNCHES = {"gn_silu": 15, "gn_silu_dropout": 14, "dropout_mask_apply": 14,
-                       "conv3x3": 30, "attention_block": 1}
-EVAL_FORWARD_LAUNCHES = {"gn_silu": 29, "gn_silu_dropout": 0, "dropout_mask_apply": 0,
-                         "conv3x3": 30, "attention_block": 1}
+TRAIN_STEP_LAUNCHES = {"gn_silu": 15, "gn_silu_dropout": 14, "gn_silu_backward": 29,
+                       "dropout_mask_apply": 0, "conv3x3": 30, "attention_block": 1}
+EVAL_FORWARD_LAUNCHES = {"gn_silu": 29, "gn_silu_dropout": 0, "gn_silu_backward": 0,
+                         "dropout_mask_apply": 0, "conv3x3": 30, "attention_block": 1}
 TRAIN = dict(images=512, batch=64, base_epochs=4, reflow_epochs=3, lr=2e-4, ema=0.999,
              pairs=512, pair_batch=256, teacher_steps=8, straight_points=10, samples=64)
 
@@ -171,6 +188,9 @@ FLASH_BWD_SHAPE = (LATENT["batch"], DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM)
 # DiT-XL/2 (hidden 1152, 16 heads of 72) on the same latents: no path of
 # this script runs it, the kernel phase holds it against the plain versions
 FLASH_XL_SHAPE = (LATENT["batch"], DIT_TOKENS, 16, 72)
+# head widths no config of the repo has, which the JAX _attention takes: 4
+# and 12 zero-padded to 8 and 16, 136 and 256 on the chunked fp32 kernels
+FLASH_ODD_SHAPES = tuple((LATENT["batch"], DIT_TOKENS, DIT_HEADS, d) for d in (4, 12, 136, 256))
 DROPOUT_SHAPES = ((1024, 1024), (64, 1024, 384), (256, 64, 64, 64))
 
 
@@ -253,10 +273,12 @@ def record_main_path_shapes(torch, UNet, fused_mod, train=False):
     return calls
 
 
-def kernel_cases(torch, shape_calls, drop_calls):
+def kernel_cases(torch, shape_calls, train_calls):
     """(name, shape, count, make_inputs(dtype) -> (kernel, plain, library), bytes_fn, flops).
-    ``shape_calls`` are the eval forward's, ``drop_calls`` the train forward's
-    gn_silu_dropout shapes (dropout_mask_apply gets the same in the backward)."""
+    ``shape_calls`` are the eval forward's shapes, ``train_calls`` the train
+    forward's: gn_silu_dropout at its sites (and dropout_mask_apply, which
+    the train step no longer runs, at the same), gn_silu_backward at every
+    GroupNorm site of the step."""
     import torch.nn.functional as F
 
     from rectified_flow_vision_tpu_torch.ops import attention as A
@@ -283,13 +305,14 @@ def kernel_cases(torch, shape_calls, drop_calls):
             sl, bl = s.to(dt), b.to(dt)
             return (
                 lambda: G.gn_silu_cuda(x, s, b),
-                lambda: G.gn_silu_plain(x, s, b),
+                lambda: (G.gn_silu_plain(x, s, b), G.gn_stats_plain(x)),
                 lambda: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 8, sl, bl)),
             )
         elems = BATCH * h * w * c
         cases.append(("gn_silu", (BATCH, h, w, c), n, make,
                       lambda es, e=elems, c=c: 2 * e * es + 2 * c * 4, 10 * elems))
     seed = torch.tensor([SEED + 17], dtype=torch.int32, device=dev)
+    drop_calls = train_calls["gn_silu_dropout"]
     for (h, w, c), n in sorted(drop_calls.items()):
         def make(dt, h=h, w=w, c=c):
             x = randn(BATCH, h, w, c, dtype=dt, scale=2.0, shift=0.3)
@@ -298,7 +321,7 @@ def kernel_cases(torch, shape_calls, drop_calls):
             sl, bl = s.to(dt), b.to(dt)
             return (
                 lambda seed=seed: D.gn_silu_dropout_cuda(x, s, b, seed, DROP_RATE),
-                lambda: D.gn_silu_dropout_plain(x, s, b, seed, DROP_RATE),
+                lambda: (D.gn_silu_dropout_plain(x, s, b, seed, DROP_RATE), G.gn_stats_plain(x)),
                 lambda: F.dropout(F.silu(F.group_norm(x.permute(0, 3, 1, 2), 8, sl, bl)),
                                   DROP_RATE, training=True),
             )
@@ -315,6 +338,38 @@ def kernel_cases(torch, shape_calls, drop_calls):
             )
         cases.append(("dropout_mask_apply", (BATCH, h, w, c), n, make,
                       lambda es, e=elems: 2 * e * es + 4, 20 * elems))
+    # the backward kernel at the step's gn_silu sites, then with the mask at
+    # its gn_silu_dropout sites
+    bwd_sites = [(hwc, n, False) for hwc, n in sorted(train_calls["gn_silu"].items())]
+    bwd_sites += [(hwc, n, True) for hwc, n in sorted(drop_calls.items())]
+    for (h, w, c), n, drop in bwd_sites:
+        def make(dt, h=h, w=w, c=c, drop=drop):
+            x = randn(BATCH, h, w, c, dtype=dt, scale=2.0, shift=0.3)
+            s = randn(c, scale=0.2, shift=1.0)
+            b = randn(c, scale=0.2)
+            # a cotangent that follows the output, so that the group means
+            # of dz * scale and dz * scale * xhat in dx are of dx's order
+            g = (G.gn_silu_plain(x, s, b).float() + randn(BATCH, h, w, c)).to(dt)
+            _, stats = G.gn_silu_cuda(x, s, b)
+            plain_stats = G.gn_stats_plain(x)
+            leaves = [t.detach().clone().to(dt).requires_grad_()
+                      for t in (x.permute(0, 3, 1, 2), s, b)]
+            lib_out = F.silu(F.group_norm(leaves[0], 8, leaves[1], leaves[2]))
+            if drop:
+                lib_out = F.dropout(lib_out, DROP_RATE, training=True)
+                kernel = lambda seed=seed: D.gn_silu_dropout_backward_cuda(  # noqa: E731
+                    x, g, s, b, stats, seed, DROP_RATE)
+                plain = lambda: D.gn_silu_dropout_backward_plain(  # noqa: E731
+                    x, g, s, b, plain_stats, seed, DROP_RATE)
+            else:
+                kernel = lambda: G.gn_silu_backward_cuda(x, g, s, b, stats)  # noqa: E731
+                plain = lambda: G.gn_silu_backward_plain(x, g, s, b, plain_stats)  # noqa: E731
+            g_cl = g.permute(0, 3, 1, 2)
+            return (kernel, plain,
+                    lambda: torch.autograd.grad(lib_out, leaves, g_cl, retain_graph=True))
+        elems = BATCH * h * w * c
+        cases.append(("gn_silu_backward", (BATCH, h, w, c), n, make,
+                      lambda es, e=elems, c=c: 3 * e * es + 16 * c + 8 * 8 * BATCH, 40 * elems))
     for (h, w, cin, cout), n in sorted(shape_calls["conv3x3"].items()):
         def make(dt, h=h, w=w, cin=cin, cout=cout):
             x = randn(BATCH, h, w, cin, dtype=dt)
@@ -397,7 +452,7 @@ def flash_cases(torch, randn):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
 
     cases = []
-    for shape in FLASH_FWD_SHAPES + (FLASH_XL_SHAPE,):
+    for shape in FLASH_FWD_SHAPES + (FLASH_XL_SHAPE,) + FLASH_ODD_SHAPES:
         b, t, h, d = shape
 
         def make(dt, shape=shape):
@@ -409,13 +464,14 @@ def flash_cases(torch, randn):
                 lambda: sdpa(q, k, v),
             )
         elems = b * t * h * d
-        calls = 0 if shape == FLASH_XL_SHAPE else {BATCH: DIT_DEPTH,
-                                                   LATENT["batch"]: 2 * DIT_DEPTH}.get(b, 0)
+        calls = 0 if d != DIT_HEAD_DIM else {BATCH: DIT_DEPTH,
+                                             LATENT["batch"]: 2 * DIT_DEPTH}.get(b, 0)
         cases.append(("flash_attention", shape, calls, make,
                       lambda es, e=elems, r=b * h * t: 4 * e * es + 4 * r,
                       flash_fwd_cost(shape)[1]))
 
-    for shape, calls in ((FLASH_BWD_SHAPE, DIT_DEPTH), (FLASH_XL_SHAPE, 0)):
+    for shape, calls in ((FLASH_BWD_SHAPE, DIT_DEPTH), (FLASH_XL_SHAPE, 0),
+                         *((odd, 0) for odd in FLASH_ODD_SHAPES)):
         def make(dt, shape=shape):
             b, t, h, d = shape
             q, k, v = randn(b, t, 3, h, d, dtype=dt).unbind(2)
@@ -533,11 +589,10 @@ def dropout_cases(torch, randn, seed):
     return cases
 
 
-def as_one(torch, out):
-    """A kernel's output as one fp32 tensor (the backward gives three)."""
-    if isinstance(out, (tuple, list)):
-        return torch.cat([t.float().reshape(-1) for t in out])
-    return out.float()
+def as_tuple(out):
+    """A kernel's outputs as a tuple (a GroupNorm forward gives two, a
+    backward three)."""
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
 def dropout_checks(torch, name, dname, shape, kernel, got, want) -> str:
@@ -556,34 +611,40 @@ def dropout_checks(torch, name, dname, shape, kernel, got, want) -> str:
     dropped = 1.0 - float(keep.float().mean())
     if abs(dropped - DROP_RATE) > DROP_FRACTION_TOL:
         fail(f"{name} {dname} {shape}: dropped fraction {dropped:.5f}, rate {DROP_RATE}")
-    if not torch.equal(kernel().float(), got):
+    if not torch.equal(as_tuple(kernel())[0].float(), got):
         fail(f"{name} {dname} {shape}: same seed, other output")
-    other = kernel(seed=seed + 1).float()
+    other = as_tuple(kernel(seed=seed + 1))[0].float()
     if torch.equal(other != 0, got != 0):
         fail(f"{name} {dname} {shape}: another seed gave the same mask")
     return f"mask = plain's, dropped {dropped:.5f}"
 
 
-def kernel_phase(torch, shape_calls, drop_calls):
+def kernel_phase(torch, shape_calls, train_calls):
     rows = []
-    for name, shape, count, make, bytes_fn, flops in kernel_cases(torch, shape_calls, drop_calls):
+    for name, shape, count, make, bytes_fn, flops in kernel_cases(torch, shape_calls, train_calls):
         for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             kernel, plain, library = make(dt)
-            got, want = as_one(torch, kernel()), as_one(torch, plain())
+            gots = [t.float() for t in as_tuple(kernel())]
+            wants = [t.float() for t in as_tuple(plain())]
             torch.cuda.synchronize()
-            if tuple(got.shape) != tuple(want.shape) or not torch.isfinite(got).all():
-                fail(f"{name} {dname} {shape}: bad shape or non-finite output")
+            for got, want in zip(gots, wants):
+                if tuple(got.shape) != tuple(want.shape) or not torch.isfinite(got).all():
+                    fail(f"{name} {dname} {shape}: bad shape or non-finite output")
             note = ""
             if name in ("gn_silu_dropout", "dropout_mask_apply", "dropout"):
-                note = " | " + dropout_checks(torch, name, dname, shape, kernel, got, want)
-            err = (got - want).abs()
+                note = " | " + dropout_checks(torch, name, dname, shape, kernel, gots[0], wants[0])
             rtol, atol = TOLERANCES[(name, dname)]
-            if name in SCALED_ATOL:
-                atol *= max(float(want.abs().max()), 1.0)
-            ok = bool((err <= atol + rtol * want.abs()).all())
-            max_abs = float(err.max())
-            max_rel = max_abs / max(float(want.abs().max()), 1e-30)
-            del err
+            ok, max_abs, max_rel = True, 0.0, 0.0
+            for i, (got, want) in enumerate(zip(gots, wants)):  # each against its own scale
+                err = (got - want).abs()
+                scale = float(want.abs().max())
+                rt, at = STATS_TOL if i == 1 and name in SAVES_STATS else (rtol, atol)
+                tol = at * max(scale, 1.0) if name in SCALED_ATOL else at
+                ok = ok and bool((err <= tol + rt * want.abs()).all())
+                max_abs = max(max_abs, float(err.max()))
+                max_rel = max(max_rel, float(err.max()) / max(scale, 1e-30))
+                del err
+            del gots, wants
             k_ms = time_ms(torch, kernel)
             p_ms = time_ms(torch, plain)
             l_ms = time_ms(torch, library)
@@ -606,7 +667,7 @@ def kernel_phase(torch, shape_calls, drop_calls):
                 f"{'ok' if ok else 'MISMATCH'} | kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
                 f"library {l_ms:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
                 + rate + note)
-            del kernel, plain, library, got, want
+            del kernel, plain, library
         torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -698,11 +759,11 @@ KERNEL_GROUPS = (
     ("flash_dq", "flash_attention backward (dq)"),
     ("flash_delta", "flash_attention backward (delta)"),
     ("conv3x3", "conv3x3"),
-    ("gn_apply_dropout", "gn_silu_dropout (apply)"),
+    ("gn_silu_dropout_fwd", "gn_silu_dropout"),
+    ("gn_silu_bwd", "gn_silu_backward"),
     ("dropout_kernel", "dropout"),
     ("dropout_mask_apply", "dropout_mask_apply"),
-    ("gn_stats", "gn statistics (gn_silu, gn_silu_dropout, attention_block)"),
-    ("gn_apply", "gn_silu (apply)"),
+    ("gn_silu_fwd", "gn_silu"),
     ("gn_norm", "attention_block"),
     ("attn_", "attention_block"),
     ("adam", "optimizer"),
@@ -774,7 +835,7 @@ def trace_phase(torch, svc) -> None:
 
 def gradient_phase(torch, build) -> None:
     """Loss and every parameter's gradient of the full-width UNet in fp32:
-    kernels forward and dropout_mask_apply backward on the card, against the
+    kernels forward and the gn_silu_backward kernel on the card, against the
     plain path on the CPU, on the same x1, x0, t and dropout seeds."""
     from rectified_flow_vision_tpu_torch.models import BaseFlowModel
 
@@ -977,8 +1038,11 @@ def dropout_phase(torch, build):
     ``ops.primitives.dropout``, forward and gradient, on tensors on the card.
     No model of either package calls it (the UNet's dropout is fused into
     ``gn_silu_dropout``, DiT has none), so this direct run is its path.
-    Returns its launch counts."""
+    The same for ``dropout_mask_apply`` (gn_silu_dropout's mask on a
+    cotangent), which the train step no longer runs: the backward kernel
+    applies the mask itself. Returns their launch counts."""
     from rectified_flow_vision_tpu_torch.ops import dropout as DR
+    from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as D
     from rectified_flow_vision_tpu_torch.ops import primitives as P
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -993,9 +1057,14 @@ def dropout_phase(torch, build):
             fail(f"dropout {shape}: the gradient is not the mask applied to the cotangent")
         if P.dropout(x, DROP_RATE, seed, train=False) is not x:
             fail("dropout in eval mode is not the identity")
+        if not torch.equal(D.dropout_mask_apply_cuda(g, seed, DROP_RATE),
+                           D.dropout_mask_apply_plain(g, seed, DROP_RATE)):
+            fail(f"dropout_mask_apply {shape}: not the plain version's result")
     launches = dict(build.LAUNCHES)
-    expect = all_counts(build, dropout=2 * len(DROPOUT_SHAPES))
-    log(f"dropout: P.dropout forward and gradient at {DROPOUT_SHAPES}: launches {nonzero(launches)}")
+    expect = all_counts(build, dropout=2 * len(DROPOUT_SHAPES),
+                        dropout_mask_apply=len(DROPOUT_SHAPES))
+    log(f"dropout: P.dropout forward and gradient, dropout_mask_apply at {DROPOUT_SHAPES}: "
+        f"launches {nonzero(launches)}")
     if launches != expect:
         fail(f"dropout launches {launches}, expected {expect}")
     return launches
@@ -1397,12 +1466,14 @@ def main() -> None:
     per_forward = {k: sum(v.values()) for k, v in shape_calls.items()}
     train_calls = record_main_path_shapes(torch, UNet, fused_mod, train=True)
     per_train = {k: sum(v.values()) for k, v in train_calls.items()}
-    per_train["dropout_mask_apply"] = per_train["gn_silu_dropout"]  # one per site, backward
-    if {**per_forward, "dropout_mask_apply": 0} != EVAL_FORWARD_LAUNCHES:
+    # one backward kernel per GroupNorm site; the mask is applied inside it
+    per_train["gn_silu_backward"] = per_train["gn_silu"] + per_train["gn_silu_dropout"]
+    per_train["dropout_mask_apply"] = 0
+    if {**per_forward, "gn_silu_backward": 0, "dropout_mask_apply": 0} != EVAL_FORWARD_LAUNCHES:
         fail(f"flagship eval forward calls {per_forward}, expected {EVAL_FORWARD_LAUNCHES}")
     if per_train != TRAIN_STEP_LAUNCHES:
         fail(f"flagship train step calls {per_train}, expected {TRAIN_STEP_LAUNCHES}")
-    rows = kernel_phase(torch, shape_calls, train_calls["gn_silu_dropout"])
+    rows = kernel_phase(torch, shape_calls, train_calls)
     flash_breakdown(torch)
     model_phase(torch, UNet)
     serve_launches, svc = serve_phase(torch, build)
@@ -1437,8 +1508,16 @@ def main() -> None:
                             per_forward["attention_block"], None),
         "gn_silu_dropout": (csrc + "gn_silu_dropout.cu", pallas + ":358", unet_step,
                             per_train["gn_silu_dropout"], None),
-        "dropout_mask_apply": (csrc + "gn_silu_dropout.cu", pallas + ":387", unet_step,
-                               per_train["dropout_mask_apply"], None),
+        "gn_silu_backward": (csrc + "gn_silu.cu",
+                             "rectified_flow_vision_tpu/ops/fused.py:84 (_gn_silu_bwd; "
+                             ":267 _gsd_bwd), the VJP of " + pallas + ":100 and :358",
+                             unet_step, per_train["gn_silu_backward"], None),
+        "dropout_mask_apply": (
+            csrc + "gn_silu_dropout.cu", pallas + ":387",
+            "one call at each of a UNet train step's 14 dropout sites at batch 256 (no longer on "
+            "the step: gn_silu_backward applies the mask); its launches are those of "
+            "dropout_mask_apply driven directly", sum(train_calls["gn_silu_dropout"].values()),
+            None),
         "flash_attention": (
             csrc + "flash_attention.cu", "rectified_flow_vision_tpu/models/dit.py:127",
             "one DiT-S/2 forward at batch 256, 1024 tokens: its 12 calls", DIT_DEPTH,

@@ -5,8 +5,8 @@ Replaces the Pallas TPU kernel ``rectified_flow_vision_tpu/ops/pallas_kernels.py
 multi-head softmax(QK^T / sqrt(d)) V with an fp32 softmax -> proj -> +x.
 Bound on the H100: operations (51.5 GFLOP at the flagship's (256, 16, 16,
 256), 0.052 ms at 989 TFLOP/s). One image's qkv does not fit a block's
-shared memory, so ``csrc/attention.cu`` is five launches over all B*N rows:
-GroupNorm (gn_silu's statistics pass and its apply pass without the SiLU),
+shared memory, so ``csrc/attention.cu`` is four launches over all B*N rows:
+GroupNorm (gn_silu's one-pass cluster kernel without the SiLU),
 the qkv projection on the conv's ``wgmma`` + TMA kernel as a one-tap conv, a
 flash-style key loop on the tensor cores (online fp32 softmax, q, k, v read
 in place from qkv, nothing of size N^2 stored, so any number of tokens), and
@@ -99,7 +99,6 @@ def attention_block_cuda(
     build.require(w_proj, "w_proj", device=dev, dtype=dt, shape=(c, c))
     build.require(b_proj, "b_proj", device=dev, dtype=f32, shape=(c,))
     lib = build.library()
-    part = torch.empty((lib.rfv_gn_silu_workspace(b, n, num_groups), 2), device=dev, dtype=f32)
     qkv = torch.empty((b, n, 3 * c), device=dev, dtype=dt)
     att = torch.empty((b, n, c), device=dev, dtype=dt)
     out = torch.empty_like(x)
@@ -108,7 +107,7 @@ def attention_block_cuda(
     rc = lib.rfv_attention_block(
         x.data_ptr(), norm_scale.data_ptr(), norm_bias.data_ptr(),
         w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(),
-        part.data_ptr(), qkv.data_ptr(), att.data_ptr(), out.data_ptr(),
+        qkv.data_ptr(), att.data_ptr(), out.data_ptr(),
         b, h, w, c, num_heads, num_groups, 1e-5,
         t_qkv["bn"], t_qkv["stages"], t_qkv["hb"], t_proj["bn"], t_proj["stages"], t_proj["hb"],
         t_qkv["wb"],

@@ -46,6 +46,7 @@ LAUNCHES: Dict[str, int] = {
     "conv3x3": 0,
     "attention_block": 0,
     "gn_silu_dropout": 0,
+    "gn_silu_backward": 0,
     "dropout_mask_apply": 0,
     "flash_attention": 0,
     "flash_attention_backward": 0,
@@ -57,14 +58,16 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U, _L = ctypes.c_uint32, ctypes.c_longlong
 _SIGNATURES = {
-    "rfv_gn_silu_workspace": [_I, _I, _I],
     "rfv_gn_silu": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "rfv_gn_silu_backward": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _F, _I, _P,
+    ],
     "rfv_gn_silu_dropout": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _U, _F, _I, _P],
     "rfv_dropout_mask_apply": [_P, _P, _P, _I, _L, _U, _F, _I, _P],
     "rfv_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rfv_conv3x3_smem": [_I, _I],
     "rfv_attention_block": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     "rfv_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _F, _I, _P],

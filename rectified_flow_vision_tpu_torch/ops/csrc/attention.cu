@@ -10,16 +10,16 @@
 // tokens, C = 256, 4 heads of d = 64) the block does 51.5 GFLOP (0.052 ms at
 // 989 TFLOP/s) over ~67 MB that must be read and written once.
 //
-// Five launches over the flattened rows M = B*N:
-//   1, 2. GroupNorm: gn_silu's statistics pass over (image, 128-pixel slice)
-//      partials and its apply pass without the SiLU (gn_silu.cuh), writing
-//      the normalised x rounded to the working dtype (into `att`, which is
-//      free until step 4);
-//   3. qkv = xn W_qkv^T + b on conv3x3.cu's wgmma + TMA kernel as a one-tap
+// Four launches over the flattened rows M = B*N:
+//   1. GroupNorm: gn_silu's one-pass cluster kernel without the SiLU
+//      (gn_silu.cuh; exact two-pass statistics over the image held in shared
+//      memory), writing the normalised x rounded to the working dtype (into
+//      `att`, which is free until step 3);
+//   2. qkv = xn W_qkv^T + b on conv3x3.cu's wgmma + TMA kernel as a one-tap
 //      conv over the image (block tile 128 pixels x up to 256 of the 3C
 //      outputs, persistent, warp-specialised), rounded: qkv [B, N, 3C], a
 //      [B, N, 3, heads, d] view, the layout DiT hands the flash kernel;
-//   4. the core, a flash-style key loop: one block per (64 queries, head,
+//   3. the core, a flash-style key loop: one block per (64 queries, head,
 //      image), four warps of 16 query rows on mma.sync m16n8k16; q, k and v
 //      are read in place as strided views of qkv, 64-key tiles
 //      double-buffered with cp.async; logits, the running maximum and sum
@@ -30,7 +30,7 @@
 //      stored, and head widths below the tile's (32, 64 or 128) are
 //      zero-padded in shared memory. The mma.sync helpers are the flash
 //      kernel's (mma.cuh);
-//   5. proj on the same wgmma kernel, its epilogue adding the bias,
+//   4. proj on the same wgmma kernel, its epilogue adding the bias,
 //      rounding, adding the residual x in fp32 and rounding.
 // The rounding points are those of P.spatial_attention, except that the core
 // rounds unnormalised probabilities (as the flash kernel does).
@@ -457,7 +457,7 @@ int linear_f32(const void* a, const void* w, const void* bias, const void* resid
 
 // x, out: [B, H, W, C]; wqkv: [3C, C]; wproj: [C, C] (torch Linear layouts),
 // all contiguous in `dtype`; gscale, gbias: [C], bqkv: [3C], bproj: [C]
-// float32; part: rfv_gn_silu_workspace(B, H * W, G) float2; qkv: [B, H*W, 3C]
+// float32; qkv: [B, H*W, 3C]
 // and att: [B, H*W, C] workspaces in `dtype` (att first holds the normalised
 // x). bf16: the tiling of the two projections (ops/conv3x3.py tile_config
 // for C -> 3C and C -> C: bn, stages and box rows hb of each; the box
@@ -465,7 +465,7 @@ int linear_f32(const void* a, const void* w, const void* bias, const void* resid
 // heads == 0, C / heads <= 128, and for bf16 C % 8 == 0. Any H * W >= 1.
 extern "C" int rfv_attention_block(const void* x, const void* gscale, const void* gbias,
                                    const void* wqkv, const void* bqkv, const void* wproj,
-                                   const void* bproj, void* part, void* qkv, void* att, void* out,
+                                   const void* bproj, void* qkv, void* att, void* out,
                                    int B, int H, int W, int C, int heads, int G, float eps,
                                    int qkv_bn, int qkv_stages, int qkv_hb, int proj_bn,
                                    int proj_stages, int proj_hb, int wb, int dtype,
@@ -474,16 +474,16 @@ extern "C" int rfv_attention_block(const void* x, const void* gscale, const void
   const int N = H * W, M = B * N, d = C / heads;
   const bool bf = dtype == RFV_DTYPE_BF16;
   if (d > 128 || (bf && C % 8)) return (int)cudaErrorInvalidValue;
-  // 1, 2: the GroupNorm statistics and the normalised x, rounded, into att
-  int e = rfv_gn::launch_dtype<false, false>(x, gscale, gbias, part, att, B, N, C, G, eps,
-                                             rfv_gn::Dropout{}, dtype, st);
+  // 1: the GroupNorm and the normalised x, rounded, into att
+  int e = rfv_gn::forward_dtype<false, false>(x, gscale, gbias, nullptr, att, B, N, C, G, eps,
+                                              rfv_gn::Dropout{}, dtype, st);
   if (e) return e;
-  // 3: qkv = T(xn W_qkv^T + b)
+  // 2: qkv = T(xn W_qkv^T + b)
   e = bf ? rfv_conv::launch_bf16(att, wqkv, bqkv, nullptr, qkv, B, H, W, C, 3 * C, 1, qkv_bn,
                                  qkv_stages, wb, qkv_hb, st)
          : linear_f32<false>(att, wqkv, bqkv, nullptr, qkv, M, C, 3 * C, st);
   if (e) return e;
-  // 4: the core, qkv -> att
+  // 3: the core, qkv -> att
   if (d <= 32)
     e = launch_core<32>(qkv, att, B, N, C, heads, d, bf, st);
   else if (d <= 64)
@@ -491,7 +491,7 @@ extern "C" int rfv_attention_block(const void* x, const void* gscale, const void
   else
     e = launch_core<128>(qkv, att, B, N, C, heads, d, bf, st);
   if (e) return e;
-  // 5: out = T(x + T(att W_proj^T + b))
+  // 4: out = T(x + T(att W_proj^T + b))
   return bf ? rfv_conv::launch_bf16(att, wproj, bproj, x, out, B, H, W, C, C, 1, proj_bn,
                                     proj_stages, wb, proj_hb, st)
             : linear_f32<true>(att, wproj, bproj, x, out, M, C, C, st);

@@ -19,7 +19,9 @@
 // projection are read in place. o and d_out are contiguous [B, T, H, D];
 // lse and delta are fp32 [B, H, T]; dq, dk and dv share a second set of
 // strides (the backward writes them into one [B, T, 3, H, D] buffer). The
-// head width D is a multiple of 8 from 8 to 128.
+// head width D is a multiple of 8 from 8 to 128 here; other widths reach
+// these kernels zero-padded by the wrapper (ops/flash_attention.py), and
+// widths above 128 take the chunked fp32 kernels of flash_attention_f32.cu.
 //
 // bfloat16: persistent, warp-specialised, wgmma + TMA (the design of
 // conv3x3.cu).
@@ -723,7 +725,8 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
 
 // delta[b, h, t] = sum_d d_out[b, t, h, d] * o[b, t, h, d] over the contiguous
 // rows (b, t, h) of D elements: `lanes` neighbouring threads per row (a power
-// of two with 8 lanes >= D), 8 elements a thread, reduced by shuffles.
+// of two with 8 lanes >= D, at most a warp's 32), 8 elements a thread at a
+// time, reduced by shuffles.
 template <typename T>
 __global__ void __launch_bounds__(256)
     flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ d_out,
@@ -733,12 +736,14 @@ __global__ void __launch_bounds__(256)
   const long long row = idx / lanes;
   const int part = (int)(idx % lanes);
   float sum = 0.f;
-  if (row < rows && 8 * part < D) {
-    float a[8], g[8];
-    load8(o + row * D + 8 * part, a);
-    load8(d_out + row * D + 8 * part, g);
+  if (row < rows) {
+    for (int c = 8 * part; c < D; c += 8 * lanes) {
+      float a[8], g[8];
+      load8(o + row * D + c, a);
+      load8(d_out + row * D + c, g);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sum = fmaf(a[e], g[e], sum);
+      for (int e = 0; e < 8; ++e) sum = fmaf(a[e], g[e], sum);
+    }
   }
   for (int off = lanes >> 1; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (part == 0 && row < rows) {
@@ -755,7 +760,7 @@ int launch_delta(const void* o, const void* d_out, float* delta, int B, int Tn, 
                  cudaStream_t stream) {
   const long long rows = (long long)B * Tn * H;
   int lanes = 1;
-  while (8 * lanes < D) lanes <<= 1;
+  while (8 * lanes < D && lanes < 32) lanes <<= 1;
   const long long threads = rows * lanes;
   flash_delta_kernel<T><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(d_out), delta, rows, Tn, H, D, lanes);
@@ -846,9 +851,11 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* d_out, con
 // q, k, v: [B, T, H, D] in `dtype` with element strides (sb, st, sh) and a
 // contiguous last axis; o: [B, T, H, D] contiguous; lse: [B, H, T] float32.
 // dp: the width the kernels are compiled for, as ops/flash_attention.py
-// kernel_head_dim gives it (bf16: 64 or 128; fp32: D rounded up to 16).
-// Requires T % 128 == 0, D % 8 == 0, 8 <= D <= dp <= 128, B, H <= 65535,
-// 16-byte aligned rows.
+// kernel_head_dim gives it (bf16: 64 or 128; fp32: D rounded up to 16; any
+// D > 128: fp32 only, D rounded up to 64, the chunked *_wide kernels).
+// Requires T % 128 == 0, D % 8 == 0, 8 <= D <= dp, B, H <= 65535, 16-byte
+// aligned rows. scale is the caller's (1/sqrt of the head width before any
+// zero columns were added).
 extern "C" int rfv_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                        void* lse, int B, int T, int H, int D, int dp, long long sb,
                                        long long st, long long sh, float scale, int dtype,
@@ -856,6 +863,12 @@ extern "C" int rfv_flash_attention_fwd(const void* q, const void* k, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (T % 128 || D % 8 || D < 8 || D > dp) return (int)cudaErrorInvalidValue;
+  if (dp > 128) {
+    if (dtype != RFV_DTYPE_F32) return (int)cudaErrorInvalidValue;
+    return rfv_flash::fwd_f32_wide(static_cast<const float*>(q), static_cast<const float*>(k),
+                                   static_cast<const float*>(v), static_cast<float*>(o), l, B, T,
+                                   H, D, sb, st, sh, scale, s);
+  }
   if (dtype == RFV_DTYPE_F32)
     return rfv_flash::fwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                               static_cast<const float*>(v), static_cast<float*>(o), l, B, T, H, D,
@@ -878,9 +891,17 @@ extern "C" int rfv_flash_attention_bwd(const void* q, const void* k, const void*
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (T % 128 || D % 8 || D < 8 || D > dp) return (int)cudaErrorInvalidValue;
+  if (dp > 128 && dtype != RFV_DTYPE_F32) return (int)cudaErrorInvalidValue;
   if (dtype == RFV_DTYPE_F32) {
     const int e = launch_delta<float>(o, d_out, dl, B, T, H, D, s);
     if (e) return e;
+    if (dp > 128)
+      return rfv_flash::bwd_f32_wide(static_cast<const float*>(q), static_cast<const float*>(k),
+                                     static_cast<const float*>(v),
+                                     static_cast<const float*>(d_out), l, dl,
+                                     static_cast<float*>(dq), static_cast<float*>(dk),
+                                     static_cast<float*>(dv), B, T, H, D, sb, st, sh, gb, gt, gh,
+                                     scale, s);
     return rfv_flash::bwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                               static_cast<const float*>(v), static_cast<const float*>(d_out), l,
                               dl, static_cast<float*>(dq), static_cast<float*>(dk),

@@ -19,4 +19,15 @@ int bwd_f32(const float* q, const float* k, const float* v, const float* d_out, 
             int dp, long long sb, long long st, long long sh, long long gb, long long gt,
             long long gh, float scale, cudaStream_t stream);
 
+// Any D > 128 (a multiple of 8), fp32, in 64-column chunks: the *_wide
+// kernels of flash_attention_f32.cu, with the layouts above.
+int fwd_f32_wide(const float* q, const float* k, const float* v, float* o, float* lse, int B,
+                 int T, int H, int D, long long sb, long long st, long long sh, float scale,
+                 cudaStream_t stream);
+
+int bwd_f32_wide(const float* q, const float* k, const float* v, const float* d_out,
+                 const float* lse, const float* delta, float* dq, float* dk, float* dv, int B,
+                 int T, int H, int D, long long sb, long long st, long long sh, long long gb,
+                 long long gt, long long gh, float scale, cudaStream_t stream);
+
 }  // namespace rfv_flash

@@ -7,11 +7,14 @@
 // generator, seeded per image.
 //
 // Bound on the H100: bytes, for both. gn_silu_dropout reads x and writes y
-// like gn_silu (gn_silu.cu; the same statistics pass, the same apply pass with
-// the mask folded in before the one rounding). dropout_mask_apply reads g and
-// writes g * mask / keep. A mask tensor is never written or read: the bits are
-// Philox4x32-10 of (seed, image, element) (common.cuh), about fifteen integer
-// operations per element, which both passes recompute.
+// like gn_silu (gn_silu.cu: the same one-pass cluster kernel, with the mask
+// folded in before the one rounding); its backward is gn_silu.cu's
+// rfv_gn_silu_backward with a seed, which regenerates the mask from the
+// cotangent's element index. dropout_mask_apply reads g and writes
+// g * mask / keep: the backward no longer needs it, it stays for any caller
+// that holds a cotangent apart from x. A mask tensor is never written or
+// read: the bits are Philox4x32-10 of (seed, image, element) (common.cuh),
+// about fifteen integer operations per element, which every pass recomputes.
 //
 // The TPU's bits cannot be replayed, so parity with the JAX package is by
 // contract: the same seed and shape give the same mask in the forward, in
@@ -65,12 +68,12 @@ int mask_launch_widest(const void* g, const void* seed, void* out, int B, long l
 // an element is kept where its bits < thresh and scaled by inv_keep.
 // Requires HW * C < 2^32 as well.
 extern "C" int rfv_gn_silu_dropout(const void* x, const void* scale, const void* bias,
-                                   const void* seed, void* part, void* y, int B, int HW, int C,
+                                   const void* seed, void* stats, void* y, int B, int HW, int C,
                                    int G, float eps, unsigned thresh, float inv_keep, int dtype,
                                    void* stream) {
   const rfv_gn::Dropout drop{static_cast<const int*>(seed), thresh, inv_keep};
-  return rfv_gn::launch_dtype<true>(x, scale, bias, part, y, B, HW, C, G, eps, drop, dtype,
-                                    static_cast<cudaStream_t>(stream));
+  return rfv_gn::forward_dtype<true, true>(x, scale, bias, stats, y, B, HW, C, G, eps, drop,
+                                           dtype, static_cast<cudaStream_t>(stream));
 }
 
 // g, out: [B, n] contiguous, dtype per `dtype`; n < 2^32 elements an image,

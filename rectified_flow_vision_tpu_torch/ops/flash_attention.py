@@ -7,11 +7,19 @@ non-causal multi-head attention over q, k, v ``[B, T, H, D]``, scale
 1/sqrt(D), fp32 softmax. Bound by operations on the H100
 (``csrc/flash_attention.cu``); nothing of size T^2 reaches device memory.
 
-Head widths: every D with D % 8 == 0 and 8 <= D <= 128 (DiT-S, B and L give
-64, XL 72). ``kernel_head_dim`` gives the width the kernels are compiled for
-that takes D: the bf16 kernels pad D in shared memory to 64 or 128 (one or
-two 128-byte TMA boxes, columns past D zero-filled), the fp32 kernels to the
-next multiple of 16.
+Head widths: every D >= 1, as the JAX ``_attention``. D % 8 == 0 from 8 to
+128 is read in place (DiT-S, B and L give 64, XL 72). Any other D up to 128
+is zero-padded in the head axis, in one copy of q, k and v, to the next
+multiple of 8 (``padded_head_dim``; a TMA box cannot hold a bf16 row of 24
+bytes), and the kernels run at scale 1/sqrt(D) of the true D: zero columns
+add nothing to Q K^T, dP or delta and give zero output columns, which are
+sliced off. Widths above 128 (padded to a multiple of 8 where needed) take
+the chunked fp32 kernels, which sum the logits over 64-column chunks of D;
+bf16 inputs go through them on fp32 copies. ``kernel_head_dim`` gives the
+width the kernels are compiled for: the bf16 kernels pad D in shared memory
+to 64 or 128 (one or two 128-byte TMA boxes, columns past D zero-filled),
+the fp32 kernels to the next multiple of 16, the chunked ones to a multiple
+of 64.
 
 ``use_flash`` is the JAX package's rule on shape (``dit.py:131-135``): the
 kernel where T >= 1024 and T % 128 == 0, below that the plain attention that
@@ -33,9 +41,10 @@ where the kernels feed them to the next product.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from rectified_flow_vision_tpu_torch.ops import build
 
@@ -44,7 +53,8 @@ Tensor = torch.Tensor
 FLASH_MIN_SEQ = 1024  # the JAX package's _FLASH_MIN_SEQ
 FLASH_SEQ_MULTIPLE = 128  # its smallest valid block (_flash_block_sizes)
 KERNEL_TILE = 128  # the kernels take T in multiples of their 128-row blocks
-HEAD_DIM_MIN, HEAD_DIM_MAX = 8, 128  # D a multiple of 8 in this range
+HEAD_DIM_MAX = 128  # the widest head of the bf16 and fp32 kernels; wider: chunked fp32
+HEAD_DIM_CHUNK = 64  # the chunked kernels' column chunk
 
 
 def use_flash(t: int) -> bool:
@@ -52,42 +62,55 @@ def use_flash(t: int) -> bool:
     return t >= FLASH_MIN_SEQ and t % FLASH_SEQ_MULTIPLE == 0
 
 
+def padded_head_dim(d: int) -> int:
+    """The width q, k and v reach the kernels at: D itself where it is a
+    multiple of 8 (16-byte rows), else D zero-padded to the next one."""
+    if d < 1:
+        raise ValueError(f"head dimension {d} not supported: the flash kernels take D >= 1")
+    return -(-d // 8) * 8
+
+
 def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
-    """The head width the kernels are compiled for that takes D = ``d``:
-    bf16 64 (d <= 64) or 128, fp32 ``d`` rounded up to a multiple of 16.
-    Raises for a width the kernels do not take."""
-    if d % 8 or not HEAD_DIM_MIN <= d <= HEAD_DIM_MAX:
-        raise ValueError(
-            f"head dimension {d} not supported: the flash kernels take D a multiple of 8 "
-            f"from {HEAD_DIM_MIN} to {HEAD_DIM_MAX} (DiT-S, B and L give 64, XL 72)"
-        )
+    """The head width the kernels are compiled for that takes D = ``d``
+    (after ``padded_head_dim``): bf16 64 or 128, fp32 a multiple of 16, and
+    above 128 a multiple of 64 (the chunked fp32 kernels, for both dtypes).
+    Raises only for d < 1."""
+    dk = padded_head_dim(d)
+    if dk > HEAD_DIM_MAX:
+        return -(-dk // HEAD_DIM_CHUNK) * HEAD_DIM_CHUNK
     if dtype == torch.bfloat16:
-        return 64 if d <= 64 else 128
-    return -(-d // 16) * 16
+        return 64 if dk <= 64 else 128
+    return -(-dk // 16) * 16
 
 
-def _logits(q: Tensor, k: Tensor) -> Tensor:
+def _scale(q: Tensor, scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def _logits(q: Tensor, k: Tensor, scale: Optional[float] = None) -> Tensor:
     """fp32 logits [B, H, T, S] of [B, T, H, D] q and [B, S, H, D] k, scaled."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    return torch.matmul(q.float().transpose(1, 2), k.float().permute(0, 2, 3, 1)) * scale
+    return torch.matmul(q.float().transpose(1, 2), k.float().permute(0, 2, 3, 1)) * _scale(q, scale)
 
 
-def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
-    """softmax(q k^T / sqrt(D)) v over [B, T, H, D] in plain PyTorch: fp32
-    logits and softmax, probabilities rounded to q's dtype, P V accumulated in
-    fp32, one rounding of the result."""
-    attn = torch.softmax(_logits(q, k), dim=-1).to(q.dtype)
+def flash_attention_plain(
+    q: Tensor, k: Tensor, v: Tensor, *, scale: Optional[float] = None
+) -> Tensor:
+    """softmax(q k^T * scale) v over [B, T, H, D] in plain PyTorch (scale
+    1/sqrt(D) unless given): fp32 logits and softmax, probabilities rounded to
+    q's dtype, P V accumulated in fp32, one rounding of the result."""
+    attn = torch.softmax(_logits(q, k, scale), dim=-1).to(q.dtype)
     out = torch.matmul(attn.float(), v.float().transpose(1, 2))  # [B, H, T, D]
     return out.transpose(1, 2).to(q.dtype)
 
 
-def flash_attention_lse_plain(q: Tensor, k: Tensor) -> Tensor:
+def flash_attention_lse_plain(q: Tensor, k: Tensor, *, scale: Optional[float] = None) -> Tensor:
     """The per-row log-sum-exp of the scaled logits, fp32 [B, H, T]."""
-    return torch.logsumexp(_logits(q, k), dim=-1)
+    return torch.logsumexp(_logits(q, k, scale), dim=-1)
 
 
 def flash_attention_backward_plain(
-    q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, d_out: Tensor
+    q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, d_out: Tensor,
+    *, scale: Optional[float] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """(dq, dk, dv) by the backward kernels' formulas, in plain PyTorch.
 
@@ -96,8 +119,8 @@ def flash_attention_backward_plain(
     products that consume them, as the bf16 kernels must.
     """
     dt = q.dtype
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    p = torch.exp(_logits(q, k) - lse[..., None])  # [B, H, T, S]
+    scale = _scale(q, scale)
+    p = torch.exp(_logits(q, k, scale) - lse[..., None])  # [B, H, T, S]
     go = d_out.float().transpose(1, 2)  # [B, H, T, D]
     delta = (go * out.float().transpose(1, 2)).sum(dim=-1, keepdim=True)
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), go)  # [B, H, S, D]
@@ -150,21 +173,45 @@ def _shared_strides(q: Tensor, k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor, Te
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
+def _widen(ts: Sequence[Tensor], dk: int, dtype: torch.dtype) -> Tuple[Tensor, ...]:
+    """[B, T, H, D] tensors as the slices of one zero-padded [B, T, n, H, dk]
+    buffer in ``dtype`` (one copy each)."""
+    b, t, h, d = ts[0].shape
+    buf = torch.zeros((b, t, len(ts), h, dk), device=ts[0].device, dtype=dtype)
+    for i, x in enumerate(ts):
+        buf[:, :, i, :, :d] = x
+    return buf.unbind(2)
+
+
+def _kernel_inputs(q, k, v, d: int, dp: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """q, k, v at the width and dtype the kernels take: in place where D is a
+    multiple of 8 in the kernels' own dtype, else one padded copy."""
+    dk = padded_head_dim(d)
+    work = torch.float32 if dp > HEAD_DIM_MAX else q.dtype  # the chunked kernels are fp32
+    if dk == d and work == q.dtype:
+        return _shared_strides(q, k, v)
+    return _widen((q, k, v), dk, work)
+
+
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
     """Launch the forward kernel: (out [B, T, H, D] contiguous in q's dtype,
     lse [B, H, T] fp32)."""
     b, t, h, d, dp = _check(q, k, v, "flash_attention")
-    q, k, v = _shared_strides(q, k, v)
-    out = torch.empty((b, t, h, d), device=q.device, dtype=q.dtype)
+    dtype = q.dtype
+    q, k, v = _kernel_inputs(q, k, v, d, dp)
+    dk = q.shape[-1]
+    out = torch.empty((b, t, h, dk), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
     sb, st, sh, _ = q.stride()
     rc = build.library().rfv_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, t, h, d, dp, sb, st, sh, 1.0 / math.sqrt(d), build.DTYPE_CODES[q.dtype],
+        b, t, h, dk, dp, sb, st, sh, 1.0 / math.sqrt(d), build.DTYPE_CODES[q.dtype],
         build.stream_ptr(q),
     )
     build.check(rc, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
+    if dk != d or out.dtype != dtype:
+        out = out[..., :d].to(dtype).contiguous()
     return out, lse
 
 
@@ -174,22 +221,28 @@ def flash_attention_backward_cuda(
     """Launch the backward kernels (delta, dkv, dq): (dq, dk, dv), the three
     slices of one new [B, T, 3, H, D] buffer."""
     b, t, h, d, dp = _check(q, k, v, "flash_attention_backward")
-    q, k, v = _shared_strides(q, k, v)
-    build.require(out, "out", device=q.device, dtype=q.dtype, shape=(b, t, h, d))
+    dtype = q.dtype
+    build.require(out, "out", device=q.device, dtype=dtype, shape=(b, t, h, d))
     build.require(lse, "lse", device=q.device, dtype=torch.float32, shape=(b, h, t))
     d_out = d_out.contiguous()
-    build.require(d_out, "d_out", device=q.device, dtype=q.dtype, shape=(b, t, h, d))
-    grads = torch.empty((b, t, 3, h, d), device=q.device, dtype=q.dtype)
-    dq, dk, dv = grads.unbind(2)
+    build.require(d_out, "d_out", device=q.device, dtype=dtype, shape=(b, t, h, d))
+    q, k, v = _kernel_inputs(q, k, v, d, dp)
+    dk = q.shape[-1]
+    if dk != d or q.dtype != dtype:  # contiguous [B, T, H, dk] each
+        out, d_out = (F.pad(x.to(q.dtype), (0, dk - d)) for x in (out, d_out))
+    grads = torch.empty((b, t, 3, h, dk), device=q.device, dtype=q.dtype)
+    g_q, g_k, g_v = grads.unbind(2)
     delta = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
     sb, st, sh, _ = q.stride()
-    gb, gt, gh, _ = dq.stride()
+    gb, gt, gh, _ = g_q.stride()
     rc = build.library().rfv_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, t, h, d, dp, sb, st, sh, gb, gt, gh, 1.0 / math.sqrt(d), build.DTYPE_CODES[q.dtype],
+        lse.data_ptr(), delta.data_ptr(), g_q.data_ptr(), g_k.data_ptr(), g_v.data_ptr(),
+        b, t, h, dk, dp, sb, st, sh, gb, gt, gh, 1.0 / math.sqrt(d), build.DTYPE_CODES[q.dtype],
         build.stream_ptr(q),
     )
     build.check(rc, "flash_attention_backward")
     build.LAUNCHES["flash_attention_backward"] += 1
-    return dq, dk, dv
+    if dk != d or grads.dtype != dtype:
+        grads = grads[..., :d].to(dtype).contiguous()
+    return grads.unbind(2)

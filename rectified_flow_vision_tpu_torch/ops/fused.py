@@ -8,19 +8,20 @@ when a build or a launch fails. The one exception is the conv's contract: a
 conv outside ``conv3x3.supports`` (not 3x3/stride 1, or channels not
 multiples of 64) is the plain conv on every device, as in the JAX package.
 
-On a CUDA tensor each kernel runs inside a ``torch.autograd.Function``. As in
-the JAX package's custom VJPs, the forward launches the kernel and saves its
-inputs, and the backward recomputes the plain version on those inputs and
-differentiates it; ``gn_silu_dropout``'s backward first regenerates the mask
-from the saved seed with the ``dropout_mask_apply`` kernel, so no mask tensor
-is ever kept.
-
-Flash attention and the standalone dropout have hand-written backwards, as
-their TPU counterparts do: flash attention saves q, k, v, its output and the
-per-row log-sum-exp and launches the dq and dkv kernels; dropout's gradient
-is the dropout kernel applied to the cotangent with the saved seed. Flash
-attention has the JAX package's rule on shape besides (``FA.use_flash``):
-short sequences take the plain attention on every device, as there.
+On a CUDA tensor each kernel runs inside a ``torch.autograd.Function``.
+The GroupNorm kernels, flash attention and the standalone dropout have
+hand-written backwards. ``gn_silu`` and ``gn_silu_dropout`` save x and each
+(image, group)'s mean and 1/sigma and launch the ``gn_silu_backward`` kernel
+(the port's counterpart of the JAX package's fused XLA VJP), which for the
+dropout variant regenerates the mask from the saved seed, so no mask tensor
+is ever kept. Flash attention, as its TPU counterpart, saves q, k, v, its
+output and the per-row log-sum-exp and launches the dq and dkv kernels;
+dropout's gradient is the dropout kernel applied to the cotangent with the
+saved seed. The conv and the attention block, as in the JAX package's custom
+VJPs, save their inputs and differentiate the plain version in the backward.
+Flash attention has the JAX package's rule on shape besides
+(``FA.use_flash``): short sequences take the plain attention on every
+device, as there.
 """
 
 from __future__ import annotations
@@ -57,40 +58,40 @@ def _plain_grads(
     return tuple(next(grads) if need else None for need in needed)
 
 
+def _gn_grads(ctx, grads):
+    """The GroupNorm backward's (dx, dscale, dbias), None where not needed."""
+    return tuple(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad[:3]))
+
+
 class _GnSilu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups):
-        ctx.save_for_backward(x, scale, bias)
+        out, stats = G.gn_silu_cuda(x, scale, bias, num_groups=num_groups)
+        ctx.save_for_backward(x, scale, bias, stats)
         ctx.num_groups = num_groups
-        return G.gn_silu_cuda(x, scale, bias, num_groups=num_groups)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        def plain(x, s, b):
-            return G.gn_silu_plain(x, s, b, num_groups=ctx.num_groups)
-
-        return (*_plain_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[:3], g), None)
+        x, scale, bias, stats = ctx.saved_tensors
+        grads = G.gn_silu_backward_cuda(x, g, scale, bias, stats, num_groups=ctx.num_groups)
+        return (*_gn_grads(ctx, grads), None)
 
 
 class _GnSiluDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, seed, rate, num_groups):
-        ctx.save_for_backward(x, scale, bias, seed)
+        out, stats = D.gn_silu_dropout_cuda(x, scale, bias, seed, rate, num_groups=num_groups)
+        ctx.save_for_backward(x, scale, bias, stats, seed)
         ctx.rate, ctx.num_groups = rate, num_groups
-        return D.gn_silu_dropout_cuda(x, scale, bias, seed, rate, num_groups=num_groups)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        x, scale, bias, seed = ctx.saved_tensors
-        # the mask is regenerated from the seed, then the masked cotangent
-        # flows through the plain gn_silu gradient
-        gm = D.dropout_mask_apply_cuda(g.contiguous(), seed, ctx.rate)
-
-        def plain(x_, s_, b_):
-            return G.gn_silu_plain(x_, s_, b_, num_groups=ctx.num_groups)
-
-        grads = _plain_grads(plain, (x, scale, bias), ctx.needs_input_grad[:3], gm)
-        return (*grads, None, None, None)
+        x, scale, bias, stats, seed = ctx.saved_tensors
+        grads = D.gn_silu_dropout_backward_cuda(x, g, scale, bias, stats, seed, ctx.rate,
+                                                num_groups=ctx.num_groups)
+        return (*_gn_grads(ctx, grads), None, None, None)
 
 
 class _Conv3x3(torch.autograd.Function):

@@ -1,10 +1,14 @@
-"""GroupNorm + SiLU + dropout in one pass, and the mask regenerated for the
-backward: CUDA kernels and their plain versions.
+"""GroupNorm + SiLU + dropout in one pass, its backward, and the mask
+regenerated on a cotangent: CUDA kernels and their plain versions.
 
 Replaces the Pallas TPU kernels ``rectified_flow_vision_tpu/ops/pallas_kernels.py``
-``gn_silu_dropout`` and ``dropout_mask_apply``. Both are bound by bytes on
-the H100 (``csrc/gn_silu_dropout.cu``): no mask tensor is ever stored, the
-backward regenerates it from the saved int32 seed.
+``gn_silu_dropout`` and ``dropout_mask_apply``. All are bound by bytes on the
+H100 (``csrc/gn_silu_dropout.cu``, ``csrc/gn_silu.cu``): no mask tensor is
+ever stored. The forward is gn_silu's one-pass cluster kernel with the mask
+folded in; the backward is gn_silu's backward kernel, which regenerates the
+mask from the saved int32 seed as it reads the cotangent, so the train step
+no longer launches ``dropout_mask_apply`` (it stays, held on the card, for a
+caller with a cotangent apart from x).
 
 The TPU kernels draw bits from the core's own generator, which cannot be
 replayed, so parity is by contract: an element's 32 bits are a pure function
@@ -131,43 +135,68 @@ def _check_image_size(kernel: str, b: int, n: int) -> None:
         )
 
 
+def gn_silu_dropout_backward_plain(
+    x: Tensor, g: Tensor, scale: Tensor, bias: Tensor, stats: Tensor, seed: Seed, rate: float,
+    *, num_groups: int = 8,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dx, dscale, dbias) by the backward kernel's formulas: the cotangent
+    times mask / keep in fp32 (not rounded), then ``G.gn_silu_backward_plain``."""
+    inv_keep = rate_consts(rate)[1]
+    keep = keep_mask(g.shape, seed, rate, g.device)
+    gm = torch.where(keep, g.float() * inv_keep, 0.0)
+    return G.gn_silu_backward_plain(x, gm, scale, bias, stats, num_groups=num_groups)
+
+
+def _check_rate(kernel: str, rate: float) -> None:
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"{kernel}: rate {rate} outside (0, 1)")
+
+
 def gn_silu_dropout_cuda(
     x: Tensor, scale: Tensor, bias: Tensor, seed: Seed, rate: float,
     *, num_groups: int = 8, eps: float = 1e-5,
-) -> Tensor:
-    """Launch the CUDA kernels. x: (B, H, W, C) bf16/fp32; scale, bias: (C,)
-    fp32; seed: int or (1,) int32 tensor on x's device; 0 < rate < 1."""
+) -> Tuple[Tensor, Tensor]:
+    """Launch the forward kernel. x: (B, H, W, C) bf16/fp32; scale, bias: (C,)
+    fp32; seed: int or (1,) int32 tensor on x's device; 0 < rate < 1. Returns
+    (y, stats), stats the saved ``[B, G, 2]``."""
     build.require_cuda(x, "gn_silu_dropout")
-    if not 0.0 < rate < 1.0:
-        raise ValueError(f"gn_silu_dropout: rate {rate} outside (0, 1)")
+    _check_rate("gn_silu_dropout", rate)
+    G.check_args("gn_silu_dropout", x, scale, bias, num_groups)
     b, h, w, c = x.shape
-    G.check_channels("gn_silu_dropout", x, num_groups)
     _check_image_size("gn_silu_dropout", b, h * w * c)
-    build.require(x, "x", device=x.device, dtype=x.dtype, shape=x.shape)
-    for name, t in (("scale", scale), ("bias", bias)):
-        build.require(t, name, device=x.device, dtype=torch.float32, shape=(c,))
     seed_t = seed_tensor(seed, x.device)
     thresh, inv_keep = rate_consts(rate)
-    lib = build.library()
-    n_part = lib.rfv_gn_silu_workspace(b, h * w, num_groups)
-    part = torch.empty((n_part, 2), device=x.device, dtype=torch.float32)
+    stats = torch.empty((b, num_groups, 2), device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
-    rc = lib.rfv_gn_silu_dropout(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), seed_t.data_ptr(), part.data_ptr(),
-        out.data_ptr(), b, h * w, c, num_groups, eps, thresh, inv_keep,
-        build.DTYPE_CODES[x.dtype], build.stream_ptr(x),
+    rc = build.library().rfv_gn_silu_dropout(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), seed_t.data_ptr(),
+        stats.data_ptr(), out.data_ptr(), b, h * w, c, num_groups, eps,
+        thresh, inv_keep, build.DTYPE_CODES[x.dtype], build.stream_ptr(x),
     )
     build.check(rc, "gn_silu_dropout")
     build.LAUNCHES["gn_silu_dropout"] += 1
-    return out
+    return out, stats
+
+
+def gn_silu_dropout_backward_cuda(
+    x: Tensor, g: Tensor, scale: Tensor, bias: Tensor, stats: Tensor, seed: Seed, rate: float,
+    *, num_groups: int = 8,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Launch the backward kernel with the mask of (seed, x.shape)
+    regenerated inside: (dx, dscale, dbias)."""
+    build.require_cuda(x, "gn_silu_backward")
+    _check_rate("gn_silu_backward", rate)
+    _check_image_size("gn_silu_backward", x.shape[0], x[0].numel())
+    thresh, inv_keep = rate_consts(rate)
+    return G.launch_backward(x, g, scale, bias, stats, num_groups,
+                             seed_tensor(seed, x.device), thresh, inv_keep)
 
 
 def dropout_mask_apply_cuda(g: Tensor, seed: Seed, rate: float) -> Tensor:
     """Launch the CUDA kernel: gn_silu_dropout's mask for (seed, g.shape),
     applied to g. g: (B, ...) bf16/fp32, contiguous."""
     build.require_cuda(g, "dropout_mask_apply")
-    if not 0.0 < rate < 1.0:
-        raise ValueError(f"dropout_mask_apply: rate {rate} outside (0, 1)")
+    _check_rate("dropout_mask_apply", rate)
     b = g.shape[0]
     n = g[0].numel()
     _check_image_size("dropout_mask_apply", b, n)

@@ -4,7 +4,8 @@ Inputs come from a numpy seed and go through the JAX function and its
 counterpart. On the CPU the JAX ``_attention`` takes its XLA branch (the
 backend is not a TPU), which is the library kernel's plain reference; the port
 takes ``flash_attention_plain``. Head widths 64 (DiT-S/B/L) and 72 (DiT-XL),
-and the kernels' head-width rule, which needs no card. Tolerances: fp32 atol 1e-5 forward (the same
+widths the kernels take only zero-padded (4, 12) or in chunks (136, 256), the
+padding identity, and the kernels' head-width rule, which needs no card. Tolerances: fp32 atol 1e-5 forward (the same
 fp32 arithmetic, summed in another order), 1e-4 for dq, dk, dv; bf16 rtol 2e-2
 (probabilities and outputs are rounded to bf16 on both sides, at the same
 points). The hand-written backward is also held against torch autograd of the
@@ -73,10 +74,22 @@ class TestForward:
         assert fp32 % 16 == 0 and d <= fp32 < d + 16
 
     @pytest.mark.parametrize("d", [0, 4, 12, 20, 100, 127, 136, 256])
-    def test_other_head_widths_raise_naming_the_range(self, d):
+    def test_other_head_widths_are_padded_to_a_kernel_width(self, d):
+        """Every D >= 1 reaches a kernel: zero-padded to the next multiple of
+        8 (and 8 at least), then the D <= 128 kernels' widths, or above 128
+        the chunked fp32 kernels' multiple of 64. Only D = 0 raises."""
         for dtype in (torch.bfloat16, torch.float32):
-            with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
-                TFA.kernel_head_dim(d, dtype)
+            if d == 0:
+                with pytest.raises(ValueError, match="D >= 1"):
+                    TFA.kernel_head_dim(d, dtype)
+                continue
+            padded, width = TFA.padded_head_dim(d), TFA.kernel_head_dim(d, dtype)
+            assert padded % 8 == 0 and d <= padded < d + 8 and padded >= 8
+            assert padded <= width
+            if padded > TFA.HEAD_DIM_MAX:
+                assert width % TFA.HEAD_DIM_CHUNK == 0 and width < padded + TFA.HEAD_DIM_CHUNK
+            else:
+                assert width == TFA.kernel_head_dim(padded, dtype)
 
     def test_views_of_one_projection_need_no_copy(self):
         """q, k, v as DiT hands them over share their strides, so the kernel
@@ -94,6 +107,58 @@ class TestForward:
         logits = np.einsum("bthd,bshd->bhts", q, k) / np.sqrt(q.shape[-1])
         want = np.log(np.exp(logits - logits.max(-1, keepdims=True)).sum(-1)) + logits.max(-1)
         np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# head widths the kernels take only zero-padded (4, 12) or chunked (136, 256)
+ODD_WIDTHS = [4, 12, 136, 256]
+
+
+class TestHeadWidths:
+    """Every head width the JAX ``_attention`` takes: the plain forward and
+    backward against it at D = 4, 12, 136 and 256, and the padding identity
+    the kernel wrappers rely on."""
+
+    @pytest.mark.parametrize("d", ODD_WIDTHS)
+    def test_plain_matches_jax_forward_and_vjp(self, d):
+        shape = (1, 1024, 2, d)
+        q, k, v = _qkv(shape, seed=11)
+        g = np.random.default_rng(12).standard_normal(shape).astype(np.float32)
+        out, vjp = jax.vjp(lambda *a: JD._attention(*a, use_flash=True),
+                           *(jnp.asarray(a) for a in (q, k, v)))
+        want = vjp(jnp.asarray(g))
+        tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+        got_out = TF.flash_attention(tq, tk, tv)
+        np.testing.assert_allclose(got_out.numpy(), np.asarray(out), rtol=0, atol=1e-5)
+        lse = TFA.flash_attention_lse_plain(tq, tk)
+        got = TFA.flash_attention_backward_plain(tq, tk, tv, got_out, lse, tg)
+        for name, a, b in zip("qkv", got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-4,
+                                       err_msg=f"d{name}")
+
+    @pytest.mark.parametrize("d", ODD_WIDTHS)
+    def test_zero_padding_at_the_true_scale_is_exact(self, d):
+        """q, k, v zero-padded in the head axis to the kernels' width, at
+        scale 1/sqrt(D) of the true D: the same output, log-sum-exp and
+        gradients in the first D columns, zeros past them."""
+        shape = (1, 256, 2, d)
+        q, k, v = (torch.from_numpy(a) for a in _qkv(shape, seed=13))
+        g = torch.from_numpy(np.random.default_rng(14).standard_normal(shape).astype(np.float32))
+        dk = TFA.padded_head_dim(d) if d % 8 else d + 8  # 136, 256: pad a block of 8 anyway
+        pad = lambda x: torch.nn.functional.pad(x, (0, dk - d))  # noqa: E731
+        scale = 1.0 / np.sqrt(d)
+        out = TFA.flash_attention_plain(q, k, v)
+        out_p = TFA.flash_attention_plain(pad(q), pad(k), pad(v), scale=scale)
+        lse = TFA.flash_attention_lse_plain(q, k)
+        lse_p = TFA.flash_attention_lse_plain(pad(q), pad(k), scale=scale)
+        np.testing.assert_allclose(out_p[..., :d].numpy(), out.numpy(), rtol=0, atol=1e-6)
+        assert not out_p[..., d:].any()
+        np.testing.assert_allclose(lse_p.numpy(), lse.numpy(), rtol=0, atol=1e-5)
+        grads = TFA.flash_attention_backward_plain(q, k, v, out, lse, g)
+        grads_p = TFA.flash_attention_backward_plain(pad(q), pad(k), pad(v), out_p, lse_p,
+                                                     pad(g), scale=scale)
+        for a, b in zip(grads_p, grads):
+            np.testing.assert_allclose(a[..., :d].numpy(), b.numpy(), rtol=0, atol=1e-5)
+            assert not a[..., d:].any()
 
 
 class TestBackward:

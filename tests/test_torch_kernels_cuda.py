@@ -9,11 +9,14 @@ Shapes are small but cover ragged tiles (M not a multiple of the conv's
 128-row tile, boxes wider or taller than the image, 35 tokens in attention,
 C not a multiple of 32), every conv shape of the flagship forward, the
 attention block at 1024 and 4096 tokens, head widths 4 to 64 (attention
-block) and 8 to 128 (flash attention, DiT-XL's 72 among them), and group
-widths that take gn_silu's narrower vectors (2 and 3 channels a group). Tolerances as in chip_smoke.py:
-fp32 1e-4 (gn_silu) / 1e-3 (conv3x3, attention; reordered sums, cuDNN's
-algorithm choice), bf16 one rounding against two or three (2e-2 rtol, 3e-2
-atol, 6e-2 for attention).
+block) and 4 to 256 (flash attention, DiT-XL's 72 among them; 4, 12 and 20
+zero-padded, 136 and 256 chunked), every GroupNorm slab of the flagship,
+and group widths that take gn_silu's narrower vectors (2 and 3 channels a
+group). Tolerances as in chip_smoke.py: fp32 1e-4 (gn_silu) / 1e-3 (conv3x3,
+attention; reordered sums, cuDNN's algorithm choice), bf16 one rounding
+against two or three (2e-2 rtol, 3e-2 atol, 6e-2 for attention); the
+backward kernels against their plain versions' formulas at fp32 1e-4 and
+bf16 2e-2 of each gradient's largest entry.
 """
 
 import pytest
@@ -50,21 +53,72 @@ def _gen(dev, seed=0):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize(
-    "shape", [(3, 8, 8, 64), (2, 16, 16, 192), (1, 9, 7, 512), (2, 8, 8, 16), (1, 4, 4, 24)]
-)
-def test_gn_silu(dev, dtype, shape):
-    g = _gen(dev)
-    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.3).to(dtype)
+# the flagship's eight GroupNorm slabs (H, W, C) at batch 2 (the fp32 (64, 64,
+# 192) slab, 3 MB, is past a cluster's shared memory: the route that reads x
+# from device memory on every pass), then ragged ones: odd pixel counts that
+# split unevenly over a cluster, 2 and 3 channels a group (narrow vectors)
+GN_SHAPES = [
+    (2, 16, 16, 128), (2, 16, 16, 256), (2, 16, 16, 512), (2, 32, 32, 64), (2, 32, 32, 128),
+    (2, 32, 32, 384), (2, 64, 64, 64), (2, 64, 64, 192),
+    (3, 8, 8, 64), (2, 16, 16, 192), (1, 9, 7, 512), (2, 8, 8, 16), (1, 4, 4, 24),
+    (3, 33, 31, 64), (1, 1, 3, 256),
+]
+
+
+def _gn_args(dev, shape, seed):
+    g = _gen(dev, seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.3)
     c = shape[-1]
     s = torch.randn(c, generator=g, device=dev) * 0.2 + 1
     b = torch.randn(c, generator=g, device=dev) * 0.2
+    cot = torch.randn(shape, generator=g, device=dev)
+    return x, s, b, cot
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_gn_silu(dev, dtype, shape):
+    """The one-pass forward against the plain version; its saved statistics
+    against the plain two-pass ones."""
+    x, s, b, _ = _gn_args(dev, shape, 0)
+    x = x.to(dtype)
     before = build.LAUNCHES["gn_silu"]
     out = fused.gn_silu(x, s, b)
     assert build.LAUNCHES["gn_silu"] == before + 1
     torch.testing.assert_close(out.float(), G.gn_silu_plain(x, s, b).float(),
                                **_tol(dtype, fp32=1e-4))
+    again, stats = G.gn_silu_cuda(x, s, b)
+    assert torch.equal(again, out)
+    torch.testing.assert_close(stats, G.gn_stats_plain(x), rtol=1e-5, atol=1e-5)
+
+
+def _assert_scaled(got, want, tol):
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert float((a.float() - w.float()).abs().max()) <= tol * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_gn_silu_backward_kernel(dev, dtype, shape):
+    """dx, dscale, dbias of the backward kernel (with and without the dropout
+    mask) against ``gn_silu_backward_plain`` from the plain statistics, the
+    same formulas: fp32 1e-4, bf16 2e-2 of each gradient's largest entry; a
+    second run gives the same bits (no atomics). The cotangent follows the
+    output, so that dx's group-mean terms are of dx's order."""
+    x, s, b, noise = _gn_args(dev, shape, 16)
+    x = x.to(dtype)
+    cot = (G.gn_silu_plain(x, s, b).float() + noise).to(dtype)
+    _, stats = G.gn_silu_cuda(x, s, b)
+    plain_stats = G.gn_stats_plain(x)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    before = build.LAUNCHES["gn_silu_backward"]
+    got = G.gn_silu_backward_cuda(x, cot, s, b, stats)
+    assert build.LAUNCHES["gn_silu_backward"] == before + 1
+    _assert_scaled(got, G.gn_silu_backward_plain(x, cot, s, b, plain_stats), tol)
+    assert all(torch.equal(u, w) for u, w in zip(got, G.gn_silu_backward_cuda(x, cot, s, b, stats)))
+    got = D.gn_silu_dropout_backward_cuda(x, cot, s, b, stats, 31, 0.2)
+    _assert_scaled(got, D.gn_silu_dropout_backward_plain(x, cot, s, b, plain_stats, 31, 0.2), tol)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -146,7 +200,8 @@ def test_attention_block(dev, dtype, shape):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize(
-    "shape", [(3, 8, 8, 64), (2, 16, 16, 192), (1, 9, 7, 512), (2, 8, 8, 16), (1, 4, 4, 24)]
+    "shape", [(3, 8, 8, 64), (2, 16, 16, 192), (1, 9, 7, 512), (2, 8, 8, 16), (1, 4, 4, 24),
+              (2, 64, 64, 64), (2, 64, 64, 192)]
 )
 def test_gn_silu_dropout(dev, dtype, shape):
     """The kernel's mask is the plain version's bit for bit (also with the
@@ -168,8 +223,10 @@ def test_gn_silu_dropout(dev, dtype, shape):
     want = D.gn_silu_dropout_plain(x, s, b, seed, rate)
     torch.testing.assert_close(out.float(), want.float(), **_tol(dtype, fp32=1e-4))
     seed_t = torch.tensor([seed], dtype=torch.int32, device=dev)
-    assert torch.equal(D.gn_silu_dropout_cuda(x, s, b, seed_t, rate), out)
-    assert not torch.equal(D.gn_silu_dropout_cuda(x, s, b, seed + 1, rate), out)
+    again, stats = D.gn_silu_dropout_cuda(x, s, b, seed_t, rate)
+    assert torch.equal(again, out)
+    torch.testing.assert_close(stats, G.gn_stats_plain(x), rtol=1e-5, atol=1e-5)
+    assert not torch.equal(D.gn_silu_dropout_cuda(x, s, b, seed + 1, rate)[0], out)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -195,9 +252,10 @@ def _grads(fn, args, cot):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("op", ["gn_silu", "gn_silu_dropout", "conv3x3", "attention_block"])
 def test_function_backward_matches_plain_autograd(dev, dtype, op):
-    """Each autograd Function (kernel forward, plain-version backward; the
-    dropout one through the dropout_mask_apply kernel) against ordinary
-    autograd of the plain version on the same inputs and cotangent."""
+    """Each autograd Function (kernel forward; the GroupNorm ones with the
+    gn_silu_backward kernel, which applies the dropout mask itself, the conv
+    and attention block with their plain version's backward) against
+    ordinary autograd of the plain version on the same inputs and cotangent."""
     g = _gen(dev, 5)
     c = 64
     x = torch.randn((2, 8, 8, c), generator=g, device=dev).to(dtype)
@@ -213,7 +271,6 @@ def test_function_backward_matches_plain_autograd(dev, dtype, op):
         kernel, plain = fused.gn_silu, G.gn_silu_plain
     elif op == "gn_silu_dropout":
         args = (x, s, b)
-        before = build.LAUNCHES["dropout_mask_apply"]
 
         def kernel(x_, s_, b_):
             return fused.gn_silu_dropout(x_, s_, b_, 0.25, 77, train=True)
@@ -226,16 +283,17 @@ def test_function_backward_matches_plain_autograd(dev, dtype, op):
     else:
         args = (x, s, b, u(3 * c, c).to(dtype), u(3 * c), u(c, c).to(dtype), u(c))
         kernel, plain = fused.attention, A.attention_block_plain
+    before = dict(build.LAUNCHES)
     out_k, grads_k = _grads(kernel, args, cot)
     out_p, grads_p = _grads(plain, args, cot)
-    if op == "gn_silu_dropout":
-        assert build.LAUNCHES["dropout_mask_apply"] == before + 1
+    if op.startswith("gn_silu"):
+        assert build.LAUNCHES["gn_silu_backward"] == before["gn_silu_backward"] + 1
+        assert build.LAUNCHES["dropout_mask_apply"] == before["dropout_mask_apply"]
     assert out_k.dtype == dtype and len(grads_k) == len(args)
     for got, want, arg in zip(grads_k, grads_p, args):
         assert got.dtype == arg.dtype and got.shape == arg.shape
-        # the backward is the plain version's own: what differs is the bf16
-        # rounding of the dropout cotangent (once in the kernel, twice in
-        # autograd's mul and where) and the bias gradient's fp32 sum
+        # what differs: the GroupNorm backward kernel works in fp32 from x
+        # where autograd rounds each bf16 op, and sums in another order
         scale = float(want.float().abs().max())
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         assert float((got.float() - want.float()).abs().max()) <= tol * max(scale, 1.0)
@@ -243,7 +301,8 @@ def test_function_backward_matches_plain_autograd(dev, dtype, op):
 
 def test_train_forward_and_backward_launch_counts(dev):
     """One loss and backward of a 64-channel UNet on the card: every kernel
-    site launches once forward, and each dropout site once more backward."""
+    site launches once forward, and each GroupNorm site once backward (the
+    dropout mask applied inside that kernel)."""
     from rectified_flow_vision_tpu_torch.models import BaseFlowModel
 
     model = BaseFlowModel(image_size=16, model_channels=64, channel_mult=[1, 2],
@@ -254,9 +313,9 @@ def test_train_forward_and_backward_launch_counts(dev):
     loss.backward()
     # 6 residual blocks: norm1 (+ the head) gn_silu, norm2 gn_silu_dropout;
     # conv1, conv2 and one upsample conv; one mid attention
-    assert build.LAUNCHES == {"gn_silu": 7, "gn_silu_dropout": 6, "dropout_mask_apply": 6,
-                              "conv3x3": 13, "attention_block": 1, "flash_attention": 0,
-                              "flash_attention_backward": 0, "dropout": 0}
+    assert build.LAUNCHES == {"gn_silu": 7, "gn_silu_dropout": 6, "gn_silu_backward": 13,
+                              "dropout_mask_apply": 0, "conv3x3": 13, "attention_block": 1,
+                              "flash_attention": 0, "flash_attention_backward": 0, "dropout": 0}
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
     cpu = BaseFlowModel(image_size=16, model_channels=64, channel_mult=[1, 2],
                         num_res_blocks=1, dropout=0.1, device="cpu", params=model.params)
@@ -287,7 +346,8 @@ def test_remat_on_the_card_gives_the_same_gradients(dev):
     for a, b in zip(out[0][1], out[1][1]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-6)
     assert out[1][2]["gn_silu_dropout"] == 2 * out[0][2]["gn_silu_dropout"] == 12
-    assert out[1][2]["dropout_mask_apply"] == out[0][2]["dropout_mask_apply"] == 6
+    assert out[1][2]["gn_silu_backward"] == out[0][2]["gn_silu_backward"] == 13
+    assert out[1][2]["dropout_mask_apply"] == out[0][2]["dropout_mask_apply"] == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -311,7 +371,7 @@ def test_small_unet_on_the_card_matches_the_cpu(dev, dtype):
         got = gpu(x.to(dev), t.to(dev), dtype=dt).float().cpu()
     # 4 residual blocks x 2 + the head; 16 channels are outside conv3x3's contract
     assert build.LAUNCHES == {"gn_silu": 9, "conv3x3": 0, "attention_block": 1,
-                              "gn_silu_dropout": 0, "dropout_mask_apply": 0,
+                              "gn_silu_dropout": 0, "gn_silu_backward": 0, "dropout_mask_apply": 0,
                               "flash_attention": 0, "flash_attention_backward": 0, "dropout": 0}
     tol = 1e-3 if dtype == "float32" else 0.03 * float(want.abs().max())
     assert float((got - want).abs().max()) <= tol
@@ -377,12 +437,14 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rto
 
 
 # head widths 8 to 128 (DiT-S/B/L 64, XL 72; the bf16 kernels pad to 64 or
-# 128, the fp32 ones to a multiple of 16), T a multiple of 128, and the
-# 16384-token shape
+# 128, the fp32 ones to a multiple of 16), T a multiple of 128, the
+# 16384-token shape, and widths the wrapper zero-pads (4, 12, 20) or the
+# chunked fp32 kernels take (136, 256)
 FLASH_FWD_CASES = [((2, 1024, 6, 64), True), ((1, 1152, 3, 64), False), ((2, 1024, 4, 32), True),
                    ((2, 1024, 4, 72), True), ((1, 1152, 2, 72), False), ((1, 1024, 2, 128), True),
                    ((1, 1152, 2, 128), False), ((1, 1024, 3, 8), True), ((1, 1024, 2, 96), False),
-                   ((2, 16384, 6, 64), True)]
+                   ((2, 16384, 6, 64), True), ((1, 1024, 3, 4), True), ((2, 1024, 2, 12), False),
+                   ((1, 1024, 2, 20), True), ((1, 1024, 2, 136), True), ((1, 1152, 2, 256), False)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -402,7 +464,9 @@ def test_flash_attention_forward(dev, dtype, shape, packed):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,packed", [((2, 1024, 6, 64), True), ((1, 1152, 2, 32), False),
                                           ((2, 1024, 4, 72), True), ((1, 1152, 2, 72), False),
-                                          ((1, 1024, 2, 128), True), ((1, 1024, 3, 8), False)])
+                                          ((1, 1024, 2, 128), True), ((1, 1024, 3, 8), False),
+                                          ((1, 1024, 3, 4), True), ((1, 1024, 2, 12), False),
+                                          ((1, 1024, 2, 136), True), ((1, 1024, 2, 256), False)])
 def test_flash_attention_backward(dev, dtype, shape, packed):
     """dq, dk, dv of the kernels against the plain backward (the same
     formulas) and against autograd of the plain forward; two runs give the
@@ -430,16 +494,21 @@ def test_flash_attention_backward(dev, dtype, shape, packed):
 
 def test_flash_attention_dispatch_and_rejections(dev):
     """Below 1024 tokens, or off a multiple of 128, the plain attention runs
-    on the card too (the JAX package's rule); what the kernel does not take
-    raises."""
+    on the card too (the JAX package's rule); every head width runs a kernel
+    (20 zero-padded, 136 chunked); what the kernel does not take raises."""
     q, k, v = _qkv(dev, torch.float32, 2, 256, 2, 64)
     before = build.LAUNCHES["flash_attention"]
     out = fused.flash_attention(q, k, v)
     assert build.LAUNCHES["flash_attention"] == before
     torch.testing.assert_close(out, FA.flash_attention_plain(q, k, v))
     for d in (136, 20):
-        with pytest.raises(ValueError, match="head dimension"):
-            FA.flash_attention_cuda(*_qkv(dev, torch.float32, 1, 1024, 2, d))
+        q, k, v = _qkv(dev, torch.float32, 1, 1024, 2, d)
+        before = build.LAUNCHES["flash_attention"]
+        out = fused.flash_attention(q, k, v)
+        assert build.LAUNCHES["flash_attention"] == before + 1 and out.shape == q.shape
+        torch.testing.assert_close(out, FA.flash_attention_plain(q, k, v), **FLASH_TOL[q.dtype])
+    with pytest.raises(ValueError, match="head dimension"):
+        FA.flash_attention_cuda(*_qkv(dev, torch.float32, 1, 1024, 2, 0))
     with pytest.raises(ValueError, match="tile"):
         FA.flash_attention_cuda(*_qkv(dev, torch.float32, 1, 1000, 2, 64))
     with pytest.raises(ValueError, match="dtype"):

@@ -120,6 +120,90 @@ class TestGnSilu:
         np.testing.assert_allclose(_np(out), _np(xla), **BF16)
 
 
+# (shape, dtype): 2 and 4 channels a group, and 3 (C = 24: gn_silu's narrower vectors)
+GN_BWD_CASES = [(s, d) for s in [(2, 8, 8, 16), (1, 16, 16, 32), (2, 4, 4, 24)]
+                for d in ("float32", "bfloat16")]
+
+
+def _gn_bwd_inputs(shape, dtype, seed):
+    x, s, b = _gn_inputs(shape, seed=seed)
+    g = _rng(seed + 100).standard_normal(shape).astype(np.float32)
+    return x, s, b, g, getattr(torch, dtype), getattr(jnp, dtype)
+
+
+def _assert_grads(got, want, dtype):
+    """fp32: 1e-5 of each gradient's largest entry; bf16: 2e-2 of it."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for name, a, w in zip(("dx", "dscale", "dbias"), got, want):
+        a, w = _np(a), _np(w)
+        assert a.shape == w.shape, name
+        assert np.abs(a - w).max() <= tol * np.abs(w).max(), name
+
+
+class TestGnSiluBackward:
+    """``gn_silu_backward_plain`` (the backward kernel's formulas, from the
+    saved statistics) against ``jax.vjp`` of the JAX package's ``_gn_silu_xla``,
+    the VJP its ``custom_vjp`` takes."""
+
+    @pytest.mark.parametrize("shape,dtype", GN_BWD_CASES)
+    def test_plain_backward_matches_jax_vjp(self, shape, dtype):
+        from rectified_flow_vision_tpu.ops import fused as JF
+
+        x, s, b, g, tdt, jdt = _gn_bwd_inputs(shape, dtype, seed=20)
+        _, vjp = jax.vjp(lambda x_, s_, b_: JF._gn_silu_xla(x_, s_, b_, 8),
+                         _j(x, jdt), _j(s), _j(b))
+        want = vjp(_j(g, jdt))
+        tx = _t(x, tdt)
+        got = TG.gn_silu_backward_plain(tx, _t(g, tdt), _t(s), _t(b), TG.gn_stats_plain(tx))
+        assert got[0].dtype == tdt and got[1].dtype == torch.float32
+        _assert_grads(got, want, tdt)
+
+    @pytest.mark.parametrize("shape,dtype", GN_BWD_CASES)
+    def test_dropout_backward_matches_jax_vjp_of_the_masked_cotangent(self, shape, dtype):
+        """The dropout variant: ``jax.vjp`` applied to g * mask / keep, with
+        the port's Philox mask (the contract)."""
+        from rectified_flow_vision_tpu.ops import fused as JF
+        from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as TD
+
+        x, s, b, g, tdt, jdt = _gn_bwd_inputs(shape, dtype, seed=21)
+        seed, rate = 99, 0.3
+        keep = TD.keep_mask(shape, seed, rate, torch.device("cpu")).numpy()
+        gm = np.where(keep, g / (1.0 - rate), 0.0).astype(np.float32)
+        _, vjp = jax.vjp(lambda x_, s_, b_: JF._gn_silu_xla(x_, s_, b_, 8),
+                         _j(x, jdt), _j(s), _j(b))
+        want = vjp(_j(gm, jdt))
+        tx = _t(x, tdt)
+        got = TD.gn_silu_dropout_backward_plain(tx, _t(g, tdt), _t(s), _t(b),
+                                                TG.gn_stats_plain(tx), seed, rate)
+        _assert_grads(got, want, tdt)
+
+    @pytest.mark.parametrize("shape", [(2, 8, 8, 16), (1, 16, 16, 32), (2, 4, 4, 24)])
+    def test_saved_statistics_match_jax_group_stats(self, shape):
+        """The forward's saved mean and 1/sigma against the Pallas kernel's
+        ``_group_stats``, image by image (per channel there, per group here)."""
+        x, _, _ = _gn_inputs(shape, seed=22)
+        stats = TG.gn_stats_plain(_t(x)).numpy()
+        cg = shape[-1] // 8
+        for i in range(shape[0]):
+            mean_c, inv_c = K._group_stats(_j(x[i].reshape(-1, shape[-1])), 8, 1e-5)
+            np.testing.assert_allclose(np.repeat(stats[i, :, 0], cg), _np(mean_c)[0], **F32)
+            np.testing.assert_allclose(np.repeat(stats[i, :, 1], cg), _np(inv_c)[0], rtol=1e-4)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_plain_backward_matches_autograd_of_the_plain_forward(self, dtype):
+        """The CPU path's ordinary autograd of ``gn_silu_plain`` and the
+        hand-written formulas agree (bf16: the autograd chain rounds between
+        ops, the formulas once)."""
+        x, s, b, g, tdt, _ = _gn_bwd_inputs((2, 8, 8, 64), dtype, seed=23)
+        leaves = [_t(x, tdt).requires_grad_(), _t(s).requires_grad_(), _t(b).requires_grad_()]
+        want = torch.autograd.grad(TF.gn_silu(*leaves), leaves, _t(g, tdt))
+        tx = leaves[0].detach()
+        got = TG.gn_silu_backward_plain(tx, _t(g, tdt), _t(s), _t(b), TG.gn_stats_plain(tx))
+        tol = 1e-5 if tdt == torch.float32 else 2e-2
+        for a, w in zip(got, want):
+            assert float((a.float() - w.float()).abs().max()) <= tol * float(w.float().abs().max())
+
+
 class TestConv3x3:
     def test_plain_matches_pallas_fp32(self):
         """fp32 at (1, 8, 8, 64 -> 64): same products, other summation order (1e-5)."""

@@ -156,6 +156,36 @@ class TestLoss:
         assert abs(ends - want) < 0.015
 
 
+class TestGroupNormBackward:
+    """What the card's GroupNorm backward kernel computes is what training on
+    the CPU differentiates: autograd of the plain ``gn_silu_dropout`` (the
+    UNet's dropout sites) against ``gn_silu_dropout_backward_plain``, the
+    kernel's formulas from the saved statistics; fp32 1e-5, bf16 2e-2 of
+    each gradient's largest entry."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+    def test_dropout_site_gradients_match_the_kernel_formulas(self, dtype):
+        from rectified_flow_vision_tpu_torch.ops import fused
+        from rectified_flow_vision_tpu_torch.ops import gn_silu as G
+        from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as D
+
+        r = np.random.default_rng(30)
+        x = torch.from_numpy(r.standard_normal((2, 8, 8, 32)).astype(np.float32) * 2 + 0.3)
+        s = torch.from_numpy(r.standard_normal(32).astype(np.float32) * 0.2 + 1)
+        b = torch.from_numpy(r.standard_normal(32).astype(np.float32) * 0.2)
+        g = torch.from_numpy(r.standard_normal((2, 8, 8, 32)).astype(np.float32)).to(dtype)
+        leaves = [x.to(dtype).requires_grad_(), s.clone().requires_grad_(),
+                  b.clone().requires_grad_()]
+        out = fused.gn_silu_dropout(*leaves, 0.1, 1234, train=True)
+        want = torch.autograd.grad(out, leaves, g)
+        xd = leaves[0].detach()
+        got = D.gn_silu_dropout_backward_plain(xd, g, s, b, G.gn_stats_plain(xd), 1234, 0.1)
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype
+            assert float((a.float() - w.float()).abs().max()) <= tol * float(w.float().abs().max())
+
+
 class TestSchedule:
     @pytest.mark.parametrize("warmup", [0.0, 1.5], ids=["no_warmup", "warmup"])
     def test_schedule_matches_jax(self, warmup):

@@ -18,7 +18,15 @@ checkout's kernels and reads, from random weights (seed 0), in bf16:
   batch 64 (6 steps a reading, four readings);
 - ``flash_fwd_ms`` / ``flash_bwd_ms``: the flash kernels' device time (CUDA
   events, 10 calls after a warm-up) summed over the 12 calls of one DiT-S/2
-  forward at batch 256 and of one train step's backward at batch 64.
+  forward at batch 256 and of one train step's backward at batch 64;
+- ``gn_fwd_ms`` / ``gn_drop_fwd_ms``: the same for ``gn_silu_cuda`` over the
+  29 GroupNorm calls of one flagship UNet forward at batch 256, and for
+  ``gn_silu_dropout_cuda`` over the 14 dropout sites of a train step;
+- ``unet_train_split``: one UNet train step at batch 256 under
+  ``torch.profiler``, its device time by the autograd node that launched
+  each kernel (the outermost ``evaluate_function: <node>`` around the launch
+  on the host),
+  "forward / optimizer" outside any node; printed, not compared.
 
 Two versions are only comparable within one run on one card, so the card's
 name and power limit are printed first. Needs a CUDA card and nvcc.
@@ -82,6 +90,51 @@ def kernel_ms(fn):
     torch.cuda.synchronize()
     return a.elapsed_time(b) / 10
 
+def by_autograd_node(trace):
+    # device ms by the autograd node whose evaluate_function event holds the
+    # host-side launch of each kernel (the outermost on that thread: a node
+    # whose backward runs autograd itself holds its inner nodes)
+    events = trace["traceEvents"]
+    nodes = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and e["name"].startswith("autograd::engine::evaluate_function: "):
+            nodes.setdefault(e["tid"], []).append((e["ts"], e["ts"] + e["dur"], e["name"].split(": ", 1)[1]))
+    launch = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {}):
+            launch[e["args"]["correlation"]] = (e["tid"], e["ts"])
+    ms = {}
+    for e in events:
+        if e.get("cat") != "kernel" or "dur" not in e:
+            continue
+        tid, ts = launch.get(e["args"].get("correlation"), (None, None))
+        label, width = "forward / optimizer", -1.0
+        for a, b, name in nodes.get(tid, ()):
+            if a <= ts <= b and b - a > width:
+                label, width = name, b - a
+        ms[label] = ms.get(label, 0.0) + e["dur"] / 1e3
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1]))
+
+def unet_train_split(model, corpus):
+    import os, tempfile
+    from torch.profiler import ProfilerActivity, profile
+    opt = make_optimizer(model, 2e-4, 1000, 1)
+    epoch = make_train_epoch(model, opt, coupled=False, ema=init_ema(model), ema_decay=0.999)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    perm = torch.as_tensor(np.random.default_rng(0).integers(0, len(corpus), (1, 256)), device="cuda")
+    epoch(corpus, perm, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        epoch(corpus, perm, gen)
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    os.remove(path)
+    return {k: round(v, 3) for k, v in by_autograd_node(trace).items()}
+
 model = BaseFlowModel(image_size=64, seed=0, sample_dtype="bfloat16", device="cuda")
 svc = SamplerService(model, step_counts=(4,), batch_size=256, seed=0)
 out["unet_serve"] = [svc.throughput(4) for _ in range(3)]
@@ -91,6 +144,7 @@ model = BaseFlowModel(image_size=64, seed=0, compute_dtype="bfloat16", sample_dt
 images = torch.tanh(torch.randn((512, 64, 64, 3), generator=torch.Generator(device="cuda").manual_seed(1),
                                 device="cuda"))
 out["unet_train"] = train_rates(model, images, 256, 2e-4)
+out["unet_train_split"] = unet_train_split(model, images)
 del model, images
 torch.cuda.empty_cache()
 
@@ -116,10 +170,24 @@ q, k, v = torch.randn((64, 1024, 3, 6, 64), generator=g, device="cuda").bfloat16
 d_out = torch.randn((64, 1024, 6, 64), generator=g, device="cuda").bfloat16()
 o, lse = FA.flash_attention_cuda(q, k, v)
 out["flash_bwd_ms"] = [12 * kernel_ms(lambda: FA.flash_attention_backward_cuda(q, k, v, o, lse, d_out))]
+del q, k, v, d_out, o, lse
+from rectified_flow_vision_tpu_torch.ops import gn_silu as G, gn_silu_dropout as D
+GN_FWD = {(16, 16, 128): 1, (16, 16, 256): 10, (16, 16, 512): 1, (32, 32, 64): 1, (32, 32, 128): 6,
+          (32, 32, 384): 1, (64, 64, 64): 8, (64, 64, 192): 1}
+GN_DROP = {(16, 16, 256): 5, (32, 32, 128): 4, (64, 64, 64): 5}
+for key, calls, fn in (("gn_fwd_ms", GN_FWD, lambda x, s, b: G.gn_silu_cuda(x, s, b)),
+                       ("gn_drop_fwd_ms", GN_DROP, lambda x, s, b: D.gn_silu_dropout_cuda(x, s, b, 7, 0.1))):
+    total = 0.0
+    for (h, w, c), n in calls.items():
+        x = torch.randn((256, h, w, c), generator=g, device="cuda").bfloat16()
+        s, b = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+        total += n * kernel_ms(lambda: fn(x, s, b))
+    out[key] = [total]
 print(json.dumps(out))
 """
 
-METRICS = ("unet_serve", "unet_train", "latent_serve", "dit_train", "flash_fwd_ms", "flash_bwd_ms")
+METRICS = ("unet_serve", "unet_train", "latent_serve", "dit_train", "flash_fwd_ms", "flash_bwd_ms",
+           "gn_fwd_ms", "gn_drop_fwd_ms")
 
 
 def main() -> None:
@@ -146,6 +214,8 @@ def main() -> None:
             readings[side][m] += got[m]
         print(f"{side:6s} {root}: " + ", ".join(f"{m} {[round(x, 3) for x in got[m]]}"
                                                 for m in METRICS), flush=True)
+        print(f"{side:6s} unet_train_split (device ms by autograd node): "
+              f"{json.dumps(got['unet_train_split'])}", flush=True)
     summary = {"card": card}
     for m in METRICS:
         med = {side: statistics.median(readings[side][m]) for side in readings}
