@@ -68,6 +68,18 @@ card, outside a checkout, or when any phase fails. Phases, in order:
     straightness; ``LatentFlowPipeline.sample`` from the EMA checkpoint; exact
     launch counts; a second base run bit for bit; then DiT train img/s at
     batch 64, peak memory and a train-step trace.
+14. CLI: the port's pipeline through ``main(argv)``, in-process, on
+    ``configs/config.yaml`` saved by the port's ``Config.save`` under
+    ``build/cli_smoke/`` with its widths and recipe (the flagship UNet,
+    11,255,363 parameters; K = 2; 100 heun teacher steps; 8 step counts;
+    throughput batch 256) and cut epochs, pairs, runs and quality samples
+    (``CLI``): synthetic data, base training, Reflow, the benchmark. Each
+    step's seconds, the launches of the five UNet kernels (each > 0), the
+    models on the card, the checkpoints and finite losses, one
+    ``benchmark_results.csv`` row per step count, the 9 rows of
+    ``quality_results.csv`` with finite ``fid_deep`` and SSIM in [-1, 1], the
+    report and its conclusions, and the benchmark's img/s at 1, 2 and 4 steps
+    beside the serve phase's ``throughput(4)``.
 
 Every number is printed; the last two lines of standard output are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``. The profiler
@@ -192,6 +204,22 @@ FLASH_XL_SHAPE = (LATENT["batch"], DIT_TOKENS, 16, 72)
 # and 12 zero-padded to 8 and 16, 136 and 256 on the chunked fp32 kernels
 FLASH_ODD_SHAPES = tuple((LATENT["batch"], DIT_TOKENS, DIT_HEADS, d) for d in (4, 12, 136, 256))
 DROPOUT_SHAPES = ((1024, 1024), (64, 1024, 384), (256, 64, 64, 64))
+# The CLI phase: the port's main(argv) on configs/config.yaml with every width
+# and recipe setting its own, every path under build/cli_smoke/, and these cuts
+# of scale (config values in the comments). quality_samples stays at or above
+# 480, the SynthNet feature width, so that fid_deep takes the d x d branch of
+# fid_from_features that the config's 1000 take (below it, an n x n SVD).
+CLI = dict(
+    num_mock_images=256,    # 100: a larger corpus, so a batch-64 epoch has 4 steps
+    base_epochs=4,          # 600
+    reflow_epochs=2,        # 200 (K = 2 more rounds of reflow_epochs // 2 = 1 epoch)
+    num_pairs=512,          # 20000
+    num_runs=2,             # 5
+    quality_samples=512,    # 1000
+)
+CLI_KERNELS = ("gn_silu", "conv3x3", "attention_block", "gn_silu_dropout", "gn_silu_backward")
+# the CLI's quality gates: FID_BOOT bootstrap replicates a fid_deep
+FID_BOOT = 16
 
 
 def all_counts(build, **counts):
@@ -749,7 +777,7 @@ def serve_phase(torch, build):
     img_s = svc.throughput(4)
     log(f"serve: same seed gives the same images; throughput(4) {img_s:.2f} img/s "
         f"(batch {BATCH}, bf16)")
-    return launches, svc
+    return launches, svc, img_s
 
 
 KERNEL_GROUPS = (
@@ -1440,6 +1468,266 @@ def dit_train_timing_phase(torch, build, model, data) -> None:
                    f"one DiT-S/2 train step of {batch}")
 
 
+def _read_csv(path: Path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def cli_phase(torch, build, serve_img_s: float):
+    """The port's CLI, ``main(argv)``, in-process so that the launch counters
+    can be read, on a copy of ``configs/config.yaml`` cut as ``CLI`` says.
+    Returns its launch counts."""
+    import shutil
+
+    from rectified_flow_vision_tpu_torch import config as config_lib
+    from rectified_flow_vision_tpu_torch.experiments import benchmark as bench_mod
+    from rectified_flow_vision_tpu_torch.experiments import train_base as base_mod
+    from rectified_flow_vision_tpu_torch.experiments import train_rectified as rect_mod
+    from rectified_flow_vision_tpu_torch.main import main as cli_main
+    from rectified_flow_vision_tpu_torch.utils import download_data as data_mod
+
+    out = ROOT / "build" / "cli_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = config_lib.load_config(ROOT / "configs" / "config.yaml")
+    cfg.data.num_mock_images = CLI["num_mock_images"]
+    cfg.data.data_dir = str(out / "data")
+    cfg.training_base.epochs = CLI["base_epochs"]
+    cfg.training_rectified.epochs = CLI["reflow_epochs"]
+    cfg.training_rectified.num_pairs = CLI["num_pairs"]
+    cfg.benchmark.num_runs = CLI["num_runs"]
+    cfg.benchmark.quality_samples = CLI["quality_samples"]
+    cfg.paths.checkpoints = str(out / "checkpoints")
+    cfg.paths.results = str(out / "results")
+    cfg.paths.figures = str(out / "results" / "figures")
+    cfg_path = out / "config.yaml"
+    cfg.save(cfg_path)
+    if config_lib.load_config(cfg_path) != cfg:
+        fail("the saved CLI config does not read back to itself")
+
+    # each step's seconds, and the device of every model the steps train or
+    # benchmark, read by wrapping the functions main() calls
+    seconds, devices = {}, set()
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            return result
+        return run
+
+    def on_device(fn):
+        def run(model, *args, **kwargs):
+            devices.update(p.device.type for p in getattr(model, "flow", model).parameters())
+            return fn(model, *args, **kwargs)
+        return run
+
+    patches = [
+        mock.patch.object(data_mod, "download_data",
+                          timed("1 data", data_mod.download_data)),
+        mock.patch.object(base_mod, "main", timed("2 train_base", base_mod.main)),
+        mock.patch.object(rect_mod, "main", timed("3 train_rectified", rect_mod.main)),
+        mock.patch.object(bench_mod, "main", timed("4 benchmark", bench_mod.main)),
+        mock.patch.object(base_mod, "train_base_flow", on_device(base_mod.train_base_flow)),
+        mock.patch.object(rect_mod, "train_rectified_flow",
+                          on_device(rect_mod.train_rectified_flow)),
+        mock.patch.object(bench_mod, "benchmark_throughput",
+                          on_device(bench_mod.benchmark_throughput)),
+        # the held-out references go under build/cli_smoke/data/eval_64
+        mock.patch.object(config_lib, "repo_root", lambda: out),
+    ]
+    for p in patches:
+        p.start()
+    build.reset_launches()  # the main path: counts from 0
+    try:
+        t0 = time.perf_counter()
+        cli_main(["--offline", "--config", str(cfg_path)])
+        total_s = time.perf_counter() - t0
+    finally:
+        launches = dict(build.LAUNCHES)
+        for p in reversed(patches):
+            p.stop()
+
+    log(f"cli: main(['--offline', '--config', '{cfg_path.relative_to(ROOT)}']) in "
+        f"{total_s:.1f} s; steps (s): " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    log(f"cli: launches {nonzero(launches)}; models on {sorted(devices)}")
+    if sorted(seconds) != ["1 data", "2 train_base", "3 train_rectified", "4 benchmark"]:
+        fail(f"the CLI ran the steps {sorted(seconds)}")
+    missing = [k for k in CLI_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"the CLI never launched {missing}")
+    if devices != {"cuda"}:
+        fail(f"the CLI's models were on {devices}")
+
+    ck, res = out / "checkpoints", out / "results"
+    for name in ("base_flow_final", "base_flow_ema_final", "rectified_flow_k1_final",
+                 "rectified_flow_k1_ema_final", "reflow_k1_final", "reflow_k1_ema_final",
+                 "reflow_k2_final", "reflow_k2_ema_final"):
+        if not (ck / f"{name}.npz").is_file():
+            fail(f"the CLI wrote no {name}.npz")
+    base_losses = np.load(ck / "base_flow_losses.npy")
+    rect_losses = np.load(ck / "rectified_flow_k1_losses.npy")
+    if not (np.isfinite(base_losses).all() and np.isfinite(rect_losses).all()):
+        fail(f"non-finite losses: base {base_losses}, reflow {rect_losses}")
+    if not base_losses[-1] < base_losses[0]:
+        fail(f"the base loss did not fall: {base_losses}")
+    log(f"cli: base losses {[round(float(v), 4) for v in base_losses]}, reflow k1 losses "
+        f"{[round(float(v), 5) for v in rect_losses]}")
+
+    speed = _read_csv(res / "benchmark_results.csv")
+    steps = [int(r["num_steps"]) for r in speed]
+    if steps != list(cfg.benchmark.steps_to_test):
+        fail(f"benchmark_results.csv has the step counts {steps}")
+    times = [float(r[k]) for r in speed for k in ("base_time_ms", "rect_time_ms",
+                                                  "base_dispatch_bound_ms_b4",
+                                                  "rect_dispatch_bound_ms_b4")]
+    if not all(math.isfinite(t) and t > 0 for t in times):
+        fail("benchmark_results.csv holds a time that is not positive")
+    quality = _read_csv(res / "quality_results.csv")
+    rows = [(int(r["num_steps"]), r["model"]) for r in quality]
+    want = [(s, m) for s in (1, 2, 4, 8) for m in ("base", "rectified")] + [(100, "base")]
+    if rows != want:
+        fail(f"quality_results.csv has the rows {rows}")
+    for r in quality:
+        fid, ssim = float(r["fid_deep"] or "nan"), float(r["ssim_mean"] or "nan")
+        if not (math.isfinite(fid) and -1.0 <= ssim <= 1.0):
+            fail(f"quality row {r['num_steps']} {r['model']}: fid_deep {fid}, ssim {ssim}")
+    report_path = res / "benchmark_report.txt"
+    report = report_path.read_text() if report_path.is_file() else ""
+    if "MEASURED QUALITY CONCLUSIONS" not in report:
+        fail("benchmark_report.txt or its conclusions were not written")
+    by_steps = {int(r["num_steps"]): r for r in speed}
+    log("cli: benchmark throughput (chained, batch "
+        f"{cfg.benchmark.throughput_batch}, {cfg.model.sample_dtype}) img/s: " + ", ".join(
+            f"{s} steps base {float(by_steps[s]['base_img_per_sec']):.2f} rect "
+            f"{float(by_steps[s]['rect_img_per_sec']):.2f}" for s in (1, 2, 4))
+        + f"; the serve phase's throughput(4) {serve_img_s:.2f}")
+    log("cli: benchmark latency (batch 4, the reference's sweep) ms/img: " + ", ".join(
+        f"{s} steps base {float(by_steps[s]['base_dispatch_bound_ms_b4']):.3f} rect "
+        f"{float(by_steps[s]['rect_dispatch_bound_ms_b4']):.3f}" for s in (1, 4, 100)))
+    # where a batch-4 sample's time goes: the trained base model, one 4-step
+    # sample of the latency sweep's shape, under the profiler
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+
+    model = BaseFlowModel.from_checkpoint(str(ck / "base_flow_ema_final.npz"), device="cuda")
+    noise = torch.randn((4, 64, 64, 3), generator=torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    profile_device(torch, lambda: model.sample(noise=noise, num_steps=4, data_format="NHWC"),
+                   "cli_latency_trace.json", "one 4-step sample of batch 4 (the latency sweep's)")
+    log("cli: quality " + "; ".join(
+        f"{r['model']}@{r['num_steps']} fid_deep {float(r['fid_deep']):.2f} "
+        f"ssim {float(r['ssim_mean']):.4f}" for r in quality))
+    conclusions = report.split("MEASURED QUALITY CONCLUSIONS", 1)[1].strip().splitlines()[1:]
+    log("cli: conclusions: " + " | ".join(conclusions))
+    cli_quality_gates(torch, cfg, ck, out, bench_mod, config_lib)
+    return launches
+
+
+def _gram_fid(f1: np.ndarray, f2: np.ndarray) -> float:
+    """The Frechet distance by the Gram identity: tr sqrt(S1 S2) is the
+    nuclear norm of A B^T / sqrt(c1 c2), an n x n SVD."""
+    a, b = f1 - f1.mean(0), f2 - f2.mean(0)
+    c1, c2 = len(f1) - 1, len(f2) - 1
+    diff = f1.mean(0) - f2.mean(0)
+    tr_sqrt = np.linalg.svd(a @ b.T, compute_uv=False).sum() / math.sqrt(c1 * c2)
+    return float(diff @ diff + (a * a).sum() / c1 + (b * b).sum() / c2 - 2.0 * tr_sqrt)
+
+
+def cli_quality_gates(torch, cfg, ck: Path, out: Path, bench_mod, config_lib) -> None:
+    """What the CLI's quality rows cannot show at this cut. Its 64 base steps
+    leave the EMA weights (decay 0.999) about 94% the initial ones, and the
+    benchmark loads those (``prefer_ema``), so every row is that of a
+    near-random model. Here:
+
+    * the models that the benchmark loads sample bit for bit what
+      ``from_checkpoint`` of the EMA files it names samples, and the raw and
+      EMA files differ (a mis-wired load fails);
+    * the sampler's Euler steps equal a plain loop over the model's velocity
+      field (a broken sampler fails);
+    * fid_deep of the benchmark's references against the raw (not EMA) base
+      model at 1 and 100 steps and the EMA one at 100, with bootstrap CIs:
+      each by fid_from_features' d x d branch (the config's), held against
+      the Gram identity; the raw model's two step counts differ beyond their
+      CIs (a velocity field that learned nothing gives the same images at
+      every step count), and its 100-step CI lies below the EMA model's.
+    """
+    from rectified_flow_vision_tpu_torch.data import eval_reference_images
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel, RectifiedFlowModel
+    from rectified_flow_vision_tpu_torch.utils.metrics import MetricsCalculator
+
+    dev = torch.device("cuda")
+    size = cfg.data.image_size
+    noise = bench_mod._noise((8, size, size, 3), SEED, dev)
+    loaded = {}
+    for cls, name in ((BaseFlowModel, "base_flow"), (RectifiedFlowModel, "rectified_flow_k1")):
+        model = bench_mod._load_model(cls, cfg, ck / f"{name}_final.npz", name, dev)
+        direct = cls.from_checkpoint(str(ck / f"{name}_ema_final.npz"), device="cuda")
+        raw = cls.from_checkpoint(str(ck / f"{name}_final.npz"), device="cuda")
+        got, want, other = (m.sample(noise=noise, num_steps=4, data_format="NHWC",
+                                     dtype=cfg.model.sample_dtype) for m in (model, direct, raw))
+        if type(model) is not cls or not torch.equal(got, want):
+            fail(f"the benchmark's {name} model is not {name}_ema_final.npz")
+        if torch.equal(got, other):
+            fail(f"{name}_ema_final.npz samples what {name}_final.npz samples")
+        loaded[name] = (model, raw)
+    ema, raw = loaded["base_flow"]
+
+    # Euler's steps as a plain loop over the fp32 velocity field
+    steps = 8
+    x = noise.clone()
+    for i in range(steps):
+        t = torch.full((x.shape[0],), np.float32(i) * np.float32(1.0 / steps), device=dev)
+        x = x + raw(x, t, data_format="NHWC").float() * float(np.float32(1.0 / steps))
+    got = raw.sample(noise=noise, num_steps=steps, data_format="NHWC", dtype="float32")
+    err = (got - x).abs().max().item()
+    log(f"cli gates: the sampler's {steps} Euler steps against a plain loop: max |err| {err:.3g}")
+    if not err <= 1e-5:
+        fail(f"the sampler disagrees with the plain Euler loop by {err}")
+
+    n = cfg.benchmark.quality_samples
+    with mock.patch.object(config_lib, "repo_root", lambda: out):
+        refs = eval_reference_images(size, n)
+    ref_nchw = np.transpose(refs, (0, 3, 1, 2))
+    calc = MetricsCalculator(dev)
+    features = calc.lpips_model.fid_features
+    f_ref = calc._features(ref_nchw, features)
+    if f_ref.shape != (n, 480):
+        fail(f"SynthNet features of shape {f_ref.shape}: not the d x d branch")
+
+    def samples(model, num_steps):  # benchmark_quality's noise and blocks
+        return np.concatenate([
+            model.sample(noise=bench_mod._noise((min(256, n - i), size, size, 3),
+                                                7 * 1000003 + i, dev),
+                         num_steps=num_steps, data_format="NHWC").float().cpu().numpy()
+            for i in range(0, n, 256)])
+
+    fids = {}
+    for name, model, num_steps in (("raw@1", raw, 1), ("raw@100", raw, 100),
+                                   ("ema@100", ema, 100)):
+        gen = np.transpose(samples(model, num_steps), (0, 3, 1, 2))
+        t0 = time.perf_counter()
+        ci = calc.compute_fid_deep_ci(ref_nchw, gen, n_boot=FID_BOOT)
+        sec = time.perf_counter() - t0
+        gram = _gram_fid(f_ref, calc._features(gen, features))
+        rel = abs(ci["fid"] - gram) / abs(gram)
+        log(f"cli gates: fid_deep {name} (n {n}) {ci['fid']:.4f} [{ci['lo']:.4f}, "
+            f"{ci['hi']:.4f}], Gram identity {gram:.4f} (rel diff {rel:.3g}); "
+            f"{1 + FID_BOOT} Frechet distances (d x d) in {sec:.2f} s")
+        if not (all(math.isfinite(ci[k]) for k in ("fid", "lo", "hi")) and rel <= 1e-6):
+            fail(f"fid_deep {name} {ci} against the Gram identity {gram}")
+        fids[name] = ci
+    one, many, ema_many = fids["raw@1"], fids["raw@100"], fids["ema@100"]
+    if not (one["lo"] > many["hi"] or one["hi"] < many["lo"]):
+        fail(f"the raw base model's fid_deep at 1 and 100 steps overlap: {one} {many}")
+    if not many["hi"] < ema_many["lo"]:
+        fail(f"the raw base model's fid_deep at 100 steps is not below the EMA one's: "
+             f"{many} {ema_many}")
+
+
 def main() -> None:
     try:
         import torch
@@ -1476,7 +1764,7 @@ def main() -> None:
     rows = kernel_phase(torch, shape_calls, train_calls)
     flash_breakdown(torch)
     model_phase(torch, UNet)
-    serve_launches, svc = serve_phase(torch, build)
+    serve_launches, svc, serve_img_s = serve_phase(torch, build)
     trace_phase(torch, svc)
     del svc
     torch.cuda.empty_cache()
@@ -1492,6 +1780,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     latent_train_launches, dit_trained, latents = latent_train_phase(torch, build)
     dit_train_timing_phase(torch, build, dit_trained, latents)
+    del dit_trained, latents
+    torch.cuda.empty_cache()
+    cli_launches = cli_phase(torch, build, serve_img_s)
 
     csrc = "rectified_flow_vision_tpu_torch/ops/csrc/"
     pallas = "rectified_flow_vision_tpu/ops/pallas_kernels.py"
@@ -1534,7 +1825,7 @@ def main() -> None:
     }
     by_path = {"unet_serve": serve_launches, "unet_train": train_launches,
                "dropout_direct": dropout_launches, "latent_serve": latent_serve_launches,
-               "latent_train": latent_train_launches}
+               "latent_train": latent_train_launches, "cli": cli_launches}
     kernels = []
     for name, (src, replaces, per, calls, keep) in sources.items():
         mine = [r for r in rows if r["name"] == name]

@@ -54,6 +54,25 @@ class ImageDataset:
             self.images = np.zeros((0, image_size, image_size, 3), dtype=np.float32)
         print(f"Dataset loaded: {len(self.image_paths)} images")
 
+    @property
+    def images_u8(self) -> np.ndarray:
+        """uint8 copy of the corpus (for the native batch loader); rint
+        before the cast, so f32 noise of the normalization cannot round a
+        grey level down."""
+        return np.clip(np.rint((self.images + 1.0) * 127.5), 0, 255).astype(np.uint8)
+
+    def native_loader(self, batch_size: int, *, seed: int = 0, **kwargs):
+        """The C++ prefetching batch loader over this corpus, or None when
+        its library is not built (or the corpus is smaller than a batch)."""
+        from rectified_flow_vision_tpu_torch.data.native_loader import (
+            NativeBatchLoader,
+            native_available,
+        )
+
+        if not native_available() or len(self) == 0 or batch_size > len(self):
+            return None
+        return NativeBatchLoader(self.images_u8, batch_size, seed=seed, **kwargs)
+
     def __len__(self) -> int:
         return self.images.shape[0]
 
@@ -115,6 +134,10 @@ class ArrayDataset:
     batches = ImageDataset.batches
     num_batches = ImageDataset.num_batches
 
+    def native_loader(self, batch_size: int, **kwargs):
+        """Latents are float-valued; the uint8 C++ loader does not apply."""
+        return None
+
 
 def as_nchw(x: np.ndarray) -> np.ndarray:
     """NHWC -> NCHW (the public tensor API is NCHW, like the reference)."""
@@ -124,3 +147,24 @@ def as_nchw(x: np.ndarray) -> np.ndarray:
 def as_nhwc(x: np.ndarray) -> np.ndarray:
     """NCHW -> NHWC (the internal layout)."""
     return np.transpose(x, (0, 2, 3, 1))
+
+
+def eval_reference_images(image_size: int, n: int) -> np.ndarray:
+    """Held-out synthetic evaluation references (NHWC float32 in [-1, 1]).
+
+    A deterministic set disjoint from the training corpus, from the same
+    procedural recipe: ``data/eval_<size>/`` under the repo root, a pure
+    function of (image_size, n) since generation is sequential from a fixed
+    seed, regenerated whenever fewer than ``n`` images are present.
+    """
+    import shutil
+
+    from rectified_flow_vision_tpu_torch import config
+    from rectified_flow_vision_tpu_torch.utils.download_data import generate_synthetic_images
+
+    d = config.repo_root() / "data" / f"eval_{image_size}"
+    have = len(list_image_paths(d)) if d.exists() else 0
+    if have < n:
+        shutil.rmtree(d, ignore_errors=True)
+        generate_synthetic_images(str(d), n, image_size, seed=4242 + image_size)
+    return ImageDataset(str(d), image_size).images[:n]

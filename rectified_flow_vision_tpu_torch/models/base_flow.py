@@ -26,7 +26,7 @@ pass ``data_format="NHWC"`` to stay in the internal layout.
 Randomness is explicit: the loss draws noise, times and dropout seeds from a
 ``torch.Generator`` on the model's device (or takes them as arguments), and
 the trainers seed one generator per epoch, so a seed fixes the trajectory.
-Resume, the native loader and meshes come with later slices.
+Resume and meshes come with later slices.
 """
 
 from __future__ import annotations
@@ -598,7 +598,6 @@ def reject_unported(**options) -> None:
     items = {
         "mesh": "A9 (parallelism)",
         "fsdp": "A9 (parallelism)",
-        "use_native_loader": "A4 (data: the native batch loader)",
         "resume_dir": "A7 (checkpoint, resume)",
     }
     for name, value in options.items():
@@ -652,19 +651,29 @@ def train_base_flow(
     ``batch_size``) or any re-iterable of NHWC numpy batches. With
     ``ema_decay`` an EMA of the weights is carried and written beside each
     checkpoint as ``*_ema_*``. ``device_epoch`` (the default off the CPU when
-    the corpus fits) keeps the corpus on the device and reads the losses once
-    per epoch. ``mesh``, ``fsdp``, ``use_native_loader`` and ``resume_dir``
-    are not ported yet and raise.
+    the corpus fits and no native loader runs) keeps the corpus on the device
+    and reads the losses once per epoch. ``use_native_loader`` takes the
+    dataset's C++ prefetching loader (``data/native_loader.py``); without its
+    library it logs a warning and uses Python batches, as the JAX trainer
+    does. ``mesh``, ``fsdp`` and ``resume_dir`` are not ported yet and raise.
     """
-    reject_unported(
-        mesh=mesh, fsdp=fsdp, use_native_loader=use_native_loader, resume_dir=resume_dir
-    )
+    reject_unported(mesh=mesh, fsdp=fsdp, resume_dir=resume_dir)
     device = model.device
     is_dataset = hasattr(dataloader, "batches") and hasattr(dataloader, "num_batches")
+    native = None
     if is_dataset:
         if batch_size is None:
             raise ValueError("batch_size is required when passing an ImageDataset")
         steps_per_epoch = dataloader.num_batches(batch_size)
+        if use_native_loader:
+            native = dataloader.native_loader(batch_size, seed=seed)
+            if native is None:
+                log.warning(
+                    "native loader requested but unavailable "
+                    "(build with tools/build_native.sh); using Python batches"
+                )
+            else:
+                steps_per_epoch = native.batches_per_epoch
     else:
         # generic iterable: materialize once, then reshuffle the batch list
         # per epoch (seeded), as a DataLoader with shuffle=True would
@@ -681,7 +690,8 @@ def train_base_flow(
     corpus_host = getattr(dataloader, "images", None) if is_dataset else None
     if device_epoch is None:
         device_epoch = (
-            corpus_host is not None
+            native is None
+            and corpus_host is not None
             and 0 < len(dataloader)
             and corpus_host.nbytes <= DEVICE_EPOCH_MAX_BYTES
             and device.type != "cpu"
@@ -710,7 +720,9 @@ def train_base_flow(
             perm = torch.as_tensor(idx[:end].reshape(-1, batch_size), device=device)
             avg_loss = float(train_epoch(corpus_dev, perm, gen).mean())
         else:
-            if is_dataset:
+            if native is not None:
+                batches = native.epoch(epoch)
+            elif is_dataset:
                 batches = dataloader.batches(batch_size, seed=seed * 100003 + epoch)
             else:
                 order = np.random.default_rng(seed * 100003 + epoch).permutation(
@@ -731,6 +743,8 @@ def train_base_flow(
         if save_path and (epoch + 1) % save_every == 0:
             save_epoch_checkpoints(model, ema, save_path, f"epoch{epoch + 1}", ckpt_ext)
 
+    if native is not None:
+        native.close()
     if save_path:
         save_epoch_checkpoints(model, ema, save_path, "final", ckpt_ext)
     return losses

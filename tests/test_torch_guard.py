@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,6 +38,11 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, rectified_flow_vision_tpu_torch as m\n"
         "import rectified_flow_vision_tpu_torch.serving\n"
+        "import rectified_flow_vision_tpu_torch.main\n"
+        "import rectified_flow_vision_tpu_torch.experiments.benchmark\n"
+        "import rectified_flow_vision_tpu_torch.experiments.train_rectified\n"
+        "import rectified_flow_vision_tpu_torch.data.native_loader\n"
+        "import rectified_flow_vision_tpu_torch.utils.profiling\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'rectified_flow_vision_tpu')]\n"
         "print(bad)\n"
@@ -90,7 +96,6 @@ def test_kernel_sources_are_listed():
         ("base", dict(mesh=object()), "A9"),
         ("base", dict(fsdp=True), "A9"),
         ("base", dict(resume_dir="state"), "A7"),
-        ("base", dict(use_native_loader=True), "A4"),
         ("reflow", dict(mesh=object()), "A9"),
         ("reflow", dict(fsdp=True), "A9"),
         ("reflow", dict(resume_dir="state"), "A7"),
@@ -133,6 +138,96 @@ def test_unported_trainer_options_raise_and_name_their_roadmap_item(trainer, opt
     roadmap = (ROOT / "ROADMAP.md").read_text()
     section_a = roadmap.split("\n### A.", 1)[1].split("\n### B.", 1)[0]
     assert re.search(rf"\*\*{item}\b", section_a), item
+
+
+def _native_corpus(tmp_path):
+    from rectified_flow_vision_tpu_torch.data import ImageDataset
+    from rectified_flow_vision_tpu_torch.utils.download_data import generate_synthetic_images
+
+    generate_synthetic_images(str(tmp_path / "img"), 8, 8, seed=0)
+    return ImageDataset(tmp_path / "img", 8)
+
+
+def _tiny_model():
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+
+    return BaseFlowModel(image_size=8, model_channels=16, channel_mult=[1], num_res_blocks=1,
+                         device="cpu")
+
+
+def test_use_native_loader_takes_the_native_loader(tmp_path, monkeypatch):
+    """``use_native_loader`` (no longer a raise) trains on the C++ loader's
+    batches when its library builds."""
+    from rectified_flow_vision_tpu_torch.data import native_loader
+    from rectified_flow_vision_tpu_torch.models import train_base_flow
+
+    if not native_loader.native_available():
+        pytest.skip("no C++ compiler to build the native loader's library")
+    epochs = []
+    real_epoch = native_loader.NativeBatchLoader.epoch
+
+    def spy(self, epoch):
+        epochs.append(epoch)
+        return real_epoch(self, epoch)
+
+    monkeypatch.setattr(native_loader.NativeBatchLoader, "epoch", spy)
+    losses = train_base_flow(_tiny_model(), _native_corpus(tmp_path), epochs=2, batch_size=4,
+                             use_native_loader=True, progress=False)
+    assert epochs == [0, 1] and len(losses) == 2 and np.isfinite(losses).all()
+
+
+def test_use_native_loader_without_its_library_warns_and_uses_python_batches(
+        tmp_path, monkeypatch, caplog):
+    import logging
+
+    from rectified_flow_vision_tpu_torch.data import native_loader
+    from rectified_flow_vision_tpu_torch.models import train_base_flow
+
+    monkeypatch.setattr(native_loader, "native_available", lambda: False)
+    data = _native_corpus(tmp_path)
+    calls = []
+    real_batches = type(data).batches
+    monkeypatch.setattr(type(data), "batches",
+                        lambda self, *a, **k: calls.append(1) or real_batches(self, *a, **k))
+    logging.getLogger("flow_vision").propagate = True
+    try:
+        with caplog.at_level(logging.WARNING):
+            losses = train_base_flow(_tiny_model(), data, epochs=1, batch_size=4,
+                                     use_native_loader=True, progress=False)
+    finally:
+        logging.getLogger("flow_vision").propagate = False
+    assert calls == [1] and np.isfinite(losses).all()
+    assert any("native loader requested but unavailable" in r.getMessage()
+               for r in caplog.records)
+
+
+def test_pipeline_entry_points_default_to_cuda():
+    from rectified_flow_vision_tpu_torch import main as cli
+    from rectified_flow_vision_tpu_torch.experiments import benchmark, train_base, train_rectified
+    from rectified_flow_vision_tpu_torch.utils.metrics import MetricsCalculator
+    from rectified_flow_vision_tpu_torch.utils.synthnet import SynthNetPerceptual
+
+    for entry in (cli.main, train_base.main, train_base.build_model, train_rectified.main,
+                  benchmark.main, MetricsCalculator, SynthNetPerceptual.load_default):
+        assert inspect.signature(entry).parameters["device"].default == "cuda", entry
+
+
+def test_cli_without_a_card_raises_before_any_step(tmp_path):
+    """``main()`` on the command line is the card's: without one it raises
+    and writes nothing; it does not run on the CPU."""
+    from rectified_flow_vision_tpu_torch.config import Config
+    from rectified_flow_vision_tpu_torch.main import main
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = Config()
+    cfg.data.data_dir = str(tmp_path / "data")
+    cfg.paths.checkpoints = str(tmp_path / "ckpt")
+    cfg.paths.results = str(tmp_path / "results")
+    cfg.save(tmp_path / "c.yaml")
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--offline", "--config", str(tmp_path / "c.yaml")])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["c.yaml"]
 
 
 def test_entry_points_default_to_cuda():
