@@ -15,7 +15,10 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    flash-attention forward at the DiT-S/2 latent shapes (batch 256 and 64,
    1024 tokens, 6 heads of 64) and at 16384 tokens, its backward at batch
    64, both at DiT-XL/2's widths (batch 64, 1024 tokens, 16 heads of 72)
-   and at head widths 4, 12, 136 and 256 (batch 64, 1024 tokens, 6 heads),
+   and at head widths 4, 12, 136, 192, 256 and 320 (batch 64, 1024 tokens,
+   6 heads; bf16 136-256 on the kernels' 192 and 256 instances, 320 and
+   fp32 above 128 on the chunked fp32 kernels), and at the shape of the
+   DiT with 6 heads of 192 of phase 11 (batch 2, 1024 tokens),
    and the standalone dropout at three sizes, in bf16 and fp32,
    against its plain PyTorch version on the same inputs within a stated
    tolerance, with the kernel's, the plain version's and one PyTorch library
@@ -28,7 +31,8 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    same seed same output, other seed other mask. Then each bf16 flash
    kernel alone (forward; delta, dkv and dq of the backward) by the
    profiler's device time, with TFLOP/s and share of the bound, beside
-   SDPA's forward and backward;
+   SDPA's forward and backward, at the DiT-S/2 and DiT-XL/2 shapes and at
+   head width 256;
 4. model: a full-width UNet forward in fp32 at batch 4, kernels on the card
    against the plain path on the CPU;
 5. serve: ``SamplerService`` at full width, batch 256, steps (1, 2, 4), bf16,
@@ -56,7 +60,11 @@ card, outside a checkout, or when any phase fails. Phases, in order:
     the forward, the loss and every parameter's gradient on the card (flash
     kernels forward and backward) against the plain path on the CPU; then
     DiT-XL/2's widths (16 heads of 72) at depth 2, batch 2, the same in fp32
-    and the forward in bf16;
+    and the forward in bf16; then DiT-XL/2's hidden size 1152 in 6 heads of
+    192 (``DIT_WIDE``, depth 2, batch 2): bf16 forward, loss and every
+    gradient on the card (the bf16 flash kernels above head width 128)
+    against the bf16 plain path on the CPU, and the same in fp32 (the
+    chunked fp32 kernels), with exact launch counts;
 12. latent serve: ``SamplerService`` with a ConvVAE (256x256x3, base 64,
     downsample 4; seeded weights for both), batch 256, steps (1, 2, 4), bf16
     flow and bf16 decode, three requests; exact flash launch counts, outputs
@@ -201,8 +209,26 @@ FLASH_BWD_SHAPE = (LATENT["batch"], DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM)
 # this script runs it, the kernel phase holds it against the plain versions
 FLASH_XL_SHAPE = (LATENT["batch"], DIT_TOKENS, 16, 72)
 # head widths no config of the repo has, which the JAX _attention takes: 4
-# and 12 zero-padded to 8 and 16, 136 and 256 on the chunked fp32 kernels
-FLASH_ODD_SHAPES = tuple((LATENT["batch"], DIT_TOKENS, DIT_HEADS, d) for d in (4, 12, 136, 256))
+# and 12 zero-padded to 8 and 16; 136, 192 and 256 on the bf16 kernels' 192
+# and 256 instances (fp32: the chunked kernels); 320 on the chunked kernels
+# in both dtypes (bf16 through fp32 copies)
+FLASH_ODD_SHAPES = tuple((LATENT["batch"], DIT_TOKENS, DIT_HEADS, d)
+                         for d in (4, 12, 136, 192, 256, 320))
+# DiT-XL/2's hidden size 1152 in 6 heads of 192 (DiT(hidden_size=1152,
+# num_heads=6), as the JAX constructor takes it), depth cut from 28 to 2:
+# the model path of the bf16 flash kernels above head width 128, at batch 2
+DIT_WIDE = dict(image_size=64, in_channels=4, backbone="dit", patch_size=2, hidden_size=1152,
+                depth=2, num_heads=6, remat=True)
+DIT_WIDE_SHAPE = (2, DIT_TOKENS, DIT_WIDE["num_heads"],
+                  DIT_WIDE["hidden_size"] // DIT_WIDE["num_heads"])
+# its flash calls in one bf16 forward, then loss and gradients: the forward,
+# the loss's forward and remat's rerun of it; one backward a block
+DIT_WIDE_FWD_CALLS, DIT_WIDE_BWD_CALLS = 3 * DIT_WIDE["depth"], DIT_WIDE["depth"]
+# bf16 loss and gradients, card vs CPU, both in bf16 but rounding at other
+# places: the loss within this share of itself, each gradient within
+# WIDE_BF16_GRAD_RTOL of its parameter's largest gradient entry (as the card
+# tests' small bf16 DiTs)
+WIDE_BF16_LOSS_RTOL, WIDE_BF16_GRAD_RTOL = 3e-2, 6e-2
 DROPOUT_SHAPES = ((1024, 1024), (64, 1024, 384), (256, 64, 64, 64))
 # The CLI phase: the port's main(argv) on configs/config.yaml with every width
 # and recipe setting its own, every path under build/cli_smoke/, and these cuts
@@ -466,8 +492,10 @@ def flash_bwd_cost(shape):
 def flash_cases(torch, randn):
     """Flash attention forward at the DiT-S/2 latent shapes (12 calls per DiT
     forward at batch 256; 24 per ``remat`` train step at batch 64), at 16384
-    tokens and at DiT-XL/2's widths, and its backward at batch 64 (12 calls
-    per train step) and at DiT-XL/2's widths. q, k, v are the three views of
+    tokens, at DiT-XL/2's widths, at the odd head widths and at the shape of
+    the DiT with 6 heads of 192 (6 calls in its bf16 run), and its backward
+    at batch 64 (12 calls per train step), at the same widths and at that
+    DiT's shape (2 calls). q, k, v are the three views of
     one [B, T, 3, H, D] tensor, as DiT hands them over. Bound: forward
     4 B H T^2 D flops, backward 2.5 times that; every input read once, every
     output written once."""
@@ -479,8 +507,10 @@ def flash_cases(torch, randn):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
 
+    fwd_calls = {FLASH_FWD_SHAPES[0]: DIT_DEPTH, FLASH_FWD_SHAPES[1]: 2 * DIT_DEPTH,
+                 DIT_WIDE_SHAPE: DIT_WIDE_FWD_CALLS}
     cases = []
-    for shape in FLASH_FWD_SHAPES + (FLASH_XL_SHAPE,) + FLASH_ODD_SHAPES:
+    for shape in FLASH_FWD_SHAPES + (FLASH_XL_SHAPE,) + FLASH_ODD_SHAPES + (DIT_WIDE_SHAPE,):
         b, t, h, d = shape
 
         def make(dt, shape=shape):
@@ -492,14 +522,13 @@ def flash_cases(torch, randn):
                 lambda: sdpa(q, k, v),
             )
         elems = b * t * h * d
-        calls = 0 if d != DIT_HEAD_DIM else {BATCH: DIT_DEPTH,
-                                             LATENT["batch"]: 2 * DIT_DEPTH}.get(b, 0)
-        cases.append(("flash_attention", shape, calls, make,
+        cases.append(("flash_attention", shape, fwd_calls.get(shape, 0), make,
                       lambda es, e=elems, r=b * h * t: 4 * e * es + 4 * r,
                       flash_fwd_cost(shape)[1]))
 
     for shape, calls in ((FLASH_BWD_SHAPE, DIT_DEPTH), (FLASH_XL_SHAPE, 0),
-                         *((odd, 0) for odd in FLASH_ODD_SHAPES)):
+                         *((odd, 0) for odd in FLASH_ODD_SHAPES),
+                         (DIT_WIDE_SHAPE, DIT_WIDE_BWD_CALLS)):
         def make(dt, shape=shape):
             b, t, h, d = shape
             q, k, v = randn(b, t, 3, h, d, dtype=dt).unbind(2)
@@ -527,9 +556,10 @@ FLASH_KERNELS = (("flash_fwd", "forward"), ("flash_delta", "delta"), ("flash_dkv
 def flash_breakdown(torch) -> None:
     """Each bf16 flash kernel alone: device ms per call by kernel (forward;
     delta, dkv and dq of the backward) from the profiler over 10 calls each,
-    at the DiT-S/2 shapes (forward at batch 256, backward at batch 64) and at
-    DiT-XL/2's widths, with TFLOP/s (of the products each kernel runs, at the
-    true head width) and the share of the bound, beside SDPA's forward and
+    at the DiT-S/2 shapes (forward at batch 256, backward at batch 64), at
+    DiT-XL/2's widths and at head width 256 (the kernels above 128), with
+    TFLOP/s (of the products each kernel runs, at the true head width) and
+    the share of the bound, beside SDPA's forward and
     backward timed with CUDA events in the same run. The split backward
     recomputes S and dP in dq (seven products where the bound counts five),
     so it can reach at most 5/7 of its bound."""
@@ -540,7 +570,8 @@ def flash_breakdown(torch) -> None:
 
     reps = 10
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    for shape in (FLASH_FWD_SHAPES[0], FLASH_BWD_SHAPE, FLASH_XL_SHAPE):
+    wide = next(s for s in FLASH_ODD_SHAPES if s[3] == FA.HEAD_DIM_MAX_BF16)
+    for shape in (FLASH_FWD_SHAPES[0], FLASH_BWD_SHAPE, FLASH_XL_SHAPE, wide):
         b, t, h, d = shape
         q, k, v = (torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
                    .to(torch.bfloat16).unbind(2))
@@ -861,6 +892,21 @@ def trace_phase(torch, svc) -> None:
                    f"one 4-step batch of {BATCH}")
 
 
+def worst_gradient(torch, cpu, gpu, what: str, rtol=GRAD_RTOL, atol=GRAD_ATOL):
+    """(ratio, parameter name) of the card gradient farthest from the CPU's,
+    as a share of its tolerance: rtol x the parameter's largest CPU gradient
+    entry + atol. Fails on a missing or non-finite gradient."""
+    worst, worst_name = 0.0, ""
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        if pg.grad is None or not torch.isfinite(pg.grad).all():
+            fail(f"{what}gradient of {name} is missing or non-finite")
+        err = float((pg.grad.cpu() - pc.grad).abs().max())
+        ratio = err / (rtol * float(pc.grad.abs().max()) + atol)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    return worst, worst_name
+
+
 def gradient_phase(torch, build) -> None:
     """Loss and every parameter's gradient of the full-width UNet in fp32:
     kernels forward and the gn_silu_backward kernel on the card, against the
@@ -884,15 +930,7 @@ def gradient_phase(torch, build) -> None:
     if dict(build.LAUNCHES) != all_counts(build, **TRAIN_STEP_LAUNCHES):
         fail(f"loss + backward launched {dict(build.LAUNCHES)}, expected {TRAIN_STEP_LAUNCHES}")
     loss_err = abs(float(got.detach()) - float(want.detach()))
-    worst, worst_name = 0.0, ""
-    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
-        if pg.grad is None or not torch.isfinite(pg.grad).all():
-            fail(f"gradient of {name} is missing or non-finite")
-        ref = pc.grad
-        err = float((pg.grad.cpu() - ref).abs().max())
-        ratio = err / (GRAD_RTOL * float(ref.abs().max()) + GRAD_ATOL)
-        if ratio > worst:
-            worst, worst_name = ratio, name
+    worst, worst_name = worst_gradient(torch, cpu, gpu, "")
     log(f"gradient fp32 batch 4, dropout {DROP_RATE}: loss {float(got.detach()):.6f} (CPU plain "
         f"{float(want.detach()):.6f}, |diff| {loss_err:.2e}, atol {LOSS_ATOL}); worst gradient "
         f"{worst_name} at {worst:.3f} of its tolerance ({GRAD_RTOL} x max|g| + {GRAD_ATOL})")
@@ -1152,14 +1190,7 @@ def dit_model_phase(torch, build) -> None:
     if dict(build.LAUNCHES) != expect:
         fail(f"DiT loss + backward launched {dict(build.LAUNCHES)}, expected {expect}")
     loss_err = abs(float(loss.detach()) - float(ref.detach()))
-    worst, worst_name = 0.0, ""
-    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
-        if pg.grad is None or not torch.isfinite(pg.grad).all():
-            fail(f"DiT gradient of {name} is missing or non-finite")
-        err = float((pg.grad.cpu() - pc.grad).abs().max())
-        ratio = err / (GRAD_RTOL * float(pc.grad.abs().max()) + GRAD_ATOL)
-        if ratio > worst:
-            worst, worst_name = ratio, name
+    worst, worst_name = worst_gradient(torch, cpu, gpu, "DiT ")
     log(f"DiT-S/2 gradient fp32 batch 4, remat: loss {float(loss.detach()):.6f} (CPU plain "
         f"{float(ref.detach()):.6f}, |diff| {loss_err:.2e}, atol {LOSS_ATOL}); worst gradient "
         f"{worst_name} at {worst:.3f} of its tolerance ({GRAD_RTOL} x max|g| + {GRAD_ATOL})")
@@ -1214,14 +1245,7 @@ def dit_xl_phase(torch, build) -> None:
     if dict(build.LAUNCHES) != expect:
         fail(f"DiT-XL widths loss + backward launched {dict(build.LAUNCHES)}, expected {expect}")
     loss_err = abs(float(loss.detach()) - float(ref.detach()))
-    worst, worst_name = 0.0, ""
-    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
-        if pg.grad is None or not torch.isfinite(pg.grad).all():
-            fail(f"DiT-XL widths gradient of {name} is missing or non-finite")
-        err = float((pg.grad.cpu() - pc.grad).abs().max())
-        ratio = err / (GRAD_RTOL * float(pc.grad.abs().max()) + GRAD_ATOL)
-        if ratio > worst:
-            worst, worst_name = ratio, name
+    worst, worst_name = worst_gradient(torch, cpu, gpu, "DiT-XL widths ")
     log(f"DiT-XL/2 widths (hidden 1152, 16 heads of 72), depth {depth}, batch 2, all parameters "
         f"random: forward vs the CPU plain path max_abs fp32 {errs['float32']:.3e} (atol "
         f"{MODEL_ATOL}), bf16 {errs['bfloat16']:.3e} (rtol {XL_BF16_RTOL} of max|v|); fp32 loss "
@@ -1229,6 +1253,77 @@ def dit_xl_phase(torch, build) -> None:
         f"{worst_name} at {worst:.3f} of its tolerance ({GRAD_RTOL} x max|g| + {GRAD_ATOL})")
     if loss_err > LOSS_ATOL or worst > 1.0:
         fail("DiT-XL widths loss or gradients on the card differ from the CPU plain path")
+
+
+def dit_wide_phase(torch, build):
+    """A head width above 128 on a model path (``DIT_WIDE``: hidden 1152 in
+    6 heads of 192, depth 2) at batch 2 on 64x64x4 latents (1024 tokens), all
+    parameters random: the bf16 forward, loss and every gradient on the card
+    (the bf16 flash kernels' 192 instance, ``remat``) against the same bf16
+    plain path on the CPU, then the fp32 ones (the chunked fp32 kernels)
+    against the CPU. Returns the bf16 run's flash launches under the names of
+    the kernels entries of the 192 / 256 instances: every bf16 flash call of
+    this model takes them."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+    from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
+
+    depth, (bsz, _, _, hd) = DIT_WIDE["depth"], DIT_WIDE_SHAPE
+    if not FA.HEAD_DIM_MAX_F32 < FA.kernel_head_dim(hd, torch.bfloat16) <= FA.HEAD_DIM_MAX_BF16:
+        fail(f"head width {hd} does not take the bf16 kernels above 128")
+    g = torch.Generator().manual_seed(SEED + 18)
+    x1 = torch.tanh(torch.randn((bsz, 64, 64, 4), generator=g))
+    x0 = torch.randn((bsz, 64, 64, 4), generator=g)
+    t = torch.rand((bsz,), generator=g)
+    launches, notes = None, []
+    for dname in ("bfloat16", "float32"):
+        cpu = BaseFlowModel(seed=SEED, device="cpu", compute_dtype=dname, **DIT_WIDE)
+        randomize_zero_leaves(torch, cpu, SEED + 19)
+        gpu = BaseFlowModel(seed=SEED, device="cuda", compute_dtype=dname, **DIT_WIDE)
+        gpu.load_state_dict(cpu.state_dict())
+        dt = getattr(torch, dname)
+        build.reset_launches()
+        with torch.no_grad():
+            want = cpu.velocity_net(x0, t, dtype=dt).float()
+            got = gpu.velocity_net(x0.cuda(), t.cuda(), dtype=dt).float().cpu()
+        loss = gpu.loss_fn(x1.cuda(), x0=x0.cuda(), t=t.cuda())
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        expect = all_counts(build, flash_attention=DIT_WIDE_FWD_CALLS,
+                            flash_attention_backward=DIT_WIDE_BWD_CALLS)
+        if counts != expect:
+            fail(f"DiT head 192 {dname} forward, loss and backward launched {counts}, "
+                 f"expected {expect}")
+        if dname == "bfloat16":
+            launches = {"flash_attention_wide": counts["flash_attention"],
+                        "flash_attention_wide_backward": counts["flash_attention_backward"]}
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        tol = MODEL_ATOL if dname == "float32" else XL_BF16_RTOL * scale
+        if not torch.isfinite(got).all() or not err <= tol or scale < 0.05:
+            fail(f"DiT head 192 {dname} forward differs from the CPU plain path by {err:.3e} "
+                 f"(tolerance {tol:.3e}, max|v| {scale:.3f})")
+        ref = cpu.loss_fn(x1, x0=x0, t=t)
+        ref.backward()
+        loss_err = abs(float(loss.detach()) - float(ref.detach()))
+        if dname == "float32":
+            loss_tol, rtol, atol = LOSS_ATOL, GRAD_RTOL, GRAD_ATOL
+        else:
+            loss_tol = WIDE_BF16_LOSS_RTOL * abs(float(ref.detach()))
+            rtol, atol = WIDE_BF16_GRAD_RTOL, 0.0
+        worst, worst_name = worst_gradient(torch, cpu, gpu, f"DiT head 192 {dname} ", rtol, atol)
+        notes.append(f"{dname}: forward max_abs {err:.3e} (tolerance {tol:.3e}), loss "
+                     f"{float(loss.detach()):.6f} (CPU {float(ref.detach()):.6f}, tolerance "
+                     f"{loss_tol:.2e}), worst gradient {worst_name} at {worst:.3f} of its "
+                     f"tolerance ({rtol} x max|g| + {atol})")
+        if loss_err > loss_tol or worst > 1.0:
+            fail(f"DiT head 192 {dname} loss or gradients differ from the CPU plain path: "
+                 + notes[-1])
+        del cpu, gpu, loss, ref
+    log(f"DiT hidden 1152, 6 heads of 192, depth {depth}, batch {bsz}, all parameters random, "
+        "kernels on the card vs the plain path on the CPU; " + "; ".join(notes)
+        + f"; bf16 launches {launches}")
+    return launches
 
 
 def latent_serve_phase(torch, build):
@@ -1740,6 +1835,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from rectified_flow_vision_tpu_torch.models.unet import UNet
     from rectified_flow_vision_tpu_torch.ops import build
+    from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
     from rectified_flow_vision_tpu_torch.ops import fused as fused_mod
 
     log(f"card: {card_line()}")
@@ -1776,6 +1872,7 @@ def main() -> None:
     dropout_launches = dropout_phase(torch, build)
     dit_model_phase(torch, build)
     dit_xl_phase(torch, build)
+    dit_wide_launches = dit_wide_phase(torch, build)
     latent_serve_launches = latent_serve_phase(torch, build)
     torch.cuda.empty_cache()
     latent_train_launches, dit_trained, latents = latent_train_phase(torch, build)
@@ -1788,8 +1885,18 @@ def main() -> None:
     pallas = "rectified_flow_vision_tpu/ops/pallas_kernels.py"
     unet_forward = "one UNet eval forward at batch 256: sum over its calls"
     unet_step = "one UNet train step at batch 256: sum over its calls"
+    dit_attention = "rectified_flow_vision_tpu/models/dit.py:127"
+    wide_run = (f"one bf16 forward, then loss and gradients, of the DiT with 6 heads of 192 "
+                f"(depth {DIT_WIDE['depth']}, batch {DIT_WIDE_SHAPE[0]}, {DIT_TOKENS} tokens)")
+
+    def wide(r):  # a row on the bf16 kernels' 192 / 256 instances
+        return r["dtype"] == "bfloat16" and (
+            FA.HEAD_DIM_MAX_F32 < FA.kernel_head_dim(r["shape"][3], torch.bfloat16)
+            <= FA.HEAD_DIM_MAX_BF16)
+
     # name -> (source, TPU kernel it replaces, what `ms` sums, calls in that unit,
-    #          filter on the kernel phase's rows)
+    #          filter on the kernel phase's rows); ms and bounds sum the kept
+    #          bf16 rows, each times its calls on the main path
     sources = {
         "gn_silu": (csrc + "gn_silu.cu", pallas + ":100", unet_forward, per_forward["gn_silu"],
                     None),
@@ -1810,13 +1917,21 @@ def main() -> None:
             "dropout_mask_apply driven directly", sum(train_calls["gn_silu_dropout"].values()),
             None),
         "flash_attention": (
-            csrc + "flash_attention.cu", "rectified_flow_vision_tpu/models/dit.py:127",
+            csrc + "flash_attention.cu", dit_attention,
             "one DiT-S/2 forward at batch 256, 1024 tokens: its 12 calls", DIT_DEPTH,
             lambda r: r["shape"][0] == BATCH),
         "flash_attention_backward": (
-            csrc + "flash_attention.cu", "rectified_flow_vision_tpu/models/dit.py:127",
+            csrc + "flash_attention.cu", dit_attention,
             "one DiT-S/2 train step at batch 64, 1024 tokens: its 12 backward calls "
-            "(delta, dkv and dq kernels)", DIT_DEPTH, None),
+            "(delta, dkv and dq kernels)", DIT_DEPTH, lambda r: not wide(r)),
+        "flash_attention_wide": (
+            csrc + "flash_attention.cu", dit_attention + " (head widths 129-256)",
+            f"{wide_run}: its {DIT_WIDE_FWD_CALLS} forward calls (the 192 instance)",
+            DIT_WIDE_FWD_CALLS, wide),
+        "flash_attention_wide_backward": (
+            csrc + "flash_attention.cu", dit_attention + " (head widths 129-256)",
+            f"{wide_run}: its {DIT_WIDE_BWD_CALLS} backward calls (delta, flash_dkv_wide and "
+            "flash_dq_wide kernels at 192)", DIT_WIDE_BWD_CALLS, wide),
         "dropout": (
             csrc + "dropout.cu", pallas + ":264",
             "one call at each of the three sizes; no model of either package calls it: its "
@@ -1825,17 +1940,22 @@ def main() -> None:
     }
     by_path = {"unet_serve": serve_launches, "unet_train": train_launches,
                "dropout_direct": dropout_launches, "latent_serve": latent_serve_launches,
-               "latent_train": latent_train_launches, "cli": cli_launches}
+               "latent_train": latent_train_launches, "cli": cli_launches,
+               "dit_head_192": dit_wide_launches}
+    # the wrapper whose kernel-phase rows an entry reads, where it is not the entry's own name
+    row_names = {"flash_attention_wide": "flash_attention",
+                 "flash_attention_wide_backward": "flash_attention_backward"}
     kernels = []
     for name, (src, replaces, per, calls, keep) in sources.items():
-        mine = [r for r in rows if r["name"] == name]
-        bf = [r for r in mine if r["dtype"] == "bfloat16" and (keep is None or keep(r))]
+        mine = [r for r in rows
+                if r["name"] == row_names.get(name, name) and (keep is None or keep(r))]
+        bf = [r for r in mine if r["dtype"] == "bfloat16"]
 
         def total(key):  # bf16: sum over the calls at their shapes
             return sum(r[key] * r["calls"] for r in bf)
 
         by_bytes = sum(r["bound_ms"] * r["calls"] for r in bf if r["bound_by"] == "bytes")
-        paths = {path: counts[name] for path, counts in by_path.items()}
+        paths = {path: counts.get(name, 0) for path, counts in by_path.items()}
         launches = sum(paths.values())
         if launches <= 0:
             fail(f"the main paths never launched {name}")

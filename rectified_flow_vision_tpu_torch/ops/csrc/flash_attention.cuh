@@ -20,7 +20,8 @@ int bwd_f32(const float* q, const float* k, const float* v, const float* d_out, 
             long long gh, float scale, cudaStream_t stream);
 
 // Any D > 128 (a multiple of 8), fp32, in 64-column chunks: the *_wide
-// kernels of flash_attention_f32.cu, with the layouts above.
+// kernels of flash_attention_f32.cu, with the layouts above (fp32 heads
+// above 128, and bf16 heads above 256 on fp32 copies).
 int fwd_f32_wide(const float* q, const float* k, const float* v, float* o, float* lse, int B,
                  int T, int H, int D, long long sb, long long st, long long sh, float scale,
                  cudaStream_t stream);

@@ -10,12 +10,14 @@
 // most 128) is zero-padded to DP, the next multiple of 16, on its way into
 // shared memory; columns past D are computed as zeros and not stored.
 //
-// Wider heads (D > 128, a multiple of 8; bf16 inputs on fp32 copies) take
-// the *_wide kernels: D in chunks of 64 columns. The logits (and dP) are
-// summed over every chunk, one pair of 64 x 64 tiles in shared memory at a
-// time, and each block computes one 64-column chunk of its output (grid x:
-// row tile x output chunk), so a block recomputes the logits for the chunk
-// it writes. Shared memory and registers stay those of D = 64 at any D.
+// Wider heads (D > 128, a multiple of 8: the fp32 path, and bf16 inputs
+// above D = 256 on fp32 copies; bf16 up to 256 has wgmma kernels of its own
+// in flash_attention.cu) take the *_wide kernels: D in chunks of 64
+// columns. The logits (and dP) are summed over every chunk, one pair of
+// 64 x 64 tiles in shared memory at a time, and each block computes one
+// 64-column chunk of its output (grid x: row tile x output chunk), so a
+// block recomputes the logits for the chunk it writes. Shared memory and
+// registers stay those of D = 64 at any D.
 #include "flash_attention.cuh"
 #include "mma.cuh"
 

@@ -7,19 +7,20 @@ non-causal multi-head attention over q, k, v ``[B, T, H, D]``, scale
 1/sqrt(D), fp32 softmax. Bound by operations on the H100
 (``csrc/flash_attention.cu``); nothing of size T^2 reaches device memory.
 
-Head widths: every D >= 1, as the JAX ``_attention``. D % 8 == 0 from 8 to
-128 is read in place (DiT-S, B and L give 64, XL 72). Any other D up to 128
-is zero-padded in the head axis, in one copy of q, k and v, to the next
-multiple of 8 (``padded_head_dim``; a TMA box cannot hold a bf16 row of 24
-bytes), and the kernels run at scale 1/sqrt(D) of the true D: zero columns
-add nothing to Q K^T, dP or delta and give zero output columns, which are
-sliced off. Widths above 128 (padded to a multiple of 8 where needed) take
-the chunked fp32 kernels, which sum the logits over 64-column chunks of D;
-bf16 inputs go through them on fp32 copies. ``kernel_head_dim`` gives the
-width the kernels are compiled for: the bf16 kernels pad D in shared memory
-to 64 or 128 (one or two 128-byte TMA boxes, columns past D zero-filled),
-the fp32 kernels to the next multiple of 16, the chunked ones to a multiple
-of 64.
+Head widths: every D >= 1, as the JAX ``_attention``. A D % 8 == 0 is read
+in place (DiT-S, B and L give 64, XL 72). Any other D is zero-padded in the
+head axis, in one copy of q, k and v, to the next multiple of 8
+(``padded_head_dim``; a TMA box cannot hold a bf16 row of 24 bytes), and the
+kernels run at scale 1/sqrt(D) of the true D: zero columns add nothing to
+Q K^T, dP or delta and give zero output columns, which are sliced off.
+``kernel_head_dim`` gives the width the kernels are compiled for. The bf16
+kernels (``wgmma`` + TMA) take D up to 256 (``HEAD_DIM_MAX_BF16``) and pad it
+in shared memory to 64, 128, 192 or 256 (one to four 128-byte TMA boxes,
+columns past D zero-filled); above 128 they stream 64-key tiles and split
+dkv and dq between their warpgroups. The fp32 kernels take D up to 128
+(``HEAD_DIM_MAX_F32``), padded to the next multiple of 16. Wider fp32 heads,
+and bf16 heads wider than 256 on fp32 copies, take the chunked fp32 kernels,
+which sum the logits over 64-column chunks of D.
 
 ``use_flash`` is the JAX package's rule on shape (``dit.py:131-135``): the
 kernel where T >= 1024 and T % 128 == 0, below that the plain attention that
@@ -53,7 +54,8 @@ Tensor = torch.Tensor
 FLASH_MIN_SEQ = 1024  # the JAX package's _FLASH_MIN_SEQ
 FLASH_SEQ_MULTIPLE = 128  # its smallest valid block (_flash_block_sizes)
 KERNEL_TILE = 128  # the kernels take T in multiples of their 128-row blocks
-HEAD_DIM_MAX = 128  # the widest head of the bf16 and fp32 kernels; wider: chunked fp32
+HEAD_DIM_MAX_BF16 = 256  # the widest head of the bf16 kernels; wider: chunked fp32
+HEAD_DIM_MAX_F32 = 128  # the widest head of the fp32 kernels; wider: chunked fp32
 HEAD_DIM_CHUNK = 64  # the chunked kernels' column chunk
 
 
@@ -70,16 +72,21 @@ def padded_head_dim(d: int) -> int:
     return -(-d // 8) * 8
 
 
+def _chunked(dk: int, dtype: torch.dtype) -> bool:
+    """Whether a padded head width ``dk`` takes the chunked fp32 kernels."""
+    return dk > (HEAD_DIM_MAX_BF16 if dtype == torch.bfloat16 else HEAD_DIM_MAX_F32)
+
+
 def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
     """The head width the kernels are compiled for that takes D = ``d``
-    (after ``padded_head_dim``): bf16 64 or 128, fp32 a multiple of 16, and
-    above 128 a multiple of 64 (the chunked fp32 kernels, for both dtypes).
-    Raises only for d < 1."""
+    (after ``padded_head_dim``): bf16 the next of 64, 128, 192 and 256, fp32
+    the next multiple of 16 up to 128; above those a multiple of 64 (the
+    chunked fp32 kernels, for both dtypes). Raises only for d < 1."""
     dk = padded_head_dim(d)
-    if dk > HEAD_DIM_MAX:
+    if _chunked(dk, dtype):
         return -(-dk // HEAD_DIM_CHUNK) * HEAD_DIM_CHUNK
     if dtype == torch.bfloat16:
-        return 64 if dk <= 64 else 128
+        return -(-dk // 64) * 64
     return -(-dk // 16) * 16
 
 
@@ -183,11 +190,12 @@ def _widen(ts: Sequence[Tensor], dk: int, dtype: torch.dtype) -> Tuple[Tensor, .
     return buf.unbind(2)
 
 
-def _kernel_inputs(q, k, v, d: int, dp: int) -> Tuple[Tensor, Tensor, Tensor]:
+def _kernel_inputs(q, k, v, d: int) -> Tuple[Tensor, Tensor, Tensor]:
     """q, k, v at the width and dtype the kernels take: in place where D is a
-    multiple of 8 in the kernels' own dtype, else one padded copy."""
+    multiple of 8 in the kernels' own dtype (bf16 up to D = 256), else one
+    padded copy (fp32 for the chunked kernels)."""
     dk = padded_head_dim(d)
-    work = torch.float32 if dp > HEAD_DIM_MAX else q.dtype  # the chunked kernels are fp32
+    work = torch.float32 if _chunked(dk, q.dtype) else q.dtype
     if dk == d and work == q.dtype:
         return _shared_strides(q, k, v)
     return _widen((q, k, v), dk, work)
@@ -198,7 +206,7 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor) -> Tuple[Tensor, Tenso
     lse [B, H, T] fp32)."""
     b, t, h, d, dp = _check(q, k, v, "flash_attention")
     dtype = q.dtype
-    q, k, v = _kernel_inputs(q, k, v, d, dp)
+    q, k, v = _kernel_inputs(q, k, v, d)
     dk = q.shape[-1]
     out = torch.empty((b, t, h, dk), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
@@ -226,7 +234,7 @@ def flash_attention_backward_cuda(
     build.require(lse, "lse", device=q.device, dtype=torch.float32, shape=(b, h, t))
     d_out = d_out.contiguous()
     build.require(d_out, "d_out", device=q.device, dtype=dtype, shape=(b, t, h, d))
-    q, k, v = _kernel_inputs(q, k, v, d, dp)
+    q, k, v = _kernel_inputs(q, k, v, d)
     dk = q.shape[-1]
     if dk != d or q.dtype != dtype:  # contiguous [B, T, H, dk] each
         out, d_out = (F.pad(x.to(q.dtype), (0, dk - d)) for x in (out, d_out))

@@ -9,10 +9,11 @@ Shapes are small but cover ragged tiles (M not a multiple of the conv's
 128-row tile, boxes wider or taller than the image, 35 tokens in attention,
 C not a multiple of 32), every conv shape of the flagship forward, the
 attention block at 1024 and 4096 tokens, head widths 4 to 64 (attention
-block) and 4 to 256 (flash attention, DiT-XL's 72 among them; 4, 12 and 20
-zero-padded, 136 and 256 chunked), every GroupNorm slab of the flagship,
-and group widths that take gn_silu's narrower vectors (2 and 3 channels a
-group). Tolerances as in chip_smoke.py: fp32 1e-4 (gn_silu) / 1e-3 (conv3x3,
+block) and 4 to 320 (flash attention, DiT-XL's 72 among them; 4, 12 and 20
+zero-padded; 136, 192, 200 and 256 on the bf16 kernels' 192 / 256 instances
+in bf16 and on the chunked kernels in fp32; 320 chunked in both), every
+GroupNorm slab of the flagship, and group widths that take gn_silu's
+narrower vectors (2 and 3 channels a group). Tolerances as in chip_smoke.py: fp32 1e-4 (gn_silu) / 1e-3 (conv3x3,
 attention; reordered sums, cuDNN's algorithm choice), bf16 one rounding
 against two or three (2e-2 rtol, 3e-2 atol, 6e-2 for attention); the
 backward kernels against their plain versions' formulas at fp32 1e-4 and
@@ -438,13 +439,17 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rto
 
 # head widths 8 to 128 (DiT-S/B/L 64, XL 72; the bf16 kernels pad to 64 or
 # 128, the fp32 ones to a multiple of 16), T a multiple of 128, the
-# 16384-token shape, and widths the wrapper zero-pads (4, 12, 20) or the
-# chunked fp32 kernels take (136, 256)
+# 16384-token shape, widths the wrapper zero-pads (4, 12, 20), widths above
+# 128 (136, 192, 200, 256: bf16 on the 192 / 256 kernels, packed and
+# contiguous; fp32 chunked) and 320 (chunked in both dtypes)
 FLASH_FWD_CASES = [((2, 1024, 6, 64), True), ((1, 1152, 3, 64), False), ((2, 1024, 4, 32), True),
                    ((2, 1024, 4, 72), True), ((1, 1152, 2, 72), False), ((1, 1024, 2, 128), True),
                    ((1, 1152, 2, 128), False), ((1, 1024, 3, 8), True), ((1, 1024, 2, 96), False),
                    ((2, 16384, 6, 64), True), ((1, 1024, 3, 4), True), ((2, 1024, 2, 12), False),
-                   ((1, 1024, 2, 20), True), ((1, 1024, 2, 136), True), ((1, 1152, 2, 256), False)]
+                   ((1, 1024, 2, 20), True), ((1, 1024, 2, 136), True), ((1, 1152, 2, 256), False),
+                   ((1, 1024, 2, 136), False), ((2, 1024, 3, 192), True), ((1, 1152, 2, 192), False),
+                   ((1, 1024, 2, 200), True), ((1, 1152, 2, 200), False), ((2, 1024, 3, 256), True),
+                   ((1, 1024, 2, 320), True)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -466,7 +471,11 @@ def test_flash_attention_forward(dev, dtype, shape, packed):
                                           ((2, 1024, 4, 72), True), ((1, 1152, 2, 72), False),
                                           ((1, 1024, 2, 128), True), ((1, 1024, 3, 8), False),
                                           ((1, 1024, 3, 4), True), ((1, 1024, 2, 12), False),
-                                          ((1, 1024, 2, 136), True), ((1, 1024, 2, 256), False)])
+                                          ((1, 1024, 2, 136), True), ((1, 1024, 2, 256), False),
+                                          ((1, 1024, 2, 136), False), ((2, 1024, 3, 192), True),
+                                          ((1, 1152, 2, 192), False), ((1, 1024, 2, 200), True),
+                                          ((1, 1152, 2, 200), False), ((2, 1024, 3, 256), True),
+                                          ((1, 1024, 2, 320), True)])
 def test_flash_attention_backward(dev, dtype, shape, packed):
     """dq, dk, dv of the kernels against the plain backward (the same
     formulas) and against autograd of the plain forward; two runs give the
@@ -492,10 +501,58 @@ def test_flash_attention_backward(dev, dtype, shape, packed):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+class _LibrarySpy:
+    """The kernel library with every C entry point's arguments recorded."""
+
+    def __init__(self, lib, fail=False):
+        self.lib, self.fail, self.calls = lib, fail, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls.append((name, args))
+            return 1 if self.fail and name.startswith("rfv_flash") else fn(*args)
+        return call
+
+
+@pytest.mark.parametrize("d", [136, 192, 200, 256, 320])
+def test_flash_attention_bf16_routes_by_head_width(dev, monkeypatch, d):
+    """bf16 at 128 < D <= 256 reaches the C entry points in bf16 (no fp32
+    copy) at the 192 / 256 kernels' width, never the plain version; at 320
+    it reaches the chunked kernels as fp32. A failed launch raises: no
+    fallback to the chunked kernels or the plain version."""
+    q, k, v = _qkv(dev, torch.bfloat16, 1, 1024, 2, d)
+    g = torch.randn(q.shape, generator=_gen(dev, 15), device=dev).to(torch.bfloat16)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor took the plain version")
+    monkeypatch.setattr(FA, "flash_attention_plain", plain)
+    monkeypatch.setattr(FA, "flash_attention_backward_plain", plain)
+    spy = _LibrarySpy(build.library())
+    monkeypatch.setattr(build, "library", lambda: spy)
+    out, lse = FA.flash_attention_cuda(q, k, v)
+    FA.flash_attention_backward_cuda(q, k, v, out, lse, g)
+    wide = d <= FA.HEAD_DIM_MAX_BF16
+    code = build.DTYPE_CODES[torch.bfloat16 if wide else torch.float32]
+    (fwd, fa), (bwd, ba) = spy.calls
+    assert (fwd, fa[9], fa[14]) == ("rfv_flash_attention_fwd", -(-d // 64) * 64, code)
+    assert (bwd, ba[14], ba[22]) == ("rfv_flash_attention_bwd", fa[9], code)
+    if wide:  # q, k, v read in place
+        assert fa[:3] == tuple(x.data_ptr() for x in (q, k, v))
+        failing = _LibrarySpy(spy.lib, fail=True)
+        monkeypatch.setattr(build, "library", lambda: failing)
+        before = dict(build.LAUNCHES)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            FA.flash_attention_cuda(q, k, v)
+        assert build.LAUNCHES == before
+
+
 def test_flash_attention_dispatch_and_rejections(dev):
     """Below 1024 tokens, or off a multiple of 128, the plain attention runs
     on the card too (the JAX package's rule); every head width runs a kernel
-    (20 zero-padded, 136 chunked); what the kernel does not take raises."""
+    (20 zero-padded, 136 chunked in fp32); bf16 up to D = 256 reaches the
+    kernels with no fp32 copy; what the kernel does not take raises."""
     q, k, v = _qkv(dev, torch.float32, 2, 256, 2, 64)
     before = build.LAUNCHES["flash_attention"]
     out = fused.flash_attention(q, k, v)
@@ -507,6 +564,9 @@ def test_flash_attention_dispatch_and_rejections(dev):
         out = fused.flash_attention(q, k, v)
         assert build.LAUNCHES["flash_attention"] == before + 1 and out.shape == q.shape
         torch.testing.assert_close(out, FA.flash_attention_plain(q, k, v), **FLASH_TOL[q.dtype])
+    for d in (72, 136, 200, 256):
+        q, k, v = _qkv(dev, torch.bfloat16, 1, 1024, 2, d)
+        assert all(x.dtype == torch.bfloat16 for x in FA._kernel_inputs(q, k, v, d))
     with pytest.raises(ValueError, match="head dimension"):
         FA.flash_attention_cuda(*_qkv(dev, torch.float32, 1, 1024, 2, 0))
     with pytest.raises(ValueError, match="tile"):

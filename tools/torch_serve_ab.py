@@ -19,6 +19,9 @@ checkout's kernels and reads, from random weights (seed 0), in bf16:
 - ``flash_fwd_ms`` / ``flash_bwd_ms``: the flash kernels' device time (CUDA
   events, 10 calls after a warm-up) summed over the 12 calls of one DiT-S/2
   forward at batch 256 and of one train step's backward at batch 64;
+- ``flash_d{D}_fwd_ms`` / ``flash_d{D}_bwd_ms``: one forward and one
+  backward call at (64, 1024, H, D) in bf16: DiT-XL/2's 16 heads of 72, and
+  6 heads of 136, 192 and 256 (the widths above 128);
 - ``gn_fwd_ms`` / ``gn_drop_fwd_ms``: the same for ``gn_silu_cuda`` over the
   29 GroupNorm calls of one flagship UNet forward at batch 256, and for
   ``gn_silu_dropout_cuda`` over the 14 dropout sites of a train step;
@@ -52,6 +55,7 @@ from rectified_flow_vision_tpu_torch.serving import SamplerService
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 DIT = dict(image_size=64, in_channels=4, backbone="dit", dit_size="S", patch_size=2, remat=True)
+FLASH_WIDTHS = ((16, 72), (6, 136), (6, 192), (6, 256))
 out = {}
 
 def randomize_zero_leaves(model, seed):
@@ -171,6 +175,13 @@ d_out = torch.randn((64, 1024, 6, 64), generator=g, device="cuda").bfloat16()
 o, lse = FA.flash_attention_cuda(q, k, v)
 out["flash_bwd_ms"] = [12 * kernel_ms(lambda: FA.flash_attention_backward_cuda(q, k, v, o, lse, d_out))]
 del q, k, v, d_out, o, lse
+for h, d in FLASH_WIDTHS:
+    q, k, v = torch.randn((64, 1024, 3, h, d), generator=g, device="cuda").bfloat16().unbind(2)
+    d_out = torch.randn((64, 1024, h, d), generator=g, device="cuda").bfloat16()
+    o, lse = FA.flash_attention_cuda(q, k, v)
+    out[f"flash_d{d}_fwd_ms"] = [kernel_ms(lambda: FA.flash_attention_cuda(q, k, v))]
+    out[f"flash_d{d}_bwd_ms"] = [kernel_ms(lambda: FA.flash_attention_backward_cuda(q, k, v, o, lse, d_out))]
+    del q, k, v, d_out, o, lse
 from rectified_flow_vision_tpu_torch.ops import gn_silu as G, gn_silu_dropout as D
 GN_FWD = {(16, 16, 128): 1, (16, 16, 256): 10, (16, 16, 512): 1, (32, 32, 64): 1, (32, 32, 128): 6,
           (32, 32, 384): 1, (64, 64, 64): 8, (64, 64, 192): 1}
@@ -187,6 +198,7 @@ print(json.dumps(out))
 """
 
 METRICS = ("unet_serve", "unet_train", "latent_serve", "dit_train", "flash_fwd_ms", "flash_bwd_ms",
+           *(f"flash_d{d}_{p}_ms" for d in (72, 136, 192, 256) for p in ("fwd", "bwd")),
            "gn_fwd_ms", "gn_drop_fwd_ms")
 
 
