@@ -15,10 +15,11 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    flash-attention forward at the DiT-S/2 latent shapes (batch 256 and 64,
    1024 tokens, 6 heads of 64) and at 16384 tokens, its backward at batch
    64, both at DiT-XL/2's widths (batch 64, 1024 tokens, 16 heads of 72)
-   and at head widths 4, 12, 136, 192, 256 and 320 (batch 64, 1024 tokens,
-   6 heads; bf16 136-256 on the kernels' 192 and 256 instances, 320 and
-   fp32 above 128 on the chunked fp32 kernels), and at the shape of the
-   DiT with 6 heads of 192 of phase 11 (batch 2, 1024 tokens),
+   and at head widths 4, 12, 136, 192, 256, 320, 384 and 512 (batch 64, 1024
+   tokens, 6 heads; bf16 136-256 on the kernels' 192 and 256 instances,
+   bf16 above 256 on the streamed kernels, fp32 above 128 on the *_wide
+   fp32 kernels; 512 in bf16 only), and at the shapes of the DiTs with 6
+   heads of 192 and 3 heads of 384 of phase 11 (batch 2, 1024 tokens),
    and the standalone dropout at three sizes, in bf16 and fp32,
    against its plain PyTorch version on the same inputs within a stated
    tolerance, with the kernel's, the plain version's and one PyTorch library
@@ -32,7 +33,7 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    kernel alone (forward; delta, dkv and dq of the backward) by the
    profiler's device time, with TFLOP/s and share of the bound, beside
    SDPA's forward and backward, at the DiT-S/2 and DiT-XL/2 shapes and at
-   head width 256;
+   head widths 256 and 320;
 4. model: a full-width UNet forward in fp32 at batch 4, kernels on the card
    against the plain path on the CPU;
 5. serve: ``SamplerService`` at full width, batch 256, steps (1, 2, 4), bf16,
@@ -64,7 +65,9 @@ card, outside a checkout, or when any phase fails. Phases, in order:
     192 (``DIT_WIDE``, depth 2, batch 2): bf16 forward, loss and every
     gradient on the card (the bf16 flash kernels above head width 128)
     against the bf16 plain path on the CPU, and the same in fp32 (the
-    chunked fp32 kernels), with exact launch counts;
+    *_wide fp32 kernels), with exact launch counts; then the same for the
+    hidden size 1152 in 3 heads of 384 (``DIT_WIDE_384``: the streamed bf16
+    kernels, the *_wide fp32 kernels in two chunks);
 12. latent serve: ``SamplerService`` with a ConvVAE (256x256x3, base 64,
     downsample 4; seeded weights for both), batch 256, steps (1, 2, 4), bf16
     flow and bf16 decode, three requests; exact flash launch counts, outputs
@@ -210,10 +213,12 @@ FLASH_BWD_SHAPE = (LATENT["batch"], DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM)
 FLASH_XL_SHAPE = (LATENT["batch"], DIT_TOKENS, 16, 72)
 # head widths no config of the repo has, which the JAX _attention takes: 4
 # and 12 zero-padded to 8 and 16; 136, 192 and 256 on the bf16 kernels' 192
-# and 256 instances (fp32: the chunked kernels); 320 on the chunked kernels
-# in both dtypes (bf16 through fp32 copies)
+# and 256 instances; 320, 384 and 512 on the streamed bf16 kernels (512 at
+# its streamed dkv layout; bf16 only, FLASH_BF16_ONLY); every fp32 width
+# above 128 on the *_wide fp32 kernels
 FLASH_ODD_SHAPES = tuple((LATENT["batch"], DIT_TOKENS, DIT_HEADS, d)
-                         for d in (4, 12, 136, 192, 256, 320))
+                         for d in (4, 12, 136, 192, 256, 320, 384, 512))
+FLASH_BF16_ONLY = {FLASH_ODD_SHAPES[-1]}
 # DiT-XL/2's hidden size 1152 in 6 heads of 192 (DiT(hidden_size=1152,
 # num_heads=6), as the JAX constructor takes it), depth cut from 28 to 2:
 # the model path of the bf16 flash kernels above head width 128, at batch 2
@@ -224,6 +229,10 @@ DIT_WIDE_SHAPE = (2, DIT_TOKENS, DIT_WIDE["num_heads"],
 # its flash calls in one bf16 forward, then loss and gradients: the forward,
 # the loss's forward and remat's rerun of it; one backward a block
 DIT_WIDE_FWD_CALLS, DIT_WIDE_BWD_CALLS = 3 * DIT_WIDE["depth"], DIT_WIDE["depth"]
+# the same hidden size in 3 heads of 384: the model path of the streamed bf16
+# kernels and of the *_wide fp32 kernels in two chunks, the same calls
+DIT_WIDE_384 = {**DIT_WIDE, "num_heads": 3}
+DIT_WIDE_384_SHAPE = (2, DIT_TOKENS, 3, DIT_WIDE["hidden_size"] // 3)
 # bf16 loss and gradients, card vs CPU, both in bf16 but rounding at other
 # places: the loss within this share of itself, each gradient within
 # WIDE_BF16_GRAD_RTOL of its parameter's largest gradient entry (as the card
@@ -492,10 +501,10 @@ def flash_bwd_cost(shape):
 def flash_cases(torch, randn):
     """Flash attention forward at the DiT-S/2 latent shapes (12 calls per DiT
     forward at batch 256; 24 per ``remat`` train step at batch 64), at 16384
-    tokens, at DiT-XL/2's widths, at the odd head widths and at the shape of
-    the DiT with 6 heads of 192 (6 calls in its bf16 run), and its backward
-    at batch 64 (12 calls per train step), at the same widths and at that
-    DiT's shape (2 calls). q, k, v are the three views of
+    tokens, at DiT-XL/2's widths, at the odd head widths and at the shapes of
+    the DiTs with 6 heads of 192 and 3 heads of 384 (6 calls in each run),
+    and its backward at batch 64 (12 calls per train step), at the same
+    widths and at those DiTs' shapes (2 calls each). q, k, v are the three views of
     one [B, T, 3, H, D] tensor, as DiT hands them over. Bound: forward
     4 B H T^2 D flops, backward 2.5 times that; every input read once, every
     output written once."""
@@ -508,9 +517,10 @@ def flash_cases(torch, randn):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
 
     fwd_calls = {FLASH_FWD_SHAPES[0]: DIT_DEPTH, FLASH_FWD_SHAPES[1]: 2 * DIT_DEPTH,
-                 DIT_WIDE_SHAPE: DIT_WIDE_FWD_CALLS}
+                 DIT_WIDE_SHAPE: DIT_WIDE_FWD_CALLS, DIT_WIDE_384_SHAPE: DIT_WIDE_FWD_CALLS}
     cases = []
-    for shape in FLASH_FWD_SHAPES + (FLASH_XL_SHAPE,) + FLASH_ODD_SHAPES + (DIT_WIDE_SHAPE,):
+    for shape in (FLASH_FWD_SHAPES + (FLASH_XL_SHAPE,) + FLASH_ODD_SHAPES
+                  + (DIT_WIDE_SHAPE, DIT_WIDE_384_SHAPE)):
         b, t, h, d = shape
 
         def make(dt, shape=shape):
@@ -528,7 +538,8 @@ def flash_cases(torch, randn):
 
     for shape, calls in ((FLASH_BWD_SHAPE, DIT_DEPTH), (FLASH_XL_SHAPE, 0),
                          *((odd, 0) for odd in FLASH_ODD_SHAPES),
-                         (DIT_WIDE_SHAPE, DIT_WIDE_BWD_CALLS)):
+                         (DIT_WIDE_SHAPE, DIT_WIDE_BWD_CALLS),
+                         (DIT_WIDE_384_SHAPE, DIT_WIDE_BWD_CALLS)):
         def make(dt, shape=shape):
             b, t, h, d = shape
             q, k, v = randn(b, t, 3, h, d, dtype=dt).unbind(2)
@@ -557,7 +568,8 @@ def flash_breakdown(torch) -> None:
     """Each bf16 flash kernel alone: device ms per call by kernel (forward;
     delta, dkv and dq of the backward) from the profiler over 10 calls each,
     at the DiT-S/2 shapes (forward at batch 256, backward at batch 64), at
-    DiT-XL/2's widths and at head width 256 (the kernels above 128), with
+    DiT-XL/2's widths and at head widths 256 (the kernels above 128) and 320
+    (the streamed kernels, which compute S and dP twice there), with
     TFLOP/s (of the products each kernel runs, at the true head width) and
     the share of the bound, beside SDPA's forward and
     backward timed with CUDA events in the same run. The split backward
@@ -570,8 +582,8 @@ def flash_breakdown(torch) -> None:
 
     reps = 10
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    wide = next(s for s in FLASH_ODD_SHAPES if s[3] == FA.HEAD_DIM_MAX_BF16)
-    for shape in (FLASH_FWD_SHAPES[0], FLASH_BWD_SHAPE, FLASH_XL_SHAPE, wide):
+    wide = [s for s in FLASH_ODD_SHAPES if s[3] in (FA.HEAD_DIM_WIDE, 320)]
+    for shape in (FLASH_FWD_SHAPES[0], FLASH_BWD_SHAPE, FLASH_XL_SHAPE, *wide):
         b, t, h, d = shape
         q, k, v = (torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
                    .to(torch.bfloat16).unbind(2))
@@ -682,6 +694,8 @@ def kernel_phase(torch, shape_calls, train_calls):
     rows = []
     for name, shape, count, make, bytes_fn, flops in kernel_cases(torch, shape_calls, train_calls):
         for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            if dt == torch.float32 and shape in FLASH_BF16_ONLY:
+                continue
             kernel, plain, library = make(dt)
             gots = [t.float() for t in as_tuple(kernel())]
             wants = [t.float() for t in as_tuple(plain())]
@@ -1255,30 +1269,31 @@ def dit_xl_phase(torch, build) -> None:
         fail("DiT-XL widths loss or gradients on the card differ from the CPU plain path")
 
 
-def dit_wide_phase(torch, build):
-    """A head width above 128 on a model path (``DIT_WIDE``: hidden 1152 in
-    6 heads of 192, depth 2) at batch 2 on 64x64x4 latents (1024 tokens), all
-    parameters random: the bf16 forward, loss and every gradient on the card
-    (the bf16 flash kernels' 192 instance, ``remat``) against the same bf16
-    plain path on the CPU, then the fp32 ones (the chunked fp32 kernels)
-    against the CPU. Returns the bf16 run's flash launches under the names of
-    the kernels entries of the 192 / 256 instances: every bf16 flash call of
-    this model takes them."""
+def dit_wide_phase(torch, build, cfg, shape, routes):
+    """A head width above 128 on a model path (``cfg``: hidden 1152 in 6
+    heads of 192, or in 3 heads of 384; depth 2) at batch 2 on 64x64x4
+    latents (1024 tokens), all parameters random: the bf16 forward, loss and
+    every gradient on the card (``remat``) against the same bf16 plain path
+    on the CPU, then the fp32 ones against the CPU. ``routes`` names the
+    kernels entries each dtype's flash calls take (bf16: the 192 / 256
+    instances, or the streamed kernels; fp32: the *_wide fp32 kernels);
+    returns the launches of both runs under those names."""
     from rectified_flow_vision_tpu_torch.models import BaseFlowModel
-    from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
 
-    depth, (bsz, _, _, hd) = DIT_WIDE["depth"], DIT_WIDE_SHAPE
-    if not FA.HEAD_DIM_MAX_F32 < FA.kernel_head_dim(hd, torch.bfloat16) <= FA.HEAD_DIM_MAX_BF16:
-        fail(f"head width {hd} does not take the bf16 kernels above 128")
+    depth, (bsz, _, heads, hd) = cfg["depth"], shape
+    what = f"DiT {heads} heads of {hd}"
+    for dname, (route, _) in routes.items():
+        if kernel_route(torch, dname, hd) != route:
+            fail(f"{what} {dname} does not take the {route} kernels")
     g = torch.Generator().manual_seed(SEED + 18)
     x1 = torch.tanh(torch.randn((bsz, 64, 64, 4), generator=g))
     x0 = torch.randn((bsz, 64, 64, 4), generator=g)
     t = torch.rand((bsz,), generator=g)
-    launches, notes = None, []
+    launches, notes = {}, []
     for dname in ("bfloat16", "float32"):
-        cpu = BaseFlowModel(seed=SEED, device="cpu", compute_dtype=dname, **DIT_WIDE)
+        cpu = BaseFlowModel(seed=SEED, device="cpu", compute_dtype=dname, **cfg)
         randomize_zero_leaves(torch, cpu, SEED + 19)
-        gpu = BaseFlowModel(seed=SEED, device="cuda", compute_dtype=dname, **DIT_WIDE)
+        gpu = BaseFlowModel(seed=SEED, device="cuda", compute_dtype=dname, **cfg)
         gpu.load_state_dict(cpu.state_dict())
         dt = getattr(torch, dname)
         build.reset_launches()
@@ -1292,16 +1307,16 @@ def dit_wide_phase(torch, build):
         expect = all_counts(build, flash_attention=DIT_WIDE_FWD_CALLS,
                             flash_attention_backward=DIT_WIDE_BWD_CALLS)
         if counts != expect:
-            fail(f"DiT head 192 {dname} forward, loss and backward launched {counts}, "
+            fail(f"{what} {dname} forward, loss and backward launched {counts}, "
                  f"expected {expect}")
-        if dname == "bfloat16":
-            launches = {"flash_attention_wide": counts["flash_attention"],
-                        "flash_attention_wide_backward": counts["flash_attention_backward"]}
+        fwd_name, bwd_name = routes[dname][1]
+        launches[fwd_name] = counts["flash_attention"]
+        launches[bwd_name] = counts["flash_attention_backward"]
         scale = float(want.abs().max())
         err = float((got - want).abs().max())
         tol = MODEL_ATOL if dname == "float32" else XL_BF16_RTOL * scale
         if not torch.isfinite(got).all() or not err <= tol or scale < 0.05:
-            fail(f"DiT head 192 {dname} forward differs from the CPU plain path by {err:.3e} "
+            fail(f"{what} {dname} forward differs from the CPU plain path by {err:.3e} "
                  f"(tolerance {tol:.3e}, max|v| {scale:.3f})")
         ref = cpu.loss_fn(x1, x0=x0, t=t)
         ref.backward()
@@ -1311,19 +1326,31 @@ def dit_wide_phase(torch, build):
         else:
             loss_tol = WIDE_BF16_LOSS_RTOL * abs(float(ref.detach()))
             rtol, atol = WIDE_BF16_GRAD_RTOL, 0.0
-        worst, worst_name = worst_gradient(torch, cpu, gpu, f"DiT head 192 {dname} ", rtol, atol)
+        worst, worst_name = worst_gradient(torch, cpu, gpu, f"{what} {dname} ", rtol, atol)
         notes.append(f"{dname}: forward max_abs {err:.3e} (tolerance {tol:.3e}), loss "
                      f"{float(loss.detach()):.6f} (CPU {float(ref.detach()):.6f}, tolerance "
                      f"{loss_tol:.2e}), worst gradient {worst_name} at {worst:.3f} of its "
                      f"tolerance ({rtol} x max|g| + {atol})")
         if loss_err > loss_tol or worst > 1.0:
-            fail(f"DiT head 192 {dname} loss or gradients differ from the CPU plain path: "
+            fail(f"{what} {dname} loss or gradients differ from the CPU plain path: "
                  + notes[-1])
         del cpu, gpu, loss, ref
-    log(f"DiT hidden 1152, 6 heads of 192, depth {depth}, batch {bsz}, all parameters random, "
-        "kernels on the card vs the plain path on the CPU; " + "; ".join(notes)
-        + f"; bf16 launches {launches}")
+    log(f"DiT hidden 1152, {heads} heads of {hd}, depth {depth}, batch {bsz}, all parameters "
+        "random, kernels on the card vs the plain path on the CPU; " + "; ".join(notes)
+        + f"; launches {launches}")
     return launches
+
+
+def kernel_route(torch, dname: str, d: int) -> str:
+    """Which flash kernels a head width takes in ``dname``: bf16 "narrow" (up
+    to 128), "wide" (the 192 / 256 instances), "streamed" (above 256); fp32
+    "f32" (up to 128) or "f32_wide"."""
+    from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
+
+    w = FA.kernel_head_dim(d, getattr(torch, dname))
+    if dname == "float32":
+        return "f32" if w <= FA.HEAD_DIM_MAX_F32 else "f32_wide"
+    return "narrow" if w <= 128 else "wide" if w <= FA.HEAD_DIM_WIDE else "streamed"
 
 
 def latent_serve_phase(torch, build):
@@ -1835,7 +1862,6 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from rectified_flow_vision_tpu_torch.models.unet import UNet
     from rectified_flow_vision_tpu_torch.ops import build
-    from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
     from rectified_flow_vision_tpu_torch.ops import fused as fused_mod
 
     log(f"card: {card_line()}")
@@ -1845,6 +1871,9 @@ def main() -> None:
     t0 = time.perf_counter()
     build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s")
+
+    def phase(name):  # seconds since the build began, at the start of each phase
+        log(f"[{time.perf_counter() - t0:.0f} s] {name}")
 
     shape_calls = record_main_path_shapes(torch, UNet, fused_mod)
     per_forward = {k: sum(v.values()) for k, v in shape_calls.items()}
@@ -1857,46 +1886,61 @@ def main() -> None:
         fail(f"flagship eval forward calls {per_forward}, expected {EVAL_FORWARD_LAUNCHES}")
     if per_train != TRAIN_STEP_LAUNCHES:
         fail(f"flagship train step calls {per_train}, expected {TRAIN_STEP_LAUNCHES}")
+    phase("kernels")
     rows = kernel_phase(torch, shape_calls, train_calls)
+    phase("flash breakdown")
     flash_breakdown(torch)
+    phase("UNet model, serve, trace, gradient")
     model_phase(torch, UNet)
     serve_launches, svc, serve_img_s = serve_phase(torch, build)
     trace_phase(torch, svc)
     del svc
     torch.cuda.empty_cache()
     gradient_phase(torch, build)
+    phase("UNet train")
     train_launches, trained, data = train_phase(torch, build)
     train_timing_phase(torch, build, trained, data)
     del trained, data
     torch.cuda.empty_cache()
+    phase("dropout, DiT models")
     dropout_launches = dropout_phase(torch, build)
     dit_model_phase(torch, build)
     dit_xl_phase(torch, build)
-    dit_wide_launches = dit_wide_phase(torch, build)
+    f32_wide = ("f32_wide", ("flash_attention_f32_wide", "flash_attention_f32_wide_backward"))
+    dit_wide_launches = dit_wide_phase(torch, build, DIT_WIDE, DIT_WIDE_SHAPE, {
+        "bfloat16": ("wide", ("flash_attention_wide", "flash_attention_wide_backward")),
+        "float32": f32_wide})
+    dit_384_launches = dit_wide_phase(torch, build, DIT_WIDE_384, DIT_WIDE_384_SHAPE, {
+        "bfloat16": ("streamed", ("flash_attention_streamed", "flash_attention_streamed_backward")),
+        "float32": f32_wide})
+    phase("latent serve")
     latent_serve_launches = latent_serve_phase(torch, build)
     torch.cuda.empty_cache()
+    phase("latent train")
     latent_train_launches, dit_trained, latents = latent_train_phase(torch, build)
     dit_train_timing_phase(torch, build, dit_trained, latents)
     del dit_trained, latents
     torch.cuda.empty_cache()
+    phase("CLI")
     cli_launches = cli_phase(torch, build, serve_img_s)
 
+    phase("done")
     csrc = "rectified_flow_vision_tpu_torch/ops/csrc/"
     pallas = "rectified_flow_vision_tpu/ops/pallas_kernels.py"
     unet_forward = "one UNet eval forward at batch 256: sum over its calls"
     unet_step = "one UNet train step at batch 256: sum over its calls"
     dit_attention = "rectified_flow_vision_tpu/models/dit.py:127"
-    wide_run = (f"one bf16 forward, then loss and gradients, of the DiT with 6 heads of 192 "
-                f"(depth {DIT_WIDE['depth']}, batch {DIT_WIDE_SHAPE[0]}, {DIT_TOKENS} tokens)")
+    def model_run(dname, heads, hd):
+        return (f"one {dname} forward, then loss and gradients, of the DiT with {heads} heads of "
+                f"{hd} (depth {DIT_WIDE['depth']}, batch {DIT_WIDE_SHAPE[0]}, {DIT_TOKENS} tokens)")
 
-    def wide(r):  # a row on the bf16 kernels' 192 / 256 instances
-        return r["dtype"] == "bfloat16" and (
-            FA.HEAD_DIM_MAX_F32 < FA.kernel_head_dim(r["shape"][3], torch.bfloat16)
-            <= FA.HEAD_DIM_MAX_BF16)
+    def route_is(*routes):  # the kernel phase's rows on these flash routes
+        return lambda r: kernel_route(torch, r["dtype"], r["shape"][3]) in routes
 
     # name -> (source, TPU kernel it replaces, what `ms` sums, calls in that unit,
-    #          filter on the kernel phase's rows); ms and bounds sum the kept
-    #          bf16 rows, each times its calls on the main path
+    #          filter on the kernel phase's rows[, dtype]); ms and bounds sum
+    #          the kept rows of that dtype (bf16 unless named), each times its
+    #          calls on the main path
     sources = {
         "gn_silu": (csrc + "gn_silu.cu", pallas + ":100", unet_forward, per_forward["gn_silu"],
                     None),
@@ -1923,15 +1967,35 @@ def main() -> None:
         "flash_attention_backward": (
             csrc + "flash_attention.cu", dit_attention,
             "one DiT-S/2 train step at batch 64, 1024 tokens: its 12 backward calls "
-            "(delta, dkv and dq kernels)", DIT_DEPTH, lambda r: not wide(r)),
+            "(delta, dkv and dq kernels)", DIT_DEPTH, route_is("narrow", "f32")),
         "flash_attention_wide": (
             csrc + "flash_attention.cu", dit_attention + " (head widths 129-256)",
-            f"{wide_run}: its {DIT_WIDE_FWD_CALLS} forward calls (the 192 instance)",
-            DIT_WIDE_FWD_CALLS, wide),
+            f"{model_run('bf16', 6, 192)}: its {DIT_WIDE_FWD_CALLS} forward calls (the 192 "
+            "instance)", DIT_WIDE_FWD_CALLS, route_is("wide")),
         "flash_attention_wide_backward": (
             csrc + "flash_attention.cu", dit_attention + " (head widths 129-256)",
-            f"{wide_run}: its {DIT_WIDE_BWD_CALLS} backward calls (delta, flash_dkv_wide and "
-            "flash_dq_wide kernels at 192)", DIT_WIDE_BWD_CALLS, wide),
+            f"{model_run('bf16', 6, 192)}: its {DIT_WIDE_BWD_CALLS} backward calls (delta, "
+            "flash_dkv_wide and flash_dq_wide kernels at 192)", DIT_WIDE_BWD_CALLS,
+            route_is("wide")),
+        "flash_attention_streamed": (
+            csrc + "flash_attention_streamed.cu", dit_attention + " (bf16 head widths above 256)",
+            f"{model_run('bf16', 3, 384)}: its {DIT_WIDE_FWD_CALLS} forward calls",
+            DIT_WIDE_FWD_CALLS, route_is("streamed")),
+        "flash_attention_streamed_backward": (
+            csrc + "flash_attention_streamed.cu", dit_attention + " (bf16 head widths above 256)",
+            f"{model_run('bf16', 3, 384)}: its {DIT_WIDE_BWD_CALLS} backward calls (delta, "
+            "flash_dkv_streamed and flash_dq_streamed kernels)", DIT_WIDE_BWD_CALLS,
+            route_is("streamed")),
+        "flash_attention_f32_wide": (
+            csrc + "flash_attention_f32.cu", dit_attention + " (fp32 head widths above 128)",
+            f"{model_run('fp32', 6, 192)} and of the DiT with 3 heads of 384: their "
+            f"{DIT_WIDE_FWD_CALLS} forward calls each (one chunk at 192, two at 384)",
+            2 * DIT_WIDE_FWD_CALLS, route_is("f32_wide"), "float32"),
+        "flash_attention_f32_wide_backward": (
+            csrc + "flash_attention_f32.cu", dit_attention + " (fp32 head widths above 128)",
+            f"{model_run('fp32', 6, 192)} and of the DiT with 3 heads of 384: their "
+            f"{DIT_WIDE_BWD_CALLS} backward calls each (delta, then the dkv and dq launches of "
+            "flash_bwd_f32_wide_kernel)", 2 * DIT_WIDE_BWD_CALLS, route_is("f32_wide"), "float32"),
         "dropout": (
             csrc + "dropout.cu", pallas + ":264",
             "one call at each of the three sizes; no model of either package calls it: its "
@@ -1941,17 +2005,18 @@ def main() -> None:
     by_path = {"unet_serve": serve_launches, "unet_train": train_launches,
                "dropout_direct": dropout_launches, "latent_serve": latent_serve_launches,
                "latent_train": latent_train_launches, "cli": cli_launches,
-               "dit_head_192": dit_wide_launches}
+               "dit_head_192": dit_wide_launches, "dit_head_384": dit_384_launches}
     # the wrapper whose kernel-phase rows an entry reads, where it is not the entry's own name
-    row_names = {"flash_attention_wide": "flash_attention",
-                 "flash_attention_wide_backward": "flash_attention_backward"}
+    row_names = {f"flash_attention_{route}{part}": f"flash_attention{part}"
+                 for route in ("wide", "streamed", "f32_wide") for part in ("", "_backward")}
     kernels = []
-    for name, (src, replaces, per, calls, keep) in sources.items():
+    for name, (src, replaces, per, calls, keep, *dtype) in sources.items():
+        dtype = dtype[0] if dtype else "bfloat16"
         mine = [r for r in rows
                 if r["name"] == row_names.get(name, name) and (keep is None or keep(r))]
-        bf = [r for r in mine if r["dtype"] == "bfloat16"]
+        bf = [r for r in mine if r["dtype"] == dtype]
 
-        def total(key):  # bf16: sum over the calls at their shapes
+        def total(key):  # sum over the calls at their shapes
             return sum(r[key] * r["calls"] for r in bf)
 
         by_bytes = sum(r["bound_ms"] * r["calls"] for r in bf if r["bound_by"] == "bytes")
@@ -1965,7 +2030,7 @@ def main() -> None:
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if 2 * by_bytes >= total("bound_ms") else "operations",
-            library_ms=total("library_ms"), status="ok", dtype="bfloat16", per=per, calls=calls,
+            library_ms=total("library_ms"), status="ok", dtype=dtype, per=per, calls=calls,
         ))
 
     log(json.dumps({"kernels": kernels}))

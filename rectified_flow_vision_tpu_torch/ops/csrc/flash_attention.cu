@@ -21,8 +21,10 @@
 // strides (the backward writes them into one [B, T, 3, H, D] buffer). The
 // head width D is a multiple of 8 here: bf16 from 8 to 256, fp32 from 8 to
 // 128; other widths reach these kernels zero-padded by the wrapper
-// (ops/flash_attention.py), and wider heads (fp32 above 128, bf16 above 256
-// on fp32 copies) take the chunked fp32 kernels of flash_attention_f32.cu.
+// (ops/flash_attention.py). Wider heads take kernels of their own, launched
+// from the entry points below: bf16 above 256 the streamed kernels of
+// flash_attention_streamed.cu, fp32 above 128 the *_wide kernels of
+// flash_attention_f32.cu.
 //
 // bfloat16: persistent, warp-specialised, wgmma + TMA (the design of
 // conv3x3.cu).
@@ -92,15 +94,13 @@
 #include "flash_attention.cuh"
 #include "mma.cuh"
 #include "wgmma.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace rfv_wgmma;
+using namespace rfv_flash_tc;
 using rfv_mma::pack_bf16;
-
-constexpr int THREADS = 384;  // producer + two consumer warpgroups
-constexpr int ROW = 128;      // bytes of one swizzled box row: 64 bf16
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Query rows and keys of a block and of a ring tile, per kernel, at DP <= 128.
 // Above it the forward streams keys in tiles of 64 (fwd_keys), and dkv and dq
@@ -108,7 +108,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int FWD_Q = 128, FWD_K = 128;
 constexpr int DKV_K = 128, DKV_Q = 64;
 constexpr int DQ_Q = 128, DQ_K = 64;
-constexpr int WIDE = 64;
 
 // Keys of a forward ring tile: 128, or 64 above DP = 128, where Q stays in
 // shared memory and S (64 x 64, 32 registers) must fit beside the m64nDP
@@ -121,136 +120,12 @@ __host__ __device__ constexpr int fwd_keys() { return DP > 128 ? WIDE : FWD_K; }
 template <int DP>
 __host__ __device__ constexpr int tile_bytes(int rows) { return rows * DP * 2; }
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The DP / 64 boxes of the rows x DP tile of head h at tokens t0.. of batch b.
 template <int DP>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
                                           int rows, int b, int t0, int h) {
 #pragma unroll
   for (int r = 0; r < DP / 64; ++r) tma_load_4d(dst + r * rows * ROW, map, bar, 64 * r, h, t0, b);
-}
-
-// K-major operand: k-step kk (16 columns) of rows r0 .. r0 + 63 (A) or of all
-// rows (B) of a tile of `rows` rows at shared address `tile`.
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int r0, int kk) {
-  return desc_sw128(tile + (kk >> 2) * rows * ROW + r0 * ROW + (kk & 3) * 32);
-}
-
-// MN-major B operand: k-step kk (rows 16 kk .. 16 kk + 15) of such a tile,
-// N running over its columns (the next box `rows` x 128 bytes on).
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int kk) {
-  return desc_sw128_mn(tile + kk * 16 * ROW, rows * ROW);
-}
-
-// Rows g (half 0) and g + 8 (half 1) of a warp's 16 rows of an m64nDP
-// accumulator, times mul0 / mul1, rounded to bf16 and stored 16 bytes at a
-// time at dst0 / dst1; columns at or past D are not stored.
-template <int DP>
-__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], float mul0, float mul1,
-                                           bf16* dst0, bf16* dst1, int D, int lane) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    bf16* dst = half ? dst1 : dst0;
-    const float mul = half ? mul1 : mul0;
-#pragma unroll
-    for (int a = 0; a < DP / 32; ++a) {
-      uint32_t v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = 4 * a + j;
-        v[j] = pack_bf16(acc[4 * i + 2 * half] * mul, acc[4 * i + 2 * half + 1] * mul);
-      }
-      const uint4 out = quad_transpose(v, lane);
-      const int col = 8 * (4 * a + (lane & 3));
-      if (col < D) *reinterpret_cast<uint4*>(dst + col) = out;
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.f;
-}
-
-// --------------------------------------------------------------- forward ----
-
-// The online softmax of one warpgroup's 64 x N logit tiles, on the
-// accumulator registers: a thread holds rows g (s[4i], s[4i + 1]) and g + 8
-// (s[4i + 2], s[4i + 3]); row maxima are reduced across the quad. Each tile
-// updates the running maximum and (per-thread partial) sum, writes the
-// unnormalised probabilities as bf16 A fragments and leaves the factor by
-// which the output accumulated so far is to be rescaled. Maxima and sums
-// are taken over four interleaved partials, so that no chain of dependent
-// instructions runs the length of a row.
-struct OnlineSoftmax {
-  float sl2;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, alpha0 = 1.f, alpha1 = 1.f;
-  __device__ __forceinline__ explicit OnlineSoftmax(float scale) : sl2(scale * kLog2e) {}
-
-  template <int N>
-  __device__ __forceinline__ void tile(const float (&s)[N / 2], uint32_t (&p)[N / 16][4]) {
-    float a0[4], a1[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      a0[j] = fmaxf(s[4 * j], s[4 * j + 1]);
-      a1[j] = fmaxf(s[4 * j + 2], s[4 * j + 3]);
-    }
-#pragma unroll
-    for (int i = 4; i < N / 8; ++i) {
-      a0[i & 3] = fmaxf(a0[i & 3], fmaxf(s[4 * i], s[4 * i + 1]));
-      a1[i & 3] = fmaxf(a1[i & 3], fmaxf(s[4 * i + 2], s[4 * i + 3]));
-    }
-    float mx0 = fmaxf(fmaxf(m0, fmaxf(a0[0], a0[1])), fmaxf(a0[2], a0[3]));
-    float mx1 = fmaxf(fmaxf(m1, fmaxf(a1[0], a1[1])), fmaxf(a1[2], a1[3]));
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    alpha0 = fast_exp2((m0 - mx0) * sl2);
-    alpha1 = fast_exp2((m1 - mx1) * sl2);
-    m0 = mx0;
-    m1 = mx1;
-    const float sub0 = mx0 * sl2, sub1 = mx1 * sl2;
-    float r0[4] = {0.f, 0.f, 0.f, 0.f}, r1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < N / 8; ++i) {
-      const float p0 = fast_exp2(fmaf(s[4 * i], sl2, -sub0));
-      const float p1 = fast_exp2(fmaf(s[4 * i + 1], sl2, -sub0));
-      const float p2 = fast_exp2(fmaf(s[4 * i + 2], sl2, -sub1));
-      const float p3 = fast_exp2(fmaf(s[4 * i + 3], sl2, -sub1));
-      r0[i & 3] += p0 + p1;
-      r1[i & 3] += p2 + p3;
-      p[i >> 1][(i & 1) * 2] = pack_bf16(p0, p1);
-      p[i >> 1][(i & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    l0 = l0 * alpha0 + ((r0[0] + r0[1]) + (r0[2] + r0[3]));
-    l1 = l1 * alpha1 + ((r1[0] + r1[1]) + (r1[2] + r1[3]));
-  }
-
-  template <int DP>
-  __device__ __forceinline__ void rescale(float (&o)[DP / 2]) const {
-#pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      o[4 * i] *= alpha0;
-      o[4 * i + 1] *= alpha0;
-      o[4 * i + 2] *= alpha1;
-      o[4 * i + 3] *= alpha1;
-    }
-  }
-};
-
-__device__ __forceinline__ void advance(int& stage, uint32_t& phase, int stages) {
-  if (++stage == stages) {
-    stage = 0;
-    phase ^= 1;
-  }
 }
 
 template <int DP>
@@ -812,28 +687,6 @@ __global__ void __launch_bounds__(THREADS, 1)
 // on named barriers (one warpgroup arrives, the other syncs: 256 threads).
 // Every exchange is matched: the first wait of a kernel and its last
 // release are skipped.
-constexpr int P_READY = 1, P_FREE = 2, DS_READY = 3, DS_FREE = 4;
-
-// A 64 x 64 fp32 accumulator of a warpgroup, handed over in shared memory in
-// its register layout: float4 j of thread i at j * 128 + i, so that a warp's
-// 16-byte accesses are consecutive.
-__device__ __forceinline__ void put_acc(float* buf, const float (&v)[WIDE / 2], int tid) {
-  float4* b = reinterpret_cast<float4*>(buf);
-#pragma unroll
-  for (int j = 0; j < WIDE / 8; ++j)
-    b[j * 128 + tid] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
-}
-__device__ __forceinline__ void get_acc(const float* buf, float (&v)[WIDE / 2], int tid) {
-  const float4* b = reinterpret_cast<const float4*>(buf);
-#pragma unroll
-  for (int j = 0; j < WIDE / 8; ++j) {
-    const float4 x = b[j * 128 + tid];
-    v[4 * j] = x.x;
-    v[4 * j + 1] = x.y;
-    v[4 * j + 2] = x.z;
-    v[4 * j + 3] = x.w;
-  }
-}
 
 template <int DP>
 __host__ __device__ constexpr int dkv_wide_smem(int stages) {
@@ -1213,27 +1066,6 @@ int launch_delta(const void* o, const void* d_out, float* delta, int B, int Tn, 
 
 // ------------------------------------------------------------------ host ----
 
-// Tensor map of a [B, T, H, D] bf16 tensor with element strides (sb, st, sh,
-// 1), viewed as (D, H, T, B): boxes of 64 columns x `rows` tokens of one head,
-// 128-byte swizzled, columns past D read as zeros.
-int tensor_map(CUtensorMap* map, const void* base, int B, int T, int H, int D, long long sb,
-               long long st, long long sh, int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dim[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t stride[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dim,
-                            stride, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-// Persistent grid: one block per SM, or one per tile where there are fewer.
-inline int grid_for(int tiles) { return tiles < sm_count() ? tiles : sm_count(); }
-
 template <int DP>
 int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int T,
              int H, int D, long long sb, long long st, long long sh, float scale,
@@ -1329,9 +1161,10 @@ int bwd_bf16_wide(const void* q, const void* k, const void* v, const void* d_out
 // q, k, v: [B, T, H, D] in `dtype` with element strides (sb, st, sh) and a
 // contiguous last axis; o: [B, T, H, D] contiguous; lse: [B, H, T] float32.
 // dp: the width the kernels are compiled for, as ops/flash_attention.py
-// kernel_head_dim gives it (bf16: 64, 128, 192 or 256; fp32: D rounded up to
-// 16, and above 128 D rounded up to 64, the chunked kernels of
-// flash_attention_f32.cu).
+// kernel_head_dim gives it (bf16: 64, 128, 192 or 256, and above 256 D
+// rounded up to 64, the streamed kernels of flash_attention_streamed.cu;
+// fp32: D rounded up to 16, and above 128 D rounded up to 64, the *_wide
+// kernels of flash_attention_f32.cu).
 // Requires T % 128 == 0, D % 8 == 0, 8 <= D <= dp, B, H <= 65535, 16-byte
 // aligned rows. scale is the caller's (1/sqrt of the head width before any
 // zero columns were added).
@@ -1355,6 +1188,8 @@ extern "C" int rfv_flash_attention_fwd(const void* q, const void* k, const void*
   if (dp == 128) return fwd_bf16<128>(q, k, v, o, l, B, T, H, D, sb, st, sh, scale, s);
   if (dp == 192) return fwd_bf16<192>(q, k, v, o, l, B, T, H, D, sb, st, sh, scale, s);
   if (dp == 256) return fwd_bf16<256>(q, k, v, o, l, B, T, H, D, sb, st, sh, scale, s);
+  if (dp > 256 && dp % 64 == 0)
+    return rfv_flash::fwd_bf16_streamed(q, k, v, o, l, B, T, H, D, sb, st, sh, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1387,9 +1222,12 @@ extern "C" int rfv_flash_attention_bwd(const void* q, const void* k, const void*
                               static_cast<float*>(dv), B, T, H, D, dp, sb, st, sh, gb, gt, gh,
                               scale, s);
   }
-  if (dp != 64 && dp != 128 && dp != 192 && dp != 256) return (int)cudaErrorInvalidValue;
+  if (dp % 64 || dp <= 0) return (int)cudaErrorInvalidValue;
   const int e = launch_delta<bf16>(o, d_out, dl, B, T, H, D, s);
   if (e) return e;
+  if (dp > 256)
+    return rfv_flash::bwd_bf16_streamed(q, k, v, d_out, l, dl, dq, dk, dv, B, T, H, D, sb, st, sh,
+                                        gb, gt, gh, scale, s);
   if (dp == 64)
     return bwd_bf16<64>(q, k, v, d_out, l, dl, dq, dk, dv, B, T, H, D, sb, st, sh, gb, gt, gh,
                         scale, s);

@@ -10,14 +10,12 @@
 // most 128) is zero-padded to DP, the next multiple of 16, on its way into
 // shared memory; columns past D are computed as zeros and not stored.
 //
-// Wider heads (D > 128, a multiple of 8: the fp32 path, and bf16 inputs
-// above D = 256 on fp32 copies; bf16 up to 256 has wgmma kernels of its own
-// in flash_attention.cu) take the *_wide kernels: D in chunks of 64
-// columns. The logits (and dP) are summed over every chunk, one pair of
-// 64 x 64 tiles in shared memory at a time, and each block computes one
-// 64-column chunk of its output (grid x: row tile x output chunk), so a
-// block recomputes the logits for the chunk it writes. Shared memory and
-// registers stay those of D = 64 at any D.
+// Wider heads (D > 128, a multiple of 8: the fp32 path; bf16 has wgmma
+// kernels of its own at every width, flash_attention.cu and
+// flash_attention_streamed.cu) take the *_wide kernels below: a block owns
+// every output column of its 64 rows (up to D = 256; above it the fewest
+// chunks of at most 256 columns), so each logit is computed once for each
+// output block, with register-tiled products and cp.async double buffering.
 #include "flash_attention.cuh"
 #include "mma.cuh"
 
@@ -278,259 +276,412 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// ---- any head width: D in chunks of WC columns ---------------------------
+// ---- above D = 128: every output column of a block's rows -----------------
+//
+// A block owns 64 rows (queries in the forward and dq, keys in dkv) and one
+// chunk of CW output columns: all of them up to D = 256 (the forward up to
+// 384), else the fewest chunks of at most 256 (384) (chunk_width). The logits (and dP) are
+// summed over D in panels of 32 columns, so a block computes each logit once
+// for its chunk. Every operand moves into shared memory by cp.async, one
+// panel ahead of the products, in two slots a kind (panels of the first
+// products; rows of the second products' B operand). Products are
+// register-tiled: a thread holds 4 x 8 (forward logits, 128 keys a tile) or
+// 8 x 4 (backward logits) outputs and 4 or 8 rows x CW / 16 columns of the
+// output chunk, fed by 16-byte loads from rows of pitch 36 (= 4 mod 32,
+// so the eight threads of a quarter-warp that read eight rows hit eight
+// bank groups) and by broadcasts.
 
-constexpr int WC = 64, WP = WC + 1, WNJ = WC / 16;
-constexpr int fwd_wide_smem() { return (3 * TILE * WP + TILE * SP + 3 * TILE) * 4; }
-constexpr int dkv_wide_smem() { return (6 * TILE * WP + 2 * TILE) * 4; }
-constexpr int dq_wide_smem() { return (5 * TILE * WP + 2 * TILE) * 4; }
+constexpr int PAN = 32;        // columns of D a first-product panel holds
+constexpr int PP = PAN + 4;    // its row pitch
+constexpr int FK = 128;        // keys of a forward tile
+constexpr int YR = 16;         // rows of a second-product panel
+constexpr int XP = TILE + 4;   // pitch of a backward 64 x 64 logit tile
 
-// Chunk c (columns c WC .. c WC + 63, zero past D) of 64 rows.
-__device__ __forceinline__ void load_chunk(float* s, const float* rows, long long pitch, int D,
-                                           int c) {
-  load_tile_f32<WC>(s, rows + c * WC, pitch, min(WC, D - c * WC));
+template <int CW>
+constexpr int fwd_wide_smem() {
+  return (2 * (TILE + FK) * PP + TILE * (FK + 4) + 2 * PAN * (CW + 4)) * 4;
+}
+template <int CW>
+constexpr int bwd_wide_smem() {
+  return (2 * 4 * TILE * PP + 2 * TILE * XP + 2 * 2 * YR * (CW + 4) + 2 * TILE) * 4;
 }
 
-__global__ void __launch_bounds__(256)
+// rows x width floats from rows of a global tensor (row r at src + r * stride,
+// columns col0 ..) into shared rows of pitch `pitch`, by cp.async, 16 bytes a
+// copy; columns at or past D are zero-filled (D is a multiple of 4).
+__device__ __forceinline__ void panel(float* dst, int pitch, const float* src, long long stride,
+                                      int rows, int width, int col0, int D) {
+  const int per = width / 4;
+  for (int i = threadIdx.x; i < rows * per; i += blockDim.x) {
+    const int r = i / per, c = col0 + 4 * (i - r * per);
+    const bool in = c < D;
+    cp_async16(dst + r * pitch + (c - col0), src + r * stride + (in ? c : 0), in ? 16 : 0);
+  }
+}
+
+// acc[i][j] += sum_d a[r_i][d] b[n_j][d] over a panel of PAN columns (rows of
+// pitch PP): r_i = r0 + rs i (R rows), n_j = tx + 16 j (N columns); VEC
+// columns of d a load (VEC = 4: one float4 of each row).
+template <int R, int N, int VEC>
+__device__ __forceinline__ void panel_nt(const float* a, const float* b, float (&acc)[R][N],
+                                         int r0, int rs, int tx) {
+#pragma unroll 2
+  for (int d = 0; d < PAN; d += VEC) {
+    float av[R][VEC], bv[N][VEC];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if constexpr (VEC == 4) {
+        const float4 x = *reinterpret_cast<const float4*>(a + (r0 + rs * i) * PP + d);
+        av[i][0] = x.x; av[i][1] = x.y; av[i][2] = x.z; av[i][3] = x.w;
+      } else {
+        const float2 x = *reinterpret_cast<const float2*>(a + (r0 + rs * i) * PP + d);
+        av[i][0] = x.x; av[i][1] = x.y;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if constexpr (VEC == 4) {
+        const float4 x = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * PP + d);
+        bv[j][0] = x.x; bv[j][1] = x.y; bv[j][2] = x.z; bv[j][3] = x.w;
+      } else {
+        const float2 x = *reinterpret_cast<const float2*>(b + (tx + 16 * j) * PP + d);
+        bv[j][0] = x.x; bv[j][1] = x.y;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < N; ++j) acc[i][j] = fmaf(av[i][e], bv[j][e], acc[i][j]);
+  }
+}
+
+// acc[i][4 j + e] += sum_m x[r_i][m0 + m] y[m][4 tx + 64 j + e] over the YR
+// rows m of a panel y (pitch CW + 4), x of pitch xp: r_i = r0 + rs i.
+template <int R, int CW>
+__device__ __forceinline__ void panel_nn(const float* x, int xp, int m0, const float* y,
+                                         float (&acc)[R][CW / 16], int r0, int rs, int tx) {
+#pragma unroll 2
+  for (int m = 0; m < YR; m += 4) {
+    float xv[R][4];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(x + (r0 + rs * i) * xp + m0 + m);
+      xv[i][0] = v.x; xv[i][1] = v.y; xv[i][2] = v.z; xv[i][3] = v.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int j = 0; j < CW / 64; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(y + (m + e) * (CW + 4) + 4 * tx + 64 * j);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          acc[i][4 * j] = fmaf(xv[i][e], v.x, acc[i][4 * j]);
+          acc[i][4 * j + 1] = fmaf(xv[i][e], v.y, acc[i][4 * j + 1]);
+          acc[i][4 * j + 2] = fmaf(xv[i][e], v.z, acc[i][4 * j + 2]);
+          acc[i][4 * j + 3] = fmaf(xv[i][e], v.w, acc[i][4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
+// Rows r_i = r0 + rs i of a chunk accumulator, times mul, stored at row
+// pointer dst(r_i) + 4 tx + 64 j, columns at or past dlim not stored.
+template <int R, int CW, typename RowPtr>
+__device__ __forceinline__ void store_chunk(const float (&acc)[R][CW / 16], RowPtr dst, int r0,
+                                            int rs, int tx, float mul, int dlim) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float* row = dst(r0 + rs * i);
+#pragma unroll
+    for (int j = 0; j < CW / 64; ++j) {
+      const int col = 4 * tx + 64 * j;
+      if (col < dlim)
+        *reinterpret_cast<float4*>(row + col) =
+            make_float4(acc[i][4 * j] * mul, acc[i][4 * j + 1] * mul, acc[i][4 * j + 2] * mul,
+                        acc[i][4 * j + 3] * mul);
+    }
+  }
+}
+
+// Forward: 64 query rows a block, 128 keys a tile, one chunk of O. Thread
+// (ty, tx) of 16 x 16 holds S of rows ty + 16 i (4) and keys tx + 16 j (8),
+// and O of the same rows at columns 4 tx + 64 j + {0..3} of the chunk. The
+// online softmax runs on the registers (row maxima and sums across the 16
+// lanes of a row), P goes to shared memory for P V.
+template <int CW>
+__global__ void __launch_bounds__(256, 1)
     flash_fwd_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, float* __restrict__ o,
-                              float* __restrict__ lse, int T, int H, int D, long long sb,
+                              float* __restrict__ lse, int T, int H, int D, int nc, long long sb,
                               long long st, long long sh, float scale) {
+  constexpr int PS = FK + 4, VP = CW + 4, NJ = CW / 16;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + TILE * WP;
-  float* Vs = Ks + TILE * WP;
-  float* Ss = Vs + TILE * WP;
-  float* Ms = Ss + TILE * SP;
-  float* Lsum = Ms + TILE;
-  float* Al = Lsum + TILE;
-  const int nc = (D + WC - 1) / WC;
+  float* sbuf = smem;                        // 2 slots: Q panel (64 rows), K panel (128 rows)
+  float* ps = sbuf + 2 * (TILE + FK) * PP;   // P, 64 x 128
+  float* vbuf = ps + TILE * PS;              // 2 slots: 32 rows of V's chunk
   const int qt = blockIdx.x / nc, oc = blockIdx.x % nc, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const size_t base = (size_t)b * sb + (size_t)h * sh;
   const float* qrows = q + base + (size_t)qt * TILE * st;
-  if (tid < TILE) {
-    Ms[tid] = -INFINITY;
-    Lsum[tid] = 0.f;
-  }
-  float oacc[4][WNJ];
+  const int np = (D + PAN - 1) / PAN, nk = T / FK, c0 = oc * CW;
+
+  auto issue_s = [&](int kt, int p, int slot) {
+    float* dst = sbuf + slot * (TILE + FK) * PP;
+    panel(dst, PP, qrows, st, TILE, PAN, p * PAN, D);
+    panel(dst + TILE * PP, PP, k + base + (size_t)kt * FK * st, st, FK, PAN, p * PAN, D);
+  };
+  auto issue_v = [&](int kt, int vp, int slot) {
+    panel(vbuf + slot * PAN * VP, VP, v + base + (size_t)(kt * FK + vp * PAN) * st, st, PAN, CW,
+          c0, D);
+  };
+
+  float oacc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < WNJ; ++j) oacc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) oacc[i][j] = 0.f;
+  float mrow[4], lrow[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    mrow[i] = -INFINITY;
+    lrow[i] = 0.f;
+  }
 
-  for (int kt = 0; kt < T / TILE; ++kt) {
-    const float* krows = k + base + (size_t)kt * TILE * st;
-    float s[4][4] = {};
-    for (int c = 0; c < nc; ++c) {
-      __syncthreads();
-      load_chunk(Qs, qrows, st, D, c);
-      load_chunk(Ks, krows, st, D, c);
-      if (c == nc - 1) load_chunk(Vs, v + base + (size_t)kt * TILE * st, st, D, oc);
-      __syncthreads();
-      gemm_nt<WC, WP, WP>(Qs, Ks, s, ty, tx);
-    }
+  int ss = 0, vs = 0;
+  issue_s(0, 0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    float s[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) Ss[(ty + 16 * i) * SP + tx + 16 * j] = s[i][j] * scale;
-    __syncthreads();
-    {  // the online softmax of the D <= 128 kernel
-      const int r = tid >> 2, part = tid & 3;
-      float* srow = Ss + r * SP + part * 16;
-      const float m_old = Ms[r];
-      float mx = m_old;
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    for (int p = 0; p < np; ++p) {
+      if (p + 1 < np)
+        issue_s(kt, p + 1, ss ^ 1);
+      else
+        issue_v(kt, 0, vs);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* sl = sbuf + ss * (TILE + FK) * PP;
+      panel_nt<4, 8, 4>(sl, sl + TILE * PP, s, ty, 16, tx);
+      __syncthreads();
+      ss ^= 1;
+    }
+    // online softmax of rows ty + 16 i over these 128 keys
 #pragma unroll
-      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, srow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    for (int i = 0; i < 4; ++i) {
+      float mx = mrow[i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] *= scale;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = expf(srow[c] - mx);
-        srow[c] = p;
-        sum += p;
+      for (int j = 0; j < 8; ++j) {
+        const float pv = expf(s[i][j] - mx);
+        ps[(ty + 16 * i) * PS + tx + 16 * j] = pv;
+        sum += pv;
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float alpha = expf(m_old - mx);
-        Al[r] = alpha;
-        Ms[r] = mx;
-        Lsum[r] = Lsum[r] * alpha + sum;
-      }
-    }
-    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = Al[ty + 16 * i];
+      for (int off = 1; off < 16; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const float alpha = expf(mrow[i] - mx);
+      mrow[i] = mx;
+      lrow[i] = lrow[i] * alpha + sum;
 #pragma unroll
-      for (int j = 0; j < WNJ; ++j) oacc[i][j] *= alpha;
+      for (int j = 0; j < NJ; ++j) oacc[i][j] *= alpha;
     }
-    gemm_nn<WNJ, SP, WP>(Ss, Vs, oacc, ty, tx);
+    for (int vp = 0; vp < FK / PAN; ++vp) {
+      if (vp + 1 < FK / PAN)
+        issue_v(kt, vp + 1, vs ^ 1);
+      else if (kt + 1 < nk)
+        issue_s(kt + 1, 0, ss);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* vl = vbuf + vs * PAN * VP;
+#pragma unroll
+      for (int half = 0; half < PAN / YR; ++half)
+        panel_nn<4, CW>(ps, PS, vp * PAN + half * YR, vl + half * YR * VP, oacc, ty, 16, tx);
+      __syncthreads();
+      vs ^= 1;
+    }
   }
-  __syncthreads();
+  cp_async_wait<0>();
+
+  float inv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) inv[i] = 1.f / lrow[i];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const float inv = 1.f / Lsum[r];
-    float* orow = o + (((size_t)b * T + qt * TILE + r) * H + h) * D + oc * WC;
+    float* row = o + (((size_t)b * T + qt * TILE + ty + 16 * i) * H + h) * D + c0;
 #pragma unroll
-    for (int j = 0; j < WNJ; ++j)
-      if (oc * WC + tx + 16 * j < D) orow[tx + 16 * j] = oacc[i][j] * inv;
+    for (int j = 0; j < CW / 64; ++j) {
+      const int col = 4 * tx + 64 * j;
+      if (c0 + col < D)
+        *reinterpret_cast<float4*>(row + col) =
+            make_float4(oacc[i][4 * j] * inv[i], oacc[i][4 * j + 1] * inv[i],
+                        oacc[i][4 * j + 2] * inv[i], oacc[i][4 * j + 3] * inv[i]);
+    }
   }
-  if (tid < TILE && oc == 0)
-    lse[((size_t)b * H + h) * T + qt * TILE + tid] = Ms[tid] + logf(Lsum[tid]);
+  if (oc == 0 && tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      lse[((size_t)b * H + h) * T + qt * TILE + ty + 16 * i] = mrow[i] + logf(lrow[i]);
+  }
 }
 
-// S and dP summed over the chunks, the output's chunk oc last, so that Q and
-// dO (dkv) or K (dq) of that chunk are still in shared memory for the second
-// products.
-__global__ void __launch_bounds__(256)
-    flash_dkv_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+// Backward, dkv (DKV) or dq: 64 fixed rows a block (keys; queries), one chunk
+// of the output, a loop over the other rows in tiles of 64 (queries; keys).
+// Threads split in two groups of 128 (g = 0, 1), (ty, tx) of 8 x 16 within a
+// group. The first products: group 0 X = A0 B0^T, group 1 X = A1 B1^T over D
+// (dkv: S^T = K Q^T and dP^T = V dO^T; dq: S = Q K^T and dP = dO V^T), a
+// thread holding rows ty + 8 i (8) and columns tx + 16 j (4). Group 0 writes
+// P (P^T) to shared memory, group 1 reads it and writes dS (dS^T). The second
+// products: dkv, group 0 dV += P^T dO and group 1 dK += dS^T Q, each 64 rows
+// x CW (rows ty + 8 i, 8 x CW / 16 a thread); dq, dQ += dS K, group g rows
+// 32 g + ty + 8 i (4 x CW / 16). Each output element is summed by one thread
+// in a fixed order: two runs give the same bits.
+template <int CW, bool DKV>
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ d_out,
                               const float* __restrict__ lse, const float* __restrict__ delta,
-                              float* __restrict__ dk, float* __restrict__ dv, int T, int H,
-                              int D, long long sb, long long st, long long sh, long long gb,
-                              long long gt, long long gh, float scale) {
+                              float* __restrict__ out0, float* __restrict__ out1, int T, int H,
+                              int D, int nc, long long sb, long long st, long long sh,
+                              long long gb, long long gt, long long gh, float scale) {
+  constexpr int R2 = DKV ? 8 : 4, NJ = CW / 16, YP = CW + 4;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + TILE * WP;
-  float* Qs = Vs + TILE * WP;
-  float* Gs = Qs + TILE * WP;
-  float* Ps = Gs + TILE * WP;
-  float* dSs = Ps + TILE * WP;
-  float* Ls = dSs + TILE * WP;
-  float* Ds = Ls + TILE;
-  const int nc = (D + WC - 1) / WC;
-  const int kt = blockIdx.x / nc, oc = blockIdx.x % nc, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  float* sbuf = smem;                 // 2 slots: A0, B0, A1, B1 panels of 64 rows
+  float* pt = sbuf + 2 * 4 * TILE * PP;  // P (dq) or P^T (dkv), 64 x 64
+  float* dst_ = pt + TILE * XP;       // dS or dS^T
+  float* ybuf = dst_ + TILE * XP;     // 2 slots: 16 rows of the chunk, two operands (dkv)
+  float* stats = ybuf + 2 * 2 * YR * YP;  // dkv: lse, delta of the query tile
+  const int ft = blockIdx.x / nc, oc = blockIdx.x % nc, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, g = tid >> 7, ty = (tid & 127) >> 4, tx = tid & 15;
   const size_t base = (size_t)b * sb + (size_t)h * sh;
-  const long long opitch = (long long)H * D;
-  const float* krows = k + base + (size_t)kt * TILE * st;
-  const float* vrows = v + base + (size_t)kt * TILE * st;
+  const long long op = (long long)H * D;  // d_out: contiguous
+  const size_t obase = (size_t)b * T * op + (size_t)h * D;
+  const int np = (D + PAN - 1) / PAN, n = T / TILE, c0 = oc * CW;
   const float* lse_bh = lse + ((size_t)b * H + h) * T;
   const float* delta_bh = delta + ((size_t)b * H + h) * T;
-  float dka[4][WNJ], dva[4][WNJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < WNJ; ++j) dka[i][j] = dva[i][j] = 0.f;
+  // fixed rows: dkv K (A0) and V (A1); dq Q (A0) and dO (A1)
+  const float* a0 = (DKV ? k : q) + base + (size_t)ft * TILE * st;
+  const float* a1 = DKV ? v + base + (size_t)ft * TILE * st : d_out + obase + (size_t)ft * TILE * op;
+  const long long a1s = DKV ? st : op;
 
-  for (int qt = 0; qt < T / TILE; ++qt) {
-    const float* qrows = q + base + (size_t)qt * TILE * st;
-    const float* grows =
-        d_out + (size_t)b * T * opitch + (size_t)h * D + (size_t)qt * TILE * opitch;
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int i = 1; i <= nc; ++i) {
-      const int c = (oc + i) % nc;
-      __syncthreads();
-      load_chunk(Qs, qrows, st, D, c);
-      load_chunk(Ks, krows, st, D, c);
-      load_chunk(Gs, grows, opitch, D, c);
-      load_chunk(Vs, vrows, st, D, c);
-      if (i == 1 && tid < TILE) {
-        Ls[tid] = lse_bh[qt * TILE + tid];
-        Ds[tid] = delta_bh[qt * TILE + tid];
-      }
-      __syncthreads();
-      gemm_nt<WC, WP, WP>(Qs, Ks, s, ty, tx);
-      gemm_nt<WC, WP, WP>(Gs, Vs, dp, ty, tx);
+  auto issue_s = [&](int ot, int p, int slot) {  // ot: the other rows' tile
+    float* dst = sbuf + slot * 4 * TILE * PP;
+    const float* b0 = (DKV ? q : k) + base + (size_t)ot * TILE * st;
+    const float* b1 = DKV ? d_out + obase + (size_t)ot * TILE * op : v + base + (size_t)ot * TILE * st;
+    panel(dst, PP, a0, st, TILE, PAN, p * PAN, D);
+    panel(dst + TILE * PP, PP, b0, st, TILE, PAN, p * PAN, D);
+    panel(dst + 2 * TILE * PP, PP, a1, a1s, TILE, PAN, p * PAN, D);
+    panel(dst + 3 * TILE * PP, PP, b1, DKV ? op : st, TILE, PAN, p * PAN, D);
+  };
+  auto issue_y = [&](int ot, int yp, int slot) {  // rows ot * 64 + yp * 16 ..
+    float* dst = ybuf + slot * 2 * YR * YP;
+    const size_t r = (size_t)ot * TILE + yp * YR;
+    if (DKV) {  // dO (for dV) and Q (for dK)
+      panel(dst, YP, d_out + obase + r * op, op, YR, CW, c0, D);
+      panel(dst + YR * YP, YP, q + base + r * st, st, YR, CW, c0, D);
+    } else {  // K
+      panel(dst, YP, k + base + r * st, st, YR, CW, c0, D);
     }
+  };
+
+  float acc[R2][NJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ty + 16 * i;
-      const float l = Ls[m], dl = Ds[m];
+  for (int i = 0; i < R2; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] * scale - l);
-        Ps[m * WP + tx + 16 * j] = p;
-        dSs[m * WP + tx + 16 * j] = p * (dp[i][j] - dl);
-      }
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  // dq: lse (group 0) or delta (group 1) of this thread's 8 query rows
+  float rowstat[8];
+  if (!DKV) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) rowstat[i] = (g == 0 ? lse_bh : delta_bh)[ft * TILE + ty + 8 * i];
+  }
+
+  int ss = 0, ys = 0;
+  issue_s(0, 0, 0);
+  cp_async_commit();
+  for (int ot = 0; ot < n; ++ot) {
+    if (DKV && tid < 2 * TILE)
+      stats[tid] = (tid < TILE ? lse_bh : delta_bh)[ot * TILE + (tid & (TILE - 1))];
+    float x[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[i][j] = 0.f;
+    for (int p = 0; p < np; ++p) {
+      if (p + 1 < np)
+        issue_s(ot, p + 1, ss ^ 1);
+      else
+        issue_y(ot, 0, ys);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* sl = sbuf + ss * 4 * TILE * PP + g * 2 * TILE * PP;
+      panel_nt<8, 4, DKV ? 2 : 4>(sl, sl + TILE * PP, x, ty, 8, tx);
+      __syncthreads();
+      ss ^= 1;
+    }
+    // P (P^T) from group 0's logits, then dS (dS^T) from group 1's dP (dP^T)
+    if (g == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float l = DKV ? stats[tx + 16 * j] : rowstat[i];
+          pt[(ty + 8 * i) * XP + tx + 16 * j] = expf(x[i][j] * scale - l);
+        }
     }
     __syncthreads();
-    gemm_tn<WNJ, WP, WP>(Ps, Gs, dva, ty, tx);   // dV[n, d] += P[m, n] dO[m, d]
-    gemm_tn<WNJ, WP, WP>(dSs, Qs, dka, ty, tx);  // dK[n, d] += dS[m, n] Q[m, d]
-  }
+    if (g == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = (size_t)b * gb + (size_t)h * gh + (size_t)(kt * TILE + ty + 16 * i) * gt +
-                       oc * WC;
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < WNJ; ++j) {
-      if (oc * WC + tx + 16 * j < D) {
-        dk[row + tx + 16 * j] = dka[i][j] * scale;
-        dv[row + tx + 16 * j] = dva[i][j];
-      }
+        for (int j = 0; j < 4; ++j) {
+          const float dl = DKV ? stats[TILE + tx + 16 * j] : rowstat[i];
+          const int at = (ty + 8 * i) * XP + tx + 16 * j;
+          dst_[at] = pt[at] * (x[i][j] - dl);
+        }
     }
-  }
-}
-
-__global__ void __launch_bounds__(256)
-    flash_dq_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ d_out,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             float* __restrict__ dq, int T, int H, int D, long long sb,
-                             long long st, long long sh, long long gb, long long gt, long long gh,
-                             float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Gs = Qs + TILE * WP;
-  float* Ks = Gs + TILE * WP;
-  float* Vs = Ks + TILE * WP;
-  float* dSs = Vs + TILE * WP;
-  float* Ls = dSs + TILE * WP;
-  float* Ds = Ls + TILE;
-  const int nc = (D + WC - 1) / WC;
-  const int qt = blockIdx.x / nc, oc = blockIdx.x % nc, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t base = (size_t)b * sb + (size_t)h * sh;
-  const long long opitch = (long long)H * D;
-  const float* qrows = q + base + (size_t)qt * TILE * st;
-  const float* grows = d_out + (size_t)b * T * opitch + (size_t)h * D + (size_t)qt * TILE * opitch;
-  if (tid < TILE) {
-    Ls[tid] = lse[((size_t)b * H + h) * T + qt * TILE + tid];
-    Ds[tid] = delta[((size_t)b * H + h) * T + qt * TILE + tid];
-  }
-  float dqa[4][WNJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < WNJ; ++j) dqa[i][j] = 0.f;
-
-  for (int kt = 0; kt < T / TILE; ++kt) {
-    const float* krows = k + base + (size_t)kt * TILE * st;
-    const float* vrows = v + base + (size_t)kt * TILE * st;
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int i = 1; i <= nc; ++i) {
-      const int c = (oc + i) % nc;
+    for (int yp = 0; yp < TILE / YR; ++yp) {
+      if (yp + 1 < TILE / YR)
+        issue_y(ot, yp + 1, ys ^ 1);
+      else if (ot + 1 < n)
+        issue_s(ot + 1, 0, ss);
+      cp_async_commit();
+      cp_async_wait<1>();
       __syncthreads();
-      load_chunk(Qs, qrows, st, D, c);
-      load_chunk(Gs, grows, opitch, D, c);
-      load_chunk(Ks, krows, st, D, c);
-      load_chunk(Vs, vrows, st, D, c);
+      const float* yl = ybuf + ys * 2 * YR * YP;
+      if (DKV)  // group 0: dV += P^T dO; group 1: dK += dS^T Q
+        panel_nn<R2, CW>(g == 0 ? pt : dst_, XP, yp * YR, yl + g * YR * YP, acc, ty, 8, tx);
+      else  // dQ += dS K, group g's 32 rows
+        panel_nn<R2, CW>(dst_, XP, yp * YR, yl, acc, 32 * g + ty, 8, tx);
       __syncthreads();
-      gemm_nt<WC, WP, WP>(Qs, Ks, s, ty, tx);
-      gemm_nt<WC, WP, WP>(Gs, Vs, dp, ty, tx);
+      ys ^= 1;
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ty + 16 * i;
-      const float l = Ls[m], dl = Ds[m];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dSs[m * WP + tx + 16 * j] = expf(s[i][j] * scale - l) * (dp[i][j] - dl);
-    }
-    __syncthreads();
-    gemm_nn<WNJ, WP, WP>(dSs, Ks, dqa, ty, tx);  // dQ[m, d] += dS[m, n] K[n, d], chunk oc
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = (size_t)b * gb + (size_t)h * gh + (size_t)(qt * TILE + ty + 16 * i) * gt +
-                       oc * WC;
-#pragma unroll
-    for (int j = 0; j < WNJ; ++j)
-      if (oc * WC + tx + 16 * j < D) dq[row + tx + 16 * j] = dqa[i][j] * scale;
+  cp_async_wait<0>();
+
+  const size_t obase2 = (size_t)b * gb + (size_t)h * gh + (size_t)ft * TILE * gt + c0;
+  if (DKV) {  // out0 = dk, out1 = dv
+    float* dstp = (g == 0 ? out1 : out0) + obase2;
+    store_chunk<R2, CW>(acc, [&](int r) { return dstp + (size_t)r * gt; }, ty, 8, tx,
+                        g == 0 ? 1.f : scale, D - c0);
+  } else {  // out0 = dq
+    float* dstp = out0 + obase2;
+    store_chunk<R2, CW>(acc, [&](int r) { return dstp + (size_t)r * gt; }, 32 * g + ty, 8, tx,
+                        scale, D - c0);
   }
 }
 
@@ -567,19 +718,67 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* d_ou
   return (int)cudaGetLastError();
 }
 
+// Output chunks of a head width D > 128, at most `widest` columns each: nc =
+// ceil(D / widest), each of CW = 64 ceil(D / 64 / nc) columns. O and dQ take
+// up to 384 columns a block (4 rows x 24 columns a thread), dK and dV up to
+// 256 (8 rows x 16 columns a thread).
+constexpr int WIDEST = 384, DKV_WIDEST = 256;
+inline int chunk_count(int D, int widest) { return (D + widest - 1) / widest; }
+inline int chunk_width(int D, int widest) {
+  const int nb = (D + 63) / 64, nc = chunk_count(D, widest);
+  return 64 * ((nb + nc - 1) / nc);
+}
+
+template <int CW>
+int launch_fwd_wide(const float* q, const float* k, const float* v, float* o, float* lse, int B,
+                    int T, int H, int D, long long sb, long long st, long long sh, float scale,
+                    cudaStream_t stream) {
+  constexpr int smem = fwd_wide_smem<CW>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_wide_kernel<CW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nc = chunk_count(D, WIDEST);
+  flash_fwd_f32_wide_kernel<CW><<<dim3(T / TILE * nc, H, B), 256, smem, stream>>>(
+      q, k, v, o, lse, T, H, D, nc, sb, st, sh, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int CW, bool DKV>
+int launch_bwd_wide(const float* q, const float* k, const float* v, const float* d_out,
+                    const float* lse, const float* delta, float* out0, float* out1, int B, int T,
+                    int H, int D, long long sb, long long st, long long sh, long long gb,
+                    long long gt, long long gh, float scale, cudaStream_t stream) {
+  constexpr int smem = bwd_wide_smem<CW>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32_wide_kernel<CW, DKV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nc = chunk_count(D, DKV ? DKV_WIDEST : WIDEST);
+  flash_bwd_f32_wide_kernel<CW, DKV><<<dim3(T / TILE * nc, H, B), 256, smem, stream>>>(
+      q, k, v, d_out, lse, delta, out0, out1, T, H, D, nc, sb, st, sh, gb, gt, gh, scale);
+  return (int)cudaGetLastError();
+}
+
+// The *_wide kernel of chunk width CW for D (a runtime switch over the
+// compiled widths).
+#define RFV_WIDE_CASES(CALL) \
+  case 192:                 \
+    return CALL(192);       \
+  case 256:                 \
+    return CALL(256);       \
+  case 320:                 \
+    return CALL(320);       \
+  default:                  \
+    return CALL(384);
+
 }  // namespace
 
 int rfv_flash::fwd_f32_wide(const float* q, const float* k, const float* v, float* o, float* lse,
                             int B, int T, int H, int D, long long sb, long long st, long long sh,
                             float scale, cudaStream_t stream) {
-  constexpr int smem = fwd_wide_smem();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_wide_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nc = (D + WC - 1) / WC;
-  flash_fwd_f32_wide_kernel<<<dim3(T / TILE * nc, H, B), 256, smem, stream>>>(
-      q, k, v, o, lse, T, H, D, sb, st, sh, scale);
-  return (int)cudaGetLastError();
+  if (D <= 128 || D % 8) return (int)cudaErrorInvalidValue;
+#define RFV_FWD(W) launch_fwd_wide<W>(q, k, v, o, lse, B, T, H, D, sb, st, sh, scale, stream)
+  switch (chunk_width(D, WIDEST)) { RFV_WIDE_CASES(RFV_FWD) }
+#undef RFV_FWD
 }
 
 int rfv_flash::bwd_f32_wide(const float* q, const float* k, const float* v, const float* d_out,
@@ -587,21 +786,18 @@ int rfv_flash::bwd_f32_wide(const float* q, const float* k, const float* v, cons
                             int B, int T, int H, int D, long long sb, long long st, long long sh,
                             long long gb, long long gt, long long gh, float scale,
                             cudaStream_t stream) {
-  constexpr int smem_dkv = dkv_wide_smem(), smem_dq = dq_wide_smem();
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_f32_wide_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_dq_f32_wide_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
-  if (err != cudaSuccess) return (int)err;
-  const int nc = (D + WC - 1) / WC;
-  const dim3 grid(T / TILE * nc, H, B);
-  flash_dkv_f32_wide_kernel<<<grid, 256, smem_dkv, stream>>>(q, k, v, d_out, lse, delta, dk, dv,
-                                                             T, H, D, sb, st, sh, gb, gt, gh,
-                                                             scale);
-  flash_dq_f32_wide_kernel<<<grid, 256, smem_dq, stream>>>(q, k, v, d_out, lse, delta, dq, T, H, D,
-                                                           sb, st, sh, gb, gt, gh, scale);
-  return (int)cudaGetLastError();
+  if (D <= 128 || D % 8) return (int)cudaErrorInvalidValue;
+  const int e = chunk_width(D, DKV_WIDEST) == 192
+                    ? launch_bwd_wide<192, true>(q, k, v, d_out, lse, delta, dk, dv, B, T, H, D,
+                                                 sb, st, sh, gb, gt, gh, scale, stream)
+                    : launch_bwd_wide<256, true>(q, k, v, d_out, lse, delta, dk, dv, B, T, H, D,
+                                                 sb, st, sh, gb, gt, gh, scale, stream);
+  if (e) return e;
+#define RFV_DQ(W)                                                                               \
+  launch_bwd_wide<W, false>(q, k, v, d_out, lse, delta, dq, nullptr, B, T, H, D, sb, st, sh, gb, \
+                            gt, gh, scale, stream)
+  switch (chunk_width(D, WIDEST)) { RFV_WIDE_CASES(RFV_DQ) }
+#undef RFV_DQ
 }
 
 #define RFV_F32_WIDTHS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)

@@ -14,13 +14,18 @@ head axis, in one copy of q, k and v, to the next multiple of 8
 kernels run at scale 1/sqrt(D) of the true D: zero columns add nothing to
 Q K^T, dP or delta and give zero output columns, which are sliced off.
 ``kernel_head_dim`` gives the width the kernels are compiled for. The bf16
-kernels (``wgmma`` + TMA) take D up to 256 (``HEAD_DIM_MAX_BF16``) and pad it
-in shared memory to 64, 128, 192 or 256 (one to four 128-byte TMA boxes,
-columns past D zero-filled); above 128 they stream 64-key tiles and split
-dkv and dq between their warpgroups. The fp32 kernels take D up to 128
-(``HEAD_DIM_MAX_F32``), padded to the next multiple of 16. Wider fp32 heads,
-and bf16 heads wider than 256 on fp32 copies, take the chunked fp32 kernels,
-which sum the logits over 64-column chunks of D.
+kernels (``wgmma`` + TMA) read q, k and v in place at every width: up to
+D = 256 (``HEAD_DIM_WIDE``) they pad it in shared memory to 64, 128, 192 or
+256 (one to four 128-byte TMA boxes, columns past D zero-filled) and above 128
+stream 64-key tiles and split dkv and dq between their warpgroups; above 256
+the streamed kernels (``csrc/flash_attention_streamed.cu``) sum the logits
+over D one 64-column box at a time and write the outputs in chunks of 192 or
+256 columns. The fp32 kernels take D up to 128 (``HEAD_DIM_MAX_F32``),
+padded to the next multiple of 16; wider fp32 heads take the *_wide fp32
+kernels, whose blocks own every output column of their rows up to D = 256
+(O and dQ up to 384; the fewest chunks above it), so that each logit is
+computed once for each output block. Above 128 (fp32) and 256 (bf16) the
+width is a multiple of 64 (``HEAD_DIM_BOX``).
 
 ``use_flash`` is the JAX package's rule on shape (``dit.py:131-135``): the
 kernel where T >= 1024 and T % 128 == 0, below that the plain attention that
@@ -54,9 +59,9 @@ Tensor = torch.Tensor
 FLASH_MIN_SEQ = 1024  # the JAX package's _FLASH_MIN_SEQ
 FLASH_SEQ_MULTIPLE = 128  # its smallest valid block (_flash_block_sizes)
 KERNEL_TILE = 128  # the kernels take T in multiples of their 128-row blocks
-HEAD_DIM_MAX_BF16 = 256  # the widest head of the bf16 kernels; wider: chunked fp32
-HEAD_DIM_MAX_F32 = 128  # the widest head of the fp32 kernels; wider: chunked fp32
-HEAD_DIM_CHUNK = 64  # the chunked kernels' column chunk
+HEAD_DIM_WIDE = 256  # the widest bf16 head held whole by a warpgroup; wider: streamed
+HEAD_DIM_MAX_F32 = 128  # the widest head of the fp32 kernels; wider: the *_wide fp32 kernels
+HEAD_DIM_BOX = 64  # above those two widths, the kernels' widths are multiples of this
 
 
 def use_flash(t: int) -> bool:
@@ -72,21 +77,15 @@ def padded_head_dim(d: int) -> int:
     return -(-d // 8) * 8
 
 
-def _chunked(dk: int, dtype: torch.dtype) -> bool:
-    """Whether a padded head width ``dk`` takes the chunked fp32 kernels."""
-    return dk > (HEAD_DIM_MAX_BF16 if dtype == torch.bfloat16 else HEAD_DIM_MAX_F32)
-
-
 def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
     """The head width the kernels are compiled for that takes D = ``d``
-    (after ``padded_head_dim``): bf16 the next of 64, 128, 192 and 256, fp32
-    the next multiple of 16 up to 128; above those a multiple of 64 (the
-    chunked fp32 kernels, for both dtypes). Raises only for d < 1."""
+    (after ``padded_head_dim``): fp32 the next multiple of 16 up to 128,
+    otherwise the next multiple of 64 (bf16: 64, 128, 192 or 256, and above
+    256 the streamed kernels; fp32 above 128 the *_wide kernels). Raises only
+    for d < 1."""
     dk = padded_head_dim(d)
-    if _chunked(dk, dtype):
-        return -(-dk // HEAD_DIM_CHUNK) * HEAD_DIM_CHUNK
-    if dtype == torch.bfloat16:
-        return -(-dk // 64) * 64
+    if dtype == torch.bfloat16 or dk > HEAD_DIM_MAX_F32:
+        return -(-dk // HEAD_DIM_BOX) * HEAD_DIM_BOX
     return -(-dk // 16) * 16
 
 
@@ -180,32 +179,29 @@ def _shared_strides(q: Tensor, k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor, Te
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def _widen(ts: Sequence[Tensor], dk: int, dtype: torch.dtype) -> Tuple[Tensor, ...]:
+def _widen(ts: Sequence[Tensor], dk: int) -> Tuple[Tensor, ...]:
     """[B, T, H, D] tensors as the slices of one zero-padded [B, T, n, H, dk]
-    buffer in ``dtype`` (one copy each)."""
+    buffer (one copy each)."""
     b, t, h, d = ts[0].shape
-    buf = torch.zeros((b, t, len(ts), h, dk), device=ts[0].device, dtype=dtype)
+    buf = torch.zeros((b, t, len(ts), h, dk), device=ts[0].device, dtype=ts[0].dtype)
     for i, x in enumerate(ts):
         buf[:, :, i, :, :d] = x
     return buf.unbind(2)
 
 
 def _kernel_inputs(q, k, v, d: int) -> Tuple[Tensor, Tensor, Tensor]:
-    """q, k, v at the width and dtype the kernels take: in place where D is a
-    multiple of 8 in the kernels' own dtype (bf16 up to D = 256), else one
-    padded copy (fp32 for the chunked kernels)."""
+    """q, k, v as the kernels take them, in their own dtype at every width:
+    in place where D is a multiple of 8, else one zero-padded copy."""
     dk = padded_head_dim(d)
-    work = torch.float32 if _chunked(dk, q.dtype) else q.dtype
-    if dk == d and work == q.dtype:
+    if dk == d:
         return _shared_strides(q, k, v)
-    return _widen((q, k, v), dk, work)
+    return _widen((q, k, v), dk)
 
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
     """Launch the forward kernel: (out [B, T, H, D] contiguous in q's dtype,
     lse [B, H, T] fp32)."""
     b, t, h, d, dp = _check(q, k, v, "flash_attention")
-    dtype = q.dtype
     q, k, v = _kernel_inputs(q, k, v, d)
     dk = q.shape[-1]
     out = torch.empty((b, t, h, dk), device=q.device, dtype=q.dtype)
@@ -218,8 +214,8 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor) -> Tuple[Tensor, Tenso
     )
     build.check(rc, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
-    if dk != d or out.dtype != dtype:
-        out = out[..., :d].to(dtype).contiguous()
+    if dk != d:
+        out = out[..., :d].contiguous()
     return out, lse
 
 
@@ -236,8 +232,8 @@ def flash_attention_backward_cuda(
     build.require(d_out, "d_out", device=q.device, dtype=dtype, shape=(b, t, h, d))
     q, k, v = _kernel_inputs(q, k, v, d)
     dk = q.shape[-1]
-    if dk != d or q.dtype != dtype:  # contiguous [B, T, H, dk] each
-        out, d_out = (F.pad(x.to(q.dtype), (0, dk - d)) for x in (out, d_out))
+    if dk != d:  # contiguous [B, T, H, dk] each
+        out, d_out = (F.pad(x, (0, dk - d)) for x in (out, d_out))
     grads = torch.empty((b, t, 3, h, dk), device=q.device, dtype=q.dtype)
     g_q, g_k, g_v = grads.unbind(2)
     delta = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
@@ -251,6 +247,6 @@ def flash_attention_backward_cuda(
     )
     build.check(rc, "flash_attention_backward")
     build.LAUNCHES["flash_attention_backward"] += 1
-    if dk != d or grads.dtype != dtype:
-        grads = grads[..., :d].to(dtype).contiguous()
+    if dk != d:
+        grads = grads[..., :d].contiguous()
     return grads.unbind(2)

@@ -128,6 +128,38 @@ class TestForward:
         assert np.abs(want).max() > 0.1
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
+    def test_heads_of_384_forward_and_gradients_match_jax_fp32(self):
+        """DiT-XL/2's hidden 1152 in 3 heads of 384 (both packages' DiT take
+        it; on the card the streamed bf16 flash kernels and the fp32 *_wide
+        kernels in two chunks) at depth 1 on 8x8x4 latents (16 tokens, the
+        plain attention on either side). Parameters carried across by
+        ``tree_to_state_dict``; the forward and the gradient of every
+        parameter of sum(out * cotangent) against ``DiT.apply`` and
+        ``jax.grad``, within 1e-4."""
+        kw = dict(input_size=8, patch_size=2, in_channels=4, hidden_size=1152, depth=1,
+                  num_heads=3)
+        jd = JD.DiT(**kw)
+        params = _random_tree(jax.eval_shape(jd.init, jax.random.key(0)), 21, scale=0.02)
+        net = TDIT.DiT(**kw)
+        net.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                             for k, v in TPT.tree_to_state_dict(params).items()}, strict=True)
+        x, t = _inputs(TINY, 2, seed=22)
+        cot = np.random.default_rng(23).standard_normal(x.shape).astype(np.float32)
+        jp = jax.tree_util.tree_map(jnp.asarray, params)
+        xj, tj = jnp.asarray(x), jnp.asarray(t)
+        want = np.asarray(jd.apply(jp, xj, tj))
+        gref = jax.grad(lambda p: jnp.sum(jd.apply(p, xj, tj) * jnp.asarray(cot)))(jp)
+        got = net(torch.from_numpy(x), torch.from_numpy(t), masters=True)
+        (got * torch.from_numpy(cot)).sum().backward()
+        assert net.cfg.hidden_size // net.cfg.num_heads == 384
+        assert np.abs(want).max() > 0.1
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=0, atol=1e-4)
+        grads = {k: p.grad.numpy() for k, p in net.named_parameters()}
+        wants = TPT.tree_to_state_dict(jax.tree_util.tree_map(np.asarray, gref))
+        assert set(grads) == set(wants)
+        for k, w in wants.items():
+            np.testing.assert_allclose(grads[k], w, rtol=0, atol=1e-4, err_msg=k)
+
     def test_the_1024_token_model_takes_the_flash_route(self, monkeypatch):
         _, tm = _pair(NARROW)
         x, t = _inputs(NARROW, 1)

@@ -5,13 +5,15 @@ counterpart. On the CPU the JAX ``_attention`` takes its XLA branch (the
 backend is not a TPU), which is the library kernel's plain reference; the port
 takes ``flash_attention_plain``. Head widths 64 (DiT-S/B/L) and 72 (DiT-XL),
 widths the kernels take only zero-padded (4, 12), widths above 128 (136, 192,
-200, 256: the bf16 kernels' 192 and 256 instances, in fp32 the chunked
-kernels), the padding identity, and the kernels' head-width rule, which needs
-no card. Tolerances: fp32 atol 1e-5 forward (the same fp32 arithmetic, summed
-in another order), 1e-4 for dq, dk, dv; bf16 rtol 2e-2 (probabilities and
-outputs are rounded to bf16 on both sides, at the same points), and above
-128 in bf16 2e-2 of each output's largest entry for the forward and the
-gradients against ``jax.vjp`` (which rounds at other points). The
+200, 256: the bf16 kernels' 192 and 256 instances, in fp32 the *_wide
+kernels), widths above 256 (264, 320, 384, 512: the streamed bf16 kernels,
+the fp32 *_wide kernels in two chunks), the padding identity, and the
+kernels' head-width rule, which needs no card. Tolerances: fp32 atol 1e-5
+forward (the same fp32 arithmetic, summed in another order), 1e-4 for dq,
+dk, dv; bf16 rtol 2e-2 (probabilities and outputs are rounded to bf16 on
+both sides, at the same points), and above 128 in bf16 2e-2 of each
+output's largest entry for the forward and the gradients against
+``jax.vjp`` (which rounds at other points). The
 hand-written backward is also held against torch autograd of the plain
 forward. The dropout is held to the contract of
 ``tests/test_pallas.py::TestDropoutKernels::test_dropout_kernel_mask_stats_and_determinism``.
@@ -77,13 +79,14 @@ class TestForward:
         assert bf16 == (64 if d <= 64 else 128) and d <= bf16
         assert fp32 % 16 == 0 and d <= fp32 < d + 16
 
-    @pytest.mark.parametrize("d", [0, 4, 12, 20, 100, 127, 130, 136, 192, 200, 256, 260, 320])
+    @pytest.mark.parametrize("d", [0, 4, 12, 20, 100, 127, 130, 136, 192, 200, 256, 260, 320,
+                                   264, 384, 512, 520, 1000])
     def test_other_head_widths_are_padded_to_a_kernel_width(self, d):
         """Every D >= 1 reaches a kernel: zero-padded to the next multiple of
-        8 (and 8 at least), then a kernel's width (bf16 up to 256, fp32 up to
-        128), or above those the chunked fp32 kernels' multiple of 64. Only
-        D = 0 raises."""
-        limits = {torch.bfloat16: TFA.HEAD_DIM_MAX_BF16, torch.float32: TFA.HEAD_DIM_MAX_F32}
+        8 (and 8 at least), then a kernel's width: bf16 the next multiple of
+        64 at every width (no ceiling), fp32 the next multiple of 16 up to
+        128 and of 64 above it. Only D = 0 raises."""
+        limits = {torch.bfloat16: 0, torch.float32: TFA.HEAD_DIM_MAX_F32}
         for dtype, limit in limits.items():
             if d == 0:
                 with pytest.raises(ValueError, match="D >= 1"):
@@ -93,33 +96,33 @@ class TestForward:
             assert padded % 8 == 0 and d <= padded < d + 8 and padded >= 8
             assert padded <= width
             if padded > limit:
-                assert width % TFA.HEAD_DIM_CHUNK == 0 and width < padded + TFA.HEAD_DIM_CHUNK
+                assert width % TFA.HEAD_DIM_BOX == 0 and width < padded + TFA.HEAD_DIM_BOX
             else:
                 assert width == TFA.kernel_head_dim(padded, dtype)
 
     @pytest.mark.parametrize("d,bf16,fp32", [(136, 192, 192), (192, 192, 192), (200, 256, 256),
-                                             (256, 256, 256), (320, 320, 320)])
+                                             (256, 256, 256), (320, 320, 320), (264, 320, 320),
+                                             (384, 384, 384), (512, 512, 512), (520, 576, 576)])
     def test_head_widths_above_128_route_by_dtype(self, d, bf16, fp32):
         """Above 128, bf16 takes the wgmma kernels' 192 and 256 instances up
-        to D = 256 and fp32 the chunked kernels; bf16 above 256 is chunked
-        too (a multiple of 64 either way)."""
+        to D = 256 and the streamed bf16 kernels above it, fp32 the *_wide
+        fp32 kernels: a multiple of 64 either way, with no ceiling."""
         assert TFA.kernel_head_dim(d, torch.bfloat16) == bf16
         assert TFA.kernel_head_dim(d, torch.float32) == fp32
-        assert TFA.HEAD_DIM_MAX_BF16 == 256 and TFA.HEAD_DIM_MAX_F32 == 128
+        assert TFA.HEAD_DIM_WIDE == 256 and TFA.HEAD_DIM_MAX_F32 == 128
 
-    @pytest.mark.parametrize("d", [64, 136, 200, 256, 320])
+    @pytest.mark.parametrize("d", [64, 136, 200, 256, 264, 320, 512])
     def test_bf16_reaches_the_kernels_without_an_fp32_copy_up_to_256(self, d):
-        """The views of one bf16 [B, T, 3, H, D] projection reach the kernels
-        in place up to D = 256 (no fp32 copy, no copy at all); above 256 they
-        go to the chunked kernels as one fp32 copy. fp32 above 128 stays fp32
-        in place."""
+        """The views of one [B, T, 3, H, D] projection reach the kernels in
+        place, in their own dtype, at every width: bf16 up to D = 256 and
+        above it (the streamed kernels, a multiple of 64 with no fp32 copy),
+        fp32 above 128."""
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = torch.zeros((1, 128, 3, 2, d), dtype=dtype).unbind(2)
             got = TFA._kernel_inputs(q, k, v, d)
-            chunked_copy = dtype == torch.bfloat16 and d > TFA.HEAD_DIM_MAX_BF16
-            want = torch.float32 if chunked_copy else dtype
-            assert all(x.dtype == want and x.shape == q.shape for x in got)
-            assert all((a is b) != chunked_copy for a, b in zip(got, (q, k, v)))
+            assert all(x.dtype == dtype and x.shape == q.shape for x in got)
+            assert all(a is b for a, b in zip(got, (q, k, v)))
+            assert TFA.kernel_head_dim(d, dtype) % (64 if d > 128 else 16) == 0
 
     def test_views_of_one_projection_need_no_copy(self):
         """q, k, v as DiT hands them over share their strides, so the kernel
@@ -139,18 +142,25 @@ class TestForward:
         np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-# head widths the kernels take only zero-padded (4, 12) or above 128 (136,
-# 192, 200, 256: bf16 on the 192 / 256 kernels, fp32 chunked)
+# head widths the kernels take only zero-padded (4, 12), above 128 (136,
+# 192, 200, 256: bf16 on the 192 / 256 kernels, fp32 on the *_wide kernels)
+# and above 256 (264, 320, 384, 512: the streamed bf16 kernels; fp32 in two
+# chunks)
 ODD_WIDTHS = [4, 12, 136, 192, 200, 256]
+WIDER = [264, 320, 384, 512]
 
 
 class TestHeadWidths:
     """Every head width the JAX ``_attention`` takes: the plain forward and
-    backward against it at D = 4, 12, 136, 192, 200 and 256 (and in bf16 at
-    136 and 256), and the padding identity the kernel wrappers rely on."""
+    backward against it at D = 4, 12, 136, 192, 200, 256, 264, 320, 384 and
+    512 (and in bf16 at 136, 256, 264, 320, 384 and 512), and the padding
+    identity the kernel wrappers rely on."""
 
-    @pytest.mark.parametrize("d", ODD_WIDTHS)
+    @pytest.mark.parametrize("d", ODD_WIDTHS + WIDER)
     def test_plain_matches_jax_forward_and_vjp(self, d):
+        """fp32 forward within 1e-5 (of the output's largest entry above 256,
+        where the logits' sums over D reach 1e-5 of outputs of size 3) and
+        gradients within 1e-4 of ``jax.vjp``."""
         shape = (1, 1024, 2, d)
         q, k, v = _qkv(shape, seed=11)
         g = np.random.default_rng(12).standard_normal(shape).astype(np.float32)
@@ -159,16 +169,18 @@ class TestHeadWidths:
         want = vjp(jnp.asarray(g))
         tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
         got_out = TF.flash_attention(tq, tk, tv)
-        np.testing.assert_allclose(got_out.numpy(), np.asarray(out), rtol=0, atol=1e-5)
+        scale = max(1.0, float(np.abs(out).max())) if d in WIDER else 1.0
+        np.testing.assert_allclose(got_out.numpy(), np.asarray(out), rtol=0, atol=1e-5 * scale)
         lse = TFA.flash_attention_lse_plain(tq, tk)
         got = TFA.flash_attention_backward_plain(tq, tk, tv, got_out, lse, tg)
         for name, a, b in zip("qkv", got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-4,
                                        err_msg=f"d{name}")
 
-    @pytest.mark.parametrize("d", [136, 256])
+    @pytest.mark.parametrize("d", [136, 256] + WIDER)
     def test_plain_matches_jax_forward_and_vjp_bf16(self, d):
-        """bf16 above 128, the route of the bf16 192 / 256 kernels: the plain
+        """bf16 above 128, the route of the bf16 192 / 256 kernels and of the
+        streamed kernels above 256: the plain
         forward and the hand-written backward (P and dS rounded to bf16, as
         the kernels do) against the JAX XLA branch in bf16 and its
         ``jax.vjp``, each output within 2e-2 of its largest entry."""

@@ -9,9 +9,11 @@ Shapes are small but cover ragged tiles (M not a multiple of the conv's
 128-row tile, boxes wider or taller than the image, 35 tokens in attention,
 C not a multiple of 32), every conv shape of the flagship forward, the
 attention block at 1024 and 4096 tokens, head widths 4 to 64 (attention
-block) and 4 to 320 (flash attention, DiT-XL's 72 among them; 4, 12 and 20
-zero-padded; 136, 192, 200 and 256 on the bf16 kernels' 192 / 256 instances
-in bf16 and on the chunked kernels in fp32; 320 chunked in both), every
+block) and 4 to 640 (flash attention, DiT-XL's 72 among them; 4, 12 and 20
+zero-padded; 136, 192, 200 and 256 on the bf16 kernels' 192 / 256 instances;
+264, 320, 384, 512 and 640 on the streamed bf16 kernels, 512 and 640 with
+their streamed layouts; every fp32 width above 128 on the *_wide fp32
+kernels), every
 GroupNorm slab of the flagship, and group widths that take gn_silu's
 narrower vectors (2 and 3 channels a group). Tolerances as in chip_smoke.py: fp32 1e-4 (gn_silu) / 1e-3 (conv3x3,
 attention; reordered sums, cuDNN's algorithm choice), bf16 one rounding
@@ -441,7 +443,9 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rto
 # 128, the fp32 ones to a multiple of 16), T a multiple of 128, the
 # 16384-token shape, widths the wrapper zero-pads (4, 12, 20), widths above
 # 128 (136, 192, 200, 256: bf16 on the 192 / 256 kernels, packed and
-# contiguous; fp32 chunked) and 320 (chunked in both dtypes)
+# contiguous; fp32 on the *_wide kernels, one chunk) and above 256 (264, 320,
+# 384, 512, 640: bf16 on the streamed kernels, ragged widths as views of one
+# projection; fp32 in two or three chunks)
 FLASH_FWD_CASES = [((2, 1024, 6, 64), True), ((1, 1152, 3, 64), False), ((2, 1024, 4, 32), True),
                    ((2, 1024, 4, 72), True), ((1, 1152, 2, 72), False), ((1, 1024, 2, 128), True),
                    ((1, 1152, 2, 128), False), ((1, 1024, 3, 8), True), ((1, 1024, 2, 96), False),
@@ -449,7 +453,9 @@ FLASH_FWD_CASES = [((2, 1024, 6, 64), True), ((1, 1152, 3, 64), False), ((2, 102
                    ((1, 1024, 2, 20), True), ((1, 1024, 2, 136), True), ((1, 1152, 2, 256), False),
                    ((1, 1024, 2, 136), False), ((2, 1024, 3, 192), True), ((1, 1152, 2, 192), False),
                    ((1, 1024, 2, 200), True), ((1, 1152, 2, 200), False), ((2, 1024, 3, 256), True),
-                   ((1, 1024, 2, 320), True)]
+                   ((1, 1024, 2, 320), True), ((1, 1152, 2, 264), True), ((1, 1024, 2, 264), False),
+                   ((1, 1152, 2, 320), False), ((2, 1024, 3, 384), True), ((1, 1024, 2, 512), True),
+                   ((1, 1152, 1, 512), False), ((1, 1024, 1, 640), True)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -475,7 +481,10 @@ def test_flash_attention_forward(dev, dtype, shape, packed):
                                           ((1, 1024, 2, 136), False), ((2, 1024, 3, 192), True),
                                           ((1, 1152, 2, 192), False), ((1, 1024, 2, 200), True),
                                           ((1, 1152, 2, 200), False), ((2, 1024, 3, 256), True),
-                                          ((1, 1024, 2, 320), True)])
+                                          ((1, 1024, 2, 320), True), ((1, 1152, 2, 264), True),
+                                          ((1, 1024, 2, 264), False), ((2, 1024, 3, 384), True),
+                                          ((1, 1152, 2, 384), False), ((1, 1024, 2, 512), True),
+                                          ((1, 1024, 1, 640), True)])
 def test_flash_attention_backward(dev, dtype, shape, packed):
     """dq, dk, dv of the kernels against the plain backward (the same
     formulas) and against autograd of the plain forward; two runs give the
@@ -516,12 +525,13 @@ class _LibrarySpy:
         return call
 
 
-@pytest.mark.parametrize("d", [136, 192, 200, 256, 320])
+@pytest.mark.parametrize("d", [136, 192, 200, 256, 264, 320, 384, 512])
 def test_flash_attention_bf16_routes_by_head_width(dev, monkeypatch, d):
-    """bf16 at 128 < D <= 256 reaches the C entry points in bf16 (no fp32
-    copy) at the 192 / 256 kernels' width, never the plain version; at 320
-    it reaches the chunked kernels as fp32. A failed launch raises: no
-    fallback to the chunked kernels or the plain version."""
+    """bf16 above 128 reaches the C entry points in bf16 at every width (no
+    fp32 copy): q, k, v read in place, at the 192 / 256 kernels' width up to
+    256 and at D rounded up to 64 above it (the streamed kernels), never the
+    plain version. A failed launch raises: no fallback to another kernel or
+    the plain version."""
     q, k, v = _qkv(dev, torch.bfloat16, 1, 1024, 2, d)
     g = torch.randn(q.shape, generator=_gen(dev, 15), device=dev).to(torch.bfloat16)
 
@@ -533,26 +543,28 @@ def test_flash_attention_bf16_routes_by_head_width(dev, monkeypatch, d):
     monkeypatch.setattr(build, "library", lambda: spy)
     out, lse = FA.flash_attention_cuda(q, k, v)
     FA.flash_attention_backward_cuda(q, k, v, out, lse, g)
-    wide = d <= FA.HEAD_DIM_MAX_BF16
-    code = build.DTYPE_CODES[torch.bfloat16 if wide else torch.float32]
+    code = build.DTYPE_CODES[torch.bfloat16]
     (fwd, fa), (bwd, ba) = spy.calls
     assert (fwd, fa[9], fa[14]) == ("rfv_flash_attention_fwd", -(-d // 64) * 64, code)
     assert (bwd, ba[14], ba[22]) == ("rfv_flash_attention_bwd", fa[9], code)
-    if wide:  # q, k, v read in place
-        assert fa[:3] == tuple(x.data_ptr() for x in (q, k, v))
-        failing = _LibrarySpy(spy.lib, fail=True)
-        monkeypatch.setattr(build, "library", lambda: failing)
-        before = dict(build.LAUNCHES)
-        with pytest.raises(RuntimeError, match="launch failed"):
-            FA.flash_attention_cuda(q, k, v)
-        assert build.LAUNCHES == before
+    assert fa[:3] == tuple(x.data_ptr() for x in (q, k, v))  # q, k, v read in place
+    assert ba[:3] == fa[:3]
+    failing = _LibrarySpy(spy.lib, fail=True)
+    monkeypatch.setattr(build, "library", lambda: failing)
+    before = dict(build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FA.flash_attention_cuda(q, k, v)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FA.flash_attention_backward_cuda(q, k, v, out, lse, g)
+    assert build.LAUNCHES == before
 
 
 def test_flash_attention_dispatch_and_rejections(dev):
     """Below 1024 tokens, or off a multiple of 128, the plain attention runs
     on the card too (the JAX package's rule); every head width runs a kernel
-    (20 zero-padded, 136 chunked in fp32); bf16 up to D = 256 reaches the
-    kernels with no fp32 copy; what the kernel does not take raises."""
+    (20 zero-padded, 136 on the fp32 *_wide kernels); bf16 reaches the
+    kernels with no fp32 copy at every width; what the kernel does not take
+    raises."""
     q, k, v = _qkv(dev, torch.float32, 2, 256, 2, 64)
     before = build.LAUNCHES["flash_attention"]
     out = fused.flash_attention(q, k, v)
@@ -564,7 +576,7 @@ def test_flash_attention_dispatch_and_rejections(dev):
         out = fused.flash_attention(q, k, v)
         assert build.LAUNCHES["flash_attention"] == before + 1 and out.shape == q.shape
         torch.testing.assert_close(out, FA.flash_attention_plain(q, k, v), **FLASH_TOL[q.dtype])
-    for d in (72, 136, 200, 256):
+    for d in (72, 136, 200, 256, 264, 320, 512):
         q, k, v = _qkv(dev, torch.bfloat16, 1, 1024, 2, d)
         assert all(x.dtype == torch.bfloat16 for x in FA._kernel_inputs(q, k, v, d))
     with pytest.raises(ValueError, match="head dimension"):

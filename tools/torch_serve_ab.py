@@ -17,11 +17,16 @@ checkout's kernels and reads, from random weights (seed 0), in bf16:
 - ``dit_train``: img/s of ``make_train_epoch`` for DiT-S/2 with ``remat`` at
   batch 64 (6 steps a reading, four readings);
 - ``flash_fwd_ms`` / ``flash_bwd_ms``: the flash kernels' device time (CUDA
-  events, 10 calls after a warm-up) summed over the 12 calls of one DiT-S/2
+  events, at least 10 calls and 20 ms of them after a warm-up) summed over
+  the 12 calls of one DiT-S/2
   forward at batch 256 and of one train step's backward at batch 64;
 - ``flash_d{D}_fwd_ms`` / ``flash_d{D}_bwd_ms``: one forward and one
   backward call at (64, 1024, H, D) in bf16: DiT-XL/2's 16 heads of 72, and
-  6 heads of 136, 192 and 256 (the widths above 128);
+  6 heads of 4, 12, 136, 192, 256, 320, 384 and 512 (the zero-padded
+  widths, the widths above 128 and above 256); ``flash_f32_d{D}_*`` the
+  same in fp32 at 6 heads of 64, 192, 256 and 384; ``flash_b2_d192_*`` the
+  6 forward and 2 backward calls at (2, 1024, 6, 192) of the DiT with heads
+  of 192;
 - ``gn_fwd_ms`` / ``gn_drop_fwd_ms``: the same for ``gn_silu_cuda`` over the
   29 GroupNorm calls of one flagship UNet forward at batch 256, and for
   ``gn_silu_dropout_cuda`` over the 14 dropout sites of a train step;
@@ -55,7 +60,15 @@ from rectified_flow_vision_tpu_torch.serving import SamplerService
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 DIT = dict(image_size=64, in_channels=4, backbone="dit", dit_size="S", patch_size=2, remat=True)
-FLASH_WIDTHS = ((16, 72), (6, 136), (6, 192), (6, 256))
+# the rows whose kernels a change may leave alone first, then the wide ones,
+# whose chunked versions hold the card for seconds a reading
+FLASH_CASES = (("flash_d72", "bfloat16", 64, 16, 72, 1, 1), ("flash_d4", "bfloat16", 64, 6, 4, 1, 1),
+               ("flash_d12", "bfloat16", 64, 6, 12, 1, 1),
+               *((f"flash_d{d}", "bfloat16", 64, 6, d, 1, 1) for d in (136, 192, 256)),
+               ("flash_b2_d192", "bfloat16", 2, 6, 192, 6, 2),
+               ("flash_f32_d64", "float32", 64, 6, 64, 1, 1),
+               *((f"flash_d{d}", "bfloat16", 64, 6, d, 1, 1) for d in (320, 384, 512)),
+               *((f"flash_f32_d{d}", "float32", 64, 6, d, 1, 1) for d in (192, 256, 384)))
 out = {}
 
 def randomize_zero_leaves(model, seed):
@@ -84,15 +97,21 @@ def train_rates(model, corpus, batch, lr):
     return rates
 
 def kernel_ms(fn):
-    fn()
-    torch.cuda.synchronize()
+    # at least 10 calls and 20 ms of them, so that a call of a few
+    # microseconds is not read off one launch's jitter
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
     a.record()
-    for _ in range(10):
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    reps = min(1000, max(10, int(20.0 / max(a.elapsed_time(b), 1e-3))))
+    a.record()
+    for _ in range(reps):
         fn()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / 10
+    return a.elapsed_time(b) / reps
 
 def by_autograd_node(trace):
     # device ms by the autograd node whose evaluate_function event holds the
@@ -175,13 +194,15 @@ d_out = torch.randn((64, 1024, 6, 64), generator=g, device="cuda").bfloat16()
 o, lse = FA.flash_attention_cuda(q, k, v)
 out["flash_bwd_ms"] = [12 * kernel_ms(lambda: FA.flash_attention_backward_cuda(q, k, v, o, lse, d_out))]
 del q, k, v, d_out, o, lse
-for h, d in FLASH_WIDTHS:
-    q, k, v = torch.randn((64, 1024, 3, h, d), generator=g, device="cuda").bfloat16().unbind(2)
-    d_out = torch.randn((64, 1024, h, d), generator=g, device="cuda").bfloat16()
+for key, dname, b, h, d, nf, nb in FLASH_CASES:
+    dt = getattr(torch, dname)
+    q, k, v = torch.randn((b, 1024, 3, h, d), generator=g, device="cuda").to(dt).unbind(2)
+    d_out = torch.randn((b, 1024, h, d), generator=g, device="cuda").to(dt)
     o, lse = FA.flash_attention_cuda(q, k, v)
-    out[f"flash_d{d}_fwd_ms"] = [kernel_ms(lambda: FA.flash_attention_cuda(q, k, v))]
-    out[f"flash_d{d}_bwd_ms"] = [kernel_ms(lambda: FA.flash_attention_backward_cuda(q, k, v, o, lse, d_out))]
+    out[f"{key}_fwd_ms"] = [nf * kernel_ms(lambda: FA.flash_attention_cuda(q, k, v))]
+    out[f"{key}_bwd_ms"] = [nb * kernel_ms(lambda: FA.flash_attention_backward_cuda(q, k, v, o, lse, d_out))]
     del q, k, v, d_out, o, lse
+    torch.cuda.empty_cache()
 from rectified_flow_vision_tpu_torch.ops import gn_silu as G, gn_silu_dropout as D
 GN_FWD = {(16, 16, 128): 1, (16, 16, 256): 10, (16, 16, 512): 1, (32, 32, 64): 1, (32, 32, 128): 6,
           (32, 32, 384): 1, (64, 64, 64): 8, (64, 64, 192): 1}
@@ -197,8 +218,11 @@ for key, calls, fn in (("gn_fwd_ms", GN_FWD, lambda x, s, b: G.gn_silu_cuda(x, s
 print(json.dumps(out))
 """
 
+FLASH_KEYS = ("flash_d72", "flash_d4", "flash_d12", "flash_d136", "flash_d192", "flash_d256",
+              "flash_b2_d192", "flash_f32_d64", "flash_d320", "flash_d384", "flash_d512",
+              "flash_f32_d192", "flash_f32_d256", "flash_f32_d384")
 METRICS = ("unet_serve", "unet_train", "latent_serve", "dit_train", "flash_fwd_ms", "flash_bwd_ms",
-           *(f"flash_d{d}_{p}_ms" for d in (72, 136, 192, 256) for p in ("fwd", "bwd")),
+           *(f"{key}_{p}_ms" for key in FLASH_KEYS for p in ("fwd", "bwd")),
            "gn_fwd_ms", "gn_drop_fwd_ms")
 
 
