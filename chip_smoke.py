@@ -15,25 +15,31 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    flash-attention forward at the DiT-S/2 latent shapes (batch 256 and 64,
    1024 tokens, 6 heads of 64) and at 16384 tokens, its backward at batch
    64, both at DiT-XL/2's widths (batch 64, 1024 tokens, 16 heads of 72)
-   and at head widths 4, 12, 136, 192, 256, 320, 384 and 512 (batch 64, 1024
-   tokens, 6 heads; bf16 136-256 on the kernels' 192 and 256 instances,
-   bf16 above 256 on the streamed kernels, fp32 above 128 on the *_wide
-   fp32 kernels; 512 in bf16 only), and at the shapes of the DiTs with 6
+   and at head widths 4, 12, 128, 136, 192, 256, 320, 384 and 512 (batch 64,
+   1024 tokens, 6 heads; bf16 136-256 on the kernels' 192 and 256 instances,
+   bf16 above 256 on the streamed kernels, fp32 up to 128 on the 3xTF32
+   kernels, above 128 on the *_wide fp32 kernels; 512 in bf16 only), and at
+   the shapes of the DiTs with 6
    heads of 192 and 3 heads of 384 of phase 11 (batch 2, 1024 tokens),
    and the standalone dropout at three sizes, in bf16 and fp32,
    against its plain PyTorch version on the same inputs within a stated
    tolerance, with the kernel's, the plain version's and one PyTorch library
-   call's times, and the card's least time (bound), with TFLOP/s where
-   operations bound the kernel. The GroupNorm backward kernel at every
+   call's times, and the card's least time (bound: fp32 flash up to D = 128
+   at the 3xTF32 rate, 495 / 3 TFLOP/s), with TFLOP/s where operations
+   bound the kernel. The GroupNorm backward kernel at every
    GroupNorm site of the train step (with the dropout mask at the dropout
    sites), its library time that of ATen's chain (``F.group_norm`` +
    ``F.silu``, + ``F.dropout``) through autograd. The dropout kernels also:
    the mask equal to the plain version's bit for bit, the dropped fraction,
-   same seed same output, other seed other mask. Then each bf16 flash
-   kernel alone (forward; delta, dkv and dq of the backward) by the
-   profiler's device time, with TFLOP/s and share of the bound, beside
-   SDPA's forward and backward, at the DiT-S/2 and DiT-XL/2 shapes and at
-   head widths 256 and 320;
+   same seed same output, other seed other mask. Then each flash kernel
+   alone (forward; delta, dkv and dq of the backward) by the profiler's
+   device time, with TFLOP/s and share of the bound, beside SDPA's forward
+   and backward: bf16 at the DiT-S/2 and DiT-XL/2 shapes and at head widths
+   256 and 320, fp32 at the DiT-S/2 and DiT-XL/2 shapes against both the
+   3xTF32 and the CUDA-core bound. Then the fp32 kernels up to D = 128
+   against float64 at (2, 1024, 4, D), D = 64, 72, 128, inputs N(0, 1) and
+   N(0, 3^2): their max |error| in the output and in dq, dk, dv at most 4
+   times the plain fp32 version's (TF32 off);
 4. model: a full-width UNet forward in fp32 at batch 4, kernels on the card
    against the plain path on the CPU;
 5. serve: ``SamplerService`` at full width, batch 256, steps (1, 2, 4), bf16,
@@ -78,7 +84,10 @@ card, outside a checkout, or when any phase fails. Phases, in order:
     heun pairs; ``train_rectified_flow`` (teacher-init, u-shaped t);
     straightness; ``LatentFlowPipeline.sample`` from the EMA checkpoint; exact
     launch counts; a second base run bit for bit; then DiT train img/s at
-    batch 64, peak memory and a train-step trace.
+    batch 64, peak memory and a train-step trace, in bf16, then the same for
+    DiT-S/2 with fp32 compute (seeded weights; the fp32 flash kernels, 24
+    forward and 12 backward launches a step checked exactly; the device ms
+    of each flash kernel in the trace).
 14. CLI: the port's pipeline through ``main(argv)``, in-process, on
     ``configs/config.yaml`` saved by the port's ``Config.save`` under
     ``build/cli_smoke/`` with its widths and recipe (the flagship UNet,
@@ -116,6 +125,9 @@ PACKAGE = ROOT / "rectified_flow_vision_tpu_torch"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; fp32 outside them
+# fp32-accurate products on the tensor cores (3xTF32: three TF32 products at
+# 495 TFLOP/s for each), the rate the fp32 flash kernels up to D = 128 run at
+TF32X3_FLOPS = 495e12 / 3
 BATCH = 256
 SEED = 0
 
@@ -212,12 +224,17 @@ FLASH_BWD_SHAPE = (LATENT["batch"], DIT_TOKENS, DIT_HEADS, DIT_HEAD_DIM)
 # this script runs it, the kernel phase holds it against the plain versions
 FLASH_XL_SHAPE = (LATENT["batch"], DIT_TOKENS, 16, 72)
 # head widths no config of the repo has, which the JAX _attention takes: 4
-# and 12 zero-padded to 8 and 16; 136, 192 and 256 on the bf16 kernels' 192
-# and 256 instances; 320, 384 and 512 on the streamed bf16 kernels (512 at
-# its streamed dkv layout; bf16 only, FLASH_BF16_ONLY); every fp32 width
+# and 12 zero-padded to 8 and 16; 128, the widest of the fp32 3xTF32
+# kernels (bf16: the 128 instance); 136, 192 and 256 on the bf16 kernels'
+# 192 and 256 instances; 320, 384 and 512 on the streamed bf16 kernels (512
+# at its streamed dkv layout; bf16 only, FLASH_BF16_ONLY); every fp32 width
 # above 128 on the *_wide fp32 kernels
 FLASH_ODD_SHAPES = tuple((LATENT["batch"], DIT_TOKENS, DIT_HEADS, d)
-                         for d in (4, 12, 136, 192, 256, 320, 384, 512))
+                         for d in (4, 12, 128, 136, 192, 256, 320, 384, 512))
+# the fp32 kernels up to D = 128 against float64 at (2, 1024, 4, D): their
+# max |error| (output, dq, dk, dv) at most F64_GATE times the plain fp32
+# version's (TF32 off), for inputs N(0, sigma^2) with each sigma here
+F64_GATE_WIDTHS, F64_GATE_SIGMAS, F64_GATE = (64, 72, 128), (1.0, 3.0), 4.0
 FLASH_BF16_ONLY = {FLASH_ODD_SHAPES[-1]}
 # DiT-XL/2's hidden size 1152 in 6 heads of 192 (DiT(hidden_size=1152,
 # num_heads=6), as the JAX constructor takes it), depth cut from 28 to 2:
@@ -565,16 +582,18 @@ FLASH_KERNELS = (("flash_fwd", "forward"), ("flash_delta", "delta"), ("flash_dkv
 
 
 def flash_breakdown(torch) -> None:
-    """Each bf16 flash kernel alone: device ms per call by kernel (forward;
+    """Each flash kernel alone: device ms per call by kernel (forward;
     delta, dkv and dq of the backward) from the profiler over 10 calls each,
-    at the DiT-S/2 shapes (forward at batch 256, backward at batch 64), at
-    DiT-XL/2's widths and at head widths 256 (the kernels above 128) and 320
-    (the streamed kernels, which compute S and dP twice there), with
-    TFLOP/s (of the products each kernel runs, at the true head width) and
-    the share of the bound, beside SDPA's forward and
-    backward timed with CUDA events in the same run. The split backward
-    recomputes S and dP in dq (seven products where the bound counts five),
-    so it can reach at most 5/7 of its bound."""
+    with TFLOP/s (of the products each kernel runs, at the true head width)
+    and the share of the bound, beside SDPA's forward and backward timed with
+    CUDA events in the same run. bf16 at the DiT-S/2 shapes (forward at batch
+    256, backward at batch 64), at DiT-XL/2's widths and at head widths 256
+    (the kernels above 128) and 320 (the streamed kernels, which compute S
+    and dP twice there); fp32 (the 3xTF32 kernels) at DiT-S/2's and
+    DiT-XL/2's widths at batch 64, against two bounds: 3xTF32 on the tensor
+    cores (the route the kernels take) and the fp32 CUDA cores. The split
+    backward recomputes S and dP in dq (seven products where the bound counts
+    five), so it can reach at most 5/7 of its bound."""
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
@@ -583,11 +602,14 @@ def flash_breakdown(torch) -> None:
     reps = 10
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     wide = [s for s in FLASH_ODD_SHAPES if s[3] in (FA.HEAD_DIM_WIDE, 320)]
-    for shape in (FLASH_FWD_SHAPES[0], FLASH_BWD_SHAPE, FLASH_XL_SHAPE, *wide):
+    cases = [(s, "bfloat16") for s in (FLASH_FWD_SHAPES[0], FLASH_BWD_SHAPE, FLASH_XL_SHAPE, *wide)]
+    cases += [(FLASH_BWD_SHAPE, "float32"), (FLASH_XL_SHAPE, "float32")]
+    for shape, dname in cases:
         b, t, h, d = shape
+        dt = getattr(torch, dname)
         q, k, v = (torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
-                   .to(torch.bfloat16).unbind(2))
-        g = torch.randn((b, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   .to(dt).unbind(2))
+        g = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dt)
         out, lse = FA.flash_attention_cuda(q, k, v)
 
         def run():
@@ -611,7 +633,7 @@ def flash_breakdown(torch) -> None:
                         ms[label] += e["dur"] / 1e3 / reps
                         break
         if set(ms) != {label for _, label in FLASH_KERNELS}:
-            fail(f"flash breakdown {shape}: the trace holds {dict(ms)}")
+            fail(f"flash breakdown {shape} {dname}: the trace holds {dict(ms)}")
 
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
         tq, tk, tv = (x.transpose(1, 2) for x in leaves)
@@ -620,25 +642,79 @@ def flash_breakdown(torch) -> None:
         sdpa_b = time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True))
         del leaves, tq, tk, tv, lib_out
 
-        def bound(cost):
-            nbytes, flops = cost
-            return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]) * 1e3
+        es = 2 if dt == torch.bfloat16 else 4
+        # bound name -> rate of the products; the bytes at this dtype's width
+        rates = ({"bound": PEAK_FLOPS["bfloat16"]} if dt == torch.bfloat16 else
+                 {"3xTF32 bound": TF32X3_FLOPS, "CUDA-core bound": PEAK_FLOPS["float32"]})
+        elems, rows = b * t * h * d, b * h * t
+        fwd_cost = (4 * elems * es + 4 * rows, flash_fwd_cost(shape)[1])
+        bwd_cost = (8 * elems * es + 4 * rows, flash_bwd_cost(shape)[1])
 
-        fb, bb = bound(flash_fwd_cost(shape)), bound(flash_bwd_cost(shape))
+        def shares(cost, kernel_ms):  # "0.xxx of its <bound> y.yyyy" for each bound
+            nbytes, flops = cost
+            out = []
+            for name, rate in rates.items():
+                bound = max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3
+                out.append(f"{bound / kernel_ms:.3f} of its {name} {bound:.4f}")
+            return ", ".join(out)
+
         prod = 2 * b * h * t * t * d  # flops of one T x T x D product
-        delta_bytes = 2 * b * t * h * d * 2 + 4 * b * h * t
+        delta_bytes = 2 * elems * es + 4 * rows
         bwd = ms["delta"] + ms["dkv"] + ms["dq"]
-        log(f"flash kernels {shape} bf16, ms per call (profiler): forward {ms['forward']:.4f} "
-            f"({2 * prod / ms['forward'] / 1e9:.1f} TFLOP/s, {fb / ms['forward']:.3f} of its "
-            f"bound {fb:.4f}) vs SDPA {sdpa_f:.4f} ({2 * prod / sdpa_f / 1e9:.1f} TFLOP/s, "
-            f"{fb / sdpa_f:.3f}); backward {bwd:.4f} = delta {ms['delta']:.4f} "
-            f"({delta_bytes / ms['delta'] / 1e6:.1f} GB/s) + dkv {ms['dkv']:.4f} "
-            f"({4 * prod / ms['dkv'] / 1e9:.1f} TFLOP/s) + dq {ms['dq']:.4f} "
-            f"({3 * prod / ms['dq'] / 1e9:.1f} TFLOP/s), {bb / bwd:.3f} of its bound {bb:.4f} "
-            f"(at most 5/7 for the split design) vs SDPA {sdpa_b:.4f} "
-            f"({5 * prod / sdpa_b / 1e9:.1f} TFLOP/s, {bb / sdpa_b:.3f})")
+        log(f"flash kernels {shape} {'bf16' if es == 2 else 'fp32'}, ms per call (profiler): "
+            f"forward {ms['forward']:.4f} ({2 * prod / ms['forward'] / 1e9:.1f} TFLOP/s, "
+            f"{shares(fwd_cost, ms['forward'])}) vs SDPA {sdpa_f:.4f} "
+            f"({2 * prod / sdpa_f / 1e9:.1f} TFLOP/s, {shares(fwd_cost, sdpa_f)}); backward "
+            f"{bwd:.4f} = delta {ms['delta']:.4f} ({delta_bytes / ms['delta'] / 1e6:.1f} GB/s) + "
+            f"dkv {ms['dkv']:.4f} ({4 * prod / ms['dkv'] / 1e9:.1f} TFLOP/s) + dq {ms['dq']:.4f} "
+            f"({3 * prod / ms['dq'] / 1e9:.1f} TFLOP/s), {shares(bwd_cost, bwd)} (at most 5/7 "
+            f"for the split design) vs SDPA {sdpa_b:.4f} ({5 * prod / sdpa_b / 1e9:.1f} TFLOP/s, "
+            f"{shares(bwd_cost, sdpa_b)})")
         del q, k, v, g, out, lse
         torch.cuda.empty_cache()
+
+
+def flash_f64_gate(torch) -> None:
+    """What exact fp32 stood for, held for the fp32 flash kernels up to D =
+    128 (3xTF32 on the tensor cores): at (2, 1024, 4, D) for each of
+    F64_GATE_WIDTHS and inputs N(0, sigma^2) for each of F64_GATE_SIGMAS, the
+    kernels' and the plain fp32 version's (TF32 off, as main sets it) max
+    |error| against a float64 computation, for the output and each of dq, dk
+    and dv; the kernels' at most F64_GATE times the plain version's."""
+    from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("the float64 gate needs the plain version in full fp32 (allow_tf32 off)")
+    notes = []
+    for d in F64_GATE_WIDTHS:
+        for sigma in F64_GATE_SIGMAS:
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 40 + d)
+            q, k, v = (torch.randn((2, DIT_TOKENS, 3, 4, d), generator=gen, device="cuda")
+                       * sigma).unbind(2)
+            g = torch.randn((2, DIT_TOKENS, 4, d), generator=gen, device="cuda")
+            leaves = [x.double().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+            ref_out = torch.softmax(leaves[0] @ leaves[1].transpose(-1, -2) / math.sqrt(d),
+                                    dim=-1) @ leaves[2]
+            ref_grads = torch.autograd.grad(ref_out, leaves, g.double().transpose(1, 2))
+            ref = [x.transpose(1, 2) for x in (ref_out.detach(), *ref_grads)]
+            out, lse = FA.flash_attention_cuda(q, k, v)
+            kernel = (out, *FA.flash_attention_backward_cuda(q, k, v, out, lse, g))
+            p_out = FA.flash_attention_plain(q, k, v)
+            plain = (p_out, *FA.flash_attention_backward_plain(
+                q, k, v, p_out, FA.flash_attention_lse_plain(q, k), g))
+            errs = []
+            for name, a, p, r in zip(("out", "dq", "dk", "dv"), kernel, plain, ref):
+                err_k = float((a.double() - r).abs().max())
+                err_p = float((p.double() - r).abs().max())
+                errs.append(f"{name} {err_k:.3e} / {err_p:.3e} ({err_k / err_p:.2f}x)")
+                if not err_k <= F64_GATE * err_p:
+                    fail(f"fp32 flash D {d} N(0, {sigma}^2): {name} error against float64 "
+                         f"{err_k:.3e}, more than {F64_GATE} x the plain fp32 version's "
+                         f"{err_p:.3e}")
+            notes.append(f"D {d} sigma {sigma}: " + ", ".join(errs))
+            del q, k, v, g, leaves, ref_out, ref_grads, ref, out, lse, kernel, p_out, plain
+    log(f"flash fp32 (3xTF32) vs float64 at (2, {DIT_TOKENS}, 4, D), max |error| kernel / plain "
+        f"fp32 (gate: kernel <= {F64_GATE} x plain): " + "; ".join(notes))
 
 
 def dropout_cases(torch, randn, seed):
@@ -690,6 +766,16 @@ def dropout_checks(torch, name, dname, shape, kernel, got, want) -> str:
     return f"mask = plain's, dropped {dropped:.5f}"
 
 
+def peak_rate(torch, name: str, dname: str, shape) -> float:
+    """The card's rate for a kernel's products: bf16 and the fp32 SIMT
+    kernels at their type's peak; the fp32 flash kernels up to D = 128 do
+    their fp32-accurate products as three TF32 products each (TF32X3_FLOPS)."""
+    if (name.startswith("flash") and dname == "float32"
+            and kernel_route(torch, dname, shape[3]) == "f32"):
+        return TF32X3_FLOPS
+    return PEAK_FLOPS[dname]
+
+
 def kernel_phase(torch, shape_calls, train_calls):
     rows = []
     for name, shape, count, make, bytes_fn, flops in kernel_cases(torch, shape_calls, train_calls):
@@ -723,7 +809,7 @@ def kernel_phase(torch, shape_calls, train_calls):
             l_ms = time_ms(torch, library)
             es = 2 if dt == torch.bfloat16 else 4
             t_bytes = bytes_fn(es) / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[dname] * 1e3
+            t_ops = flops / peak_rate(torch, name, dname, shape) * 1e3
             row = dict(
                 name=name, dtype=dname, shape=list(shape), calls=count,
                 max_abs_err=max_abs, max_rel_err=max_rel, rtol=rtol, atol=atol, ok=ok,
@@ -1545,9 +1631,10 @@ def latent_train_phase(torch, build):
     return launches, base, data
 
 
-def dit_train_timing_phase(torch, build, model, data) -> None:
-    """img/s of device-resident DiT training at batch 64 in bf16 with remat,
-    peak memory, the launches of one step, and one step under the profiler."""
+def dit_train_timing_phase(torch, build, model, data, dname="bfloat16"):
+    """img/s of device-resident DiT-S/2 training at batch 64 in ``dname``
+    (the model's compute dtype) with remat and EMA, peak memory, the launches
+    of one step (returned), and one step under the profiler."""
     from rectified_flow_vision_tpu_torch.models.base_flow import (
         init_ema, make_optimizer, make_train_epoch)
 
@@ -1565,10 +1652,11 @@ def dit_train_timing_phase(torch, build, model, data) -> None:
     build.reset_launches()
     epoch(corpus, perm(1), gen)
     torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
     per_step = all_counts(build, flash_attention=2 * DIT_DEPTH,
                           flash_attention_backward=DIT_DEPTH)
-    if dict(build.LAUNCHES) != per_step:
-        fail(f"one DiT train step launched {dict(build.LAUNCHES)}, expected {per_step}")
+    if launches != per_step:
+        fail(f"one {dname} DiT train step launched {launches}, expected {per_step}")
     torch.cuda.reset_peak_memory_stats()
     rates = []
     for _ in range(4):
@@ -1579,15 +1667,19 @@ def dit_train_timing_phase(torch, build, model, data) -> None:
         torch.cuda.synchronize()
         rates.append(batch * steps / (time.perf_counter() - t0))
         if not torch.isfinite(losses).all():
-            fail("DiT train timing: non-finite loss")
+            fail(f"{dname} DiT train timing: non-finite loss")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"DiT train timing: make_train_epoch, DiT-S/2, batch {batch}, bf16 compute, fp32 "
-        f"masters, EMA, remat, 64x64x4 latents, {steps} steps per reading: img/s "
-        f"{[round(v, 2) for v in rates]} (median {float(np.median(rates)):.2f}); peak device "
-        f"memory {peak:.2f} GiB; flash launches per step: 24 forward, 12 backward")
+    what = "bf16 compute, fp32 masters" if dname == "bfloat16" else "fp32 compute"
+    log(f"DiT train timing: make_train_epoch, DiT-S/2, batch {batch}, {what}, EMA, remat, "
+        f"64x64x4 latents, {steps} steps per reading: img/s {[round(v, 2) for v in rates]} "
+        f"(median {float(np.median(rates)):.2f}); peak device memory {peak:.2f} GiB; flash "
+        f"launches per step: {launches['flash_attention']} forward, "
+        f"{launches['flash_attention_backward']} backward")
     one = perm(1)
-    profile_device(torch, lambda: epoch(corpus, one, gen), "dit_train_trace.json",
-                   f"one DiT-S/2 train step of {batch}")
+    profile_device(torch, lambda: epoch(corpus, one, gen),
+                   f"dit_train_{'bf16' if dname == 'bfloat16' else 'fp32'}_trace.json",
+                   f"one {dname} DiT-S/2 train step of {batch}")
+    return launches
 
 
 def _read_csv(path: Path):
@@ -1860,6 +1952,7 @@ def main() -> None:
     if not (PACKAGE / "ops" / "csrc").is_dir():
         fail(f"{PACKAGE} not found: run chip_smoke.py from the root of a checkout")
     sys.path.insert(0, str(ROOT))
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
     from rectified_flow_vision_tpu_torch.models.unet import UNet
     from rectified_flow_vision_tpu_torch.ops import build
     from rectified_flow_vision_tpu_torch.ops import fused as fused_mod
@@ -1888,8 +1981,9 @@ def main() -> None:
         fail(f"flagship train step calls {per_train}, expected {TRAIN_STEP_LAUNCHES}")
     phase("kernels")
     rows = kernel_phase(torch, shape_calls, train_calls)
-    phase("flash breakdown")
+    phase("flash breakdown, float64 gate")
     flash_breakdown(torch)
+    flash_f64_gate(torch)
     phase("UNet model, serve, trace, gradient")
     model_phase(torch, UNet)
     serve_launches, svc, serve_img_s = serve_phase(torch, build)
@@ -1919,7 +2013,16 @@ def main() -> None:
     phase("latent train")
     latent_train_launches, dit_trained, latents = latent_train_phase(torch, build)
     dit_train_timing_phase(torch, build, dit_trained, latents)
-    del dit_trained, latents
+    del dit_trained
+    torch.cuda.empty_cache()
+    phase("fp32 DiT train timing")
+    dit_f32 = BaseFlowModel(seed=SEED, compute_dtype="float32", device="cuda", **DIT)
+    if kernel_route(torch, "float32", DIT_HEAD_DIM) != "f32":
+        fail("fp32 DiT-S/2 does not take the fp32 flash kernels up to 128")
+    step_f32 = dit_train_timing_phase(torch, build, dit_f32, latents, "float32")
+    dit_f32_launches = {"flash_attention_f32": step_f32["flash_attention"],
+                        "flash_attention_f32_backward": step_f32["flash_attention_backward"]}
+    del dit_f32, latents
     torch.cuda.empty_cache()
     phase("CLI")
     cli_launches = cli_phase(torch, build, serve_img_s)
@@ -1968,6 +2071,15 @@ def main() -> None:
             csrc + "flash_attention.cu", dit_attention,
             "one DiT-S/2 train step at batch 64, 1024 tokens: its 12 backward calls "
             "(delta, dkv and dq kernels)", DIT_DEPTH, route_is("narrow", "f32")),
+        "flash_attention_f32": (
+            csrc + "flash_attention_f32.cu", dit_attention + " (fp32 head widths up to 128)",
+            "one fp32 DiT-S/2 train step at batch 64, 1024 tokens: its 24 forward calls (remat)",
+            2 * DIT_DEPTH, lambda r: tuple(r["shape"]) == FLASH_BWD_SHAPE, "float32"),
+        "flash_attention_f32_backward": (
+            csrc + "flash_attention_f32.cu", dit_attention + " (fp32 head widths up to 128)",
+            "one fp32 DiT-S/2 train step at batch 64, 1024 tokens: its 12 backward calls (delta, "
+            "then flash_dkv_tf32_kernel and flash_dq_tf32_kernel)", DIT_DEPTH,
+            lambda r: tuple(r["shape"]) == FLASH_BWD_SHAPE, "float32"),
         "flash_attention_wide": (
             csrc + "flash_attention.cu", dit_attention + " (head widths 129-256)",
             f"{model_run('bf16', 6, 192)}: its {DIT_WIDE_FWD_CALLS} forward calls (the 192 "
@@ -2005,10 +2117,12 @@ def main() -> None:
     by_path = {"unet_serve": serve_launches, "unet_train": train_launches,
                "dropout_direct": dropout_launches, "latent_serve": latent_serve_launches,
                "latent_train": latent_train_launches, "cli": cli_launches,
-               "dit_head_192": dit_wide_launches, "dit_head_384": dit_384_launches}
+               "dit_head_192": dit_wide_launches, "dit_head_384": dit_384_launches,
+               "dit_train_f32": dit_f32_launches}
     # the wrapper whose kernel-phase rows an entry reads, where it is not the entry's own name
     row_names = {f"flash_attention_{route}{part}": f"flash_attention{part}"
-                 for route in ("wide", "streamed", "f32_wide") for part in ("", "_backward")}
+                 for route in ("wide", "streamed", "f32", "f32_wide")
+                 for part in ("", "_backward")}
     kernels = []
     for name, (src, replaces, per, calls, keep, *dtype) in sources.items():
         dtype = dtype[0] if dtype else "bfloat16"

@@ -31,7 +31,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = (
     "gn_silu.cu", "gn_silu_dropout.cu", "conv3x3.cu", "attention.cu", "flash_attention.cu",
-    "flash_attention_streamed.cu", "flash_attention_f32.cu", "dropout.cu", "runtime.cu",
+    "flash_attention_streamed.cu", "flash_attention_f32.cu", "flash_attention_f32_bwd.cu",
+    "dropout.cu", "runtime.cu",
 )
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -90,7 +90,8 @@
 //    384 threads (setmaxnreg then gives the consumers 240), no spills, no
 //    serialised wgmma. P and dS are rounded to bf16 before the products
 //    that take them, as at DP <= 128 and in the plain versions.
-// float32: SIMT kernels (flash_attention_f32.cu).
+// float32 (flash_attention_f32.cu): up to D = 128 3xTF32 products on the
+// tensor cores (mma.sync m16n8k8, fp32-accurate), above it SIMT kernels.
 #include "flash_attention.cuh"
 #include "mma.cuh"
 #include "wgmma.cuh"
@@ -1163,7 +1164,7 @@ int bwd_bf16_wide(const void* q, const void* k, const void* v, const void* d_out
 // dp: the width the kernels are compiled for, as ops/flash_attention.py
 // kernel_head_dim gives it (bf16: 64, 128, 192 or 256, and above 256 D
 // rounded up to 64, the streamed kernels of flash_attention_streamed.cu;
-// fp32: D rounded up to 16, and above 128 D rounded up to 64, the *_wide
+// fp32: D itself up to 128, and above 128 D rounded up to 64, the *_wide
 // kernels of flash_attention_f32.cu).
 // Requires T % 128 == 0, D % 8 == 0, 8 <= D <= dp, B, H <= 65535, 16-byte
 // aligned rows. scale is the caller's (1/sqrt of the head width before any

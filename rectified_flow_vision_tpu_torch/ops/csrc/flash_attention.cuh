@@ -1,19 +1,22 @@
-// The fp32 flash-attention kernels (flash_attention_f32.cu), launched by the
-// C entry points of flash_attention.cu for the fp32 model path and checks.
+// The fp32 flash-attention kernels (flash_attention_f32.cu, the backward up
+// to D = 128 in flash_attention_f32_bwd.cu) and the streamed bf16 kernels
+// (flash_attention_streamed.cu), launched by the C entry points of
+// flash_attention.cu.
 #pragma once
 
 #include "common.cuh"
 
 namespace rfv_flash {
 
-// Layouts as in flash_attention.cu. dp: D padded to a multiple of 16 (16 to
-// 128), the width the kernels are compiled for; columns past D are read as
-// zeros and not stored. Return a cudaError_t code.
+// Layouts as in flash_attention.cu. dp: the width the kernels are compiled
+// for, a multiple of 8 from 8 to 128 (3xTF32 tensor-core kernels); columns
+// past D are read as zeros and not stored. Return a cudaError_t code.
 int fwd_f32(const float* q, const float* k, const float* v, float* o, float* lse, int B, int T,
             int H, int D, int dp, long long sb, long long st, long long sh, float scale,
             cudaStream_t stream);
 
-// dkv and dq; delta must be written before (flash_attention.cu).
+// dkv and dq (flash_attention_f32_bwd.cu); delta must be written before
+// (flash_attention.cu).
 int bwd_f32(const float* q, const float* k, const float* v, const float* d_out, const float* lse,
             const float* delta, float* dq, float* dk, float* dv, int B, int T, int H, int D,
             int dp, long long sb, long long st, long long sh, long long gb, long long gt,

@@ -1,278 +1,181 @@
-// Flash attention in float32: forward, dkv and dq, SIMT with exact fp32 FMAs
-// (no TF32), for the fp32 model path and the checks of the bf16 kernels
-// (flash_attention.cu, which holds the C entry points and the delta pass).
+// Flash attention in float32: forward, dkv and dq, for the fp32 model path
+// and the checks of the bf16 kernels (flash_attention.cu, which holds the C
+// entry points and the delta pass). In fp32 they replace the Pallas TPU
+// library kernel that the JAX package's DiT calls
+// (rectified_flow_vision_tpu/models/dit.py _attention; flash_attention.cu).
 //
-// 256 threads as 16 x 16; thread (ty, tx) owns rows ty + 16 i and columns
-// tx + 16 j of every 64-wide product (the tile products gemm_nt / gemm_nn /
-// gemm_tn of mma.cuh). Tiles of 64 rows sit in shared memory with an odd
-// pitch (DP + 1, 65), so the column reads of a warp fall on distinct banks
-// and its row reads are broadcasts. The head width D (a multiple of 8, at
-// most 128) is zero-padded to DP, the next multiple of 16, on its way into
-// shared memory; columns past D are computed as zeros and not stored.
+// Up to D = 128 (D a multiple of 8, compiled at every multiple of 8): the
+// forward here, dkv and dq in flash_attention_f32_bwd.cu, helpers in
+// flash_f32_tc.cuh. Every product is fp32-accurate on the tensor cores by
+// the 3xTF32 split of mma.cuh (mma.sync m16n8k8, fp32 accumulators). A call
+// does 4 B H T^2 D flops forward and 2.5 times that backward; each product is
+// three TF32 products, so the bound is 3 x flops / 495 TFLOP/s (against
+// flops / 67 TFLOP/s on the CUDA cores). The design:
+//  - A block has 8 warps. A warp owns 16 rows of the operand that stays
+//    (queries in the forward and dq, keys in dkv) as the M side of its
+//    products; the block loops over the other rows in tiles.
+//  - Every operand sits in shared memory as fp32 rows of pitch DP + 4 (4 mod
+//    8 words): the 8 rows x 16 bytes of an ldmatrix fall on 8 distinct bank
+//    groups, and a warp's scalar reads of rows 2t, 2t + 1 at column g on 32
+//    distinct banks. Tiles arrive by cp.async, the next in flight while this
+//    one is used (two stages); columns at or past D are zero-filled and add
+//    nothing.
+//  - First products (S = Q K^T, dP = dO V^T and their transposes) read both
+//    operands by ldmatrix. Second products (P V, dS K, P^T dO, dS^T Q) take A
+//    from the first product's accumulator as it lies in the registers: the
+//    sum index is permuted within each 8-step (A's column t is the key 2t,
+//    t + 4 is 2t + 1), so c0..c3 are a0, a2, a1, a3 and B reads rows 2t and
+//    2t + 1 of its tile. No shuffle and no round trip through shared memory.
+//  - Every B operand comes from a streamed tile, which is split into hi and
+//    lo once, when it has landed (hi in place, lo in a buffer of the same
+//    layout: two cvt.rna and a subtraction a value, one barrier), so that
+//    the 8 warps that read it load both halves and split nothing. A operands
+//    (the warp's own rows, and the first product's accumulator) are split in
+//    registers, once for all the n-tiles they meet. Splitting every fragment
+//    in registers instead was slower on an H100 (the split's ALU work, done
+//    by each of the 8 warps; PERF.md).
+//  - The tensor cores round their sums toward zero, relative to the
+//    accumulator, so a long run of products into one accumulator piles up a
+//    bias (3 x T / 8 products into O, dQ, dK, dV: 384 at T = 1024, up to 9
+//    times the plain fp32 version's error against float64). Each product
+//    keeps the two small terms and the large one in separate accumulators,
+//    and a second product is summed over one tile in fresh accumulators of
+//    four n-tiles, added to the output in fp32.
+//  - One block of 8 warps an SM: the registers are not capped (no spill).
+//  - Forward: 128 queries a block; keys in tiles of 64 (32 from DP = 112,
+//    where two stages of 64 and their lo halves do not fit). The online
+//    softmax runs on the accumulator registers: row maxima by two quad
+//    shuffles; each lane keeps its part of the row sum, summed across the
+//    quad once at the end.
+//  - Backward: dkv (64 keys a block, K and V resident, Q, dO, lse and delta
+//    streamed in tiles of 64 queries, 32 from DP = 104; warps 0-3 compute
+//    S^T and P^T and sum dV += P^T dO, warps 4-7 compute dP^T, read P^T from
+//    shared memory, form dS^T and sum dK += dS^T Q, so a warp holds one
+//    output) and dq (128 queries a block, Q and dO resident, K and V streamed
+//    in tiles of 64 keys, 32 from DP = 88, 16 at 128; S, dP, dQ += dS K).
+//    Both compute S and dP: seven products of a tile pair where the bound
+//    counts five. Each output element is summed by one thread in a fixed
+//    order: two runs give the same bits.
 //
 // Wider heads (D > 128, a multiple of 8: the fp32 path; bf16 has wgmma
 // kernels of its own at every width, flash_attention.cu and
 // flash_attention_streamed.cu) take the *_wide kernels below: a block owns
 // every output column of its 64 rows (up to D = 256; above it the fewest
 // chunks of at most 256 columns), so each logit is computed once for each
-// output block, with register-tiled products and cp.async double buffering.
+// output block, with register-tiled SIMT products (exact fp32 FMAs) and
+// cp.async double buffering.
 #include "flash_attention.cuh"
-#include "mma.cuh"
+#include "flash_f32_tc.cuh"
 
 namespace {
 
-using namespace rfv_mma;
+namespace tc = rfv_flash_tc;
 
-constexpr int TILE = 64;      // query rows and key rows per tile
-constexpr int SP = TILE + 1;  // pitch of a 64 x 64 logit tile
+// ---- D <= 128: the 3xTF32 forward ------------------------------------------
 
-// 64 rows of D floats at pitch `pitch` into shared rows of pitch DP + 1,
-// columns D .. DP - 1 zero.
+constexpr int FWD_ROWS = 16 * tc::WARPS;  // queries a block
+
+// Q, two stages of K and V tiles of `keys` rows, and the lo halves of one
 template <int DP>
-__device__ __forceinline__ void load_tile_f32(float* s, const float* gsrc, long long pitch, int D) {
-  constexpr int CH = DP / 4;
-  for (int c = threadIdx.x; c < TILE * CH; c += blockDim.x) {
-    const int r = c / CH, cc = c - r * CH;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (cc * 4 < D) val = *reinterpret_cast<const float4*>(gsrc + (size_t)r * pitch + cc * 4);
-    float* d = s + r * (DP + 1) + cc * 4;
-    d[0] = val.x;
-    d[1] = val.y;
-    d[2] = val.z;
-    d[3] = val.w;
-  }
+__host__ __device__ constexpr int fwd_smem_at(int keys) {
+  return (FWD_ROWS + 6 * keys) * tc::pitch<DP>() * 4;
 }
+template <int DP>
+__host__ __device__ constexpr int fwd_keys() { return fwd_smem_at<DP>(64) <= tc::SMEM_MAX ? 64 : 32; }
+template <int DP>
+constexpr int fwd_tc_smem() { return fwd_smem_at<DP>(fwd_keys<DP>()); }
 
 template <int DP>
-constexpr int fwd_f32_smem() { return (3 * TILE * (DP + 1) + TILE * SP + 3 * TILE) * 4; }
-template <int DP>
-constexpr int dkv_f32_smem() { return (4 * TILE * (DP + 1) + 2 * TILE * SP + 2 * TILE) * 4; }
-template <int DP>
-constexpr int dq_f32_smem() { return (4 * TILE * (DP + 1) + TILE * SP + 2 * TILE) * 4; }
-
-template <int DP>
-__global__ void __launch_bounds__(256)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int T, int H, int D, long long sb, long long st,
-                         long long sh, float scale) {
-  constexpr int P = DP + 1, NJ = DP / 16;
+__global__ void __launch_bounds__(tc::THREADS, 1)
+    flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int T, int H, int D, long long sb, long long st,
+                          long long sh, float scale) {
+  constexpr int P = tc::pitch<DP>(), KS = DP / 8, FK = fwd_keys<DP>(), NT = FK / 8;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + TILE * P;
-  float* Vs = Ks + TILE * P;
-  float* Ss = Vs + TILE * P;
-  float* Ms = Ss + TILE * SP;  // running maximum, running sum, rescale factor
-  float* Lsum = Ms + TILE;
-  float* Al = Lsum + TILE;
+  float* qs = smem;                    // 128 queries
+  float* ring = qs + FWD_ROWS * P;     // 2 stages: K, V tiles of FK keys
+  float* lo = ring + 4 * FK * P;       // lo halves of this tile's K, V
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t base = (size_t)b * sb + (size_t)h * sh;
 
-  load_tile_f32<DP>(Qs, q + base + (size_t)qt * TILE * st, st, D);
-  if (tid < TILE) {
-    Ms[tid] = -INFINITY;
-    Lsum[tid] = 0.f;
-  }
-  float oacc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) oacc[i][j] = 0.f;
+  tc::tile<DP>(qs, q + base + (size_t)qt * FWD_ROWS * st, st, FWD_ROWS, D);
+  auto issue = [&](int kt, int stage) {
+    float* ks = ring + stage * 2 * FK * P;
+    const size_t r = base + (size_t)kt * FK * st;
+    tc::tile<DP>(ks, k + r, st, FK, D);
+    tc::tile<DP>(ks + FK * P, v + r, st, FK, D);
+  };
 
-  for (int kt = 0; kt < T / TILE; ++kt) {
+  float oacc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8
+  const float* qa = qs + warp * 16 * P + tc::a_lane(lane, P);
+  const int bo = tc::b_lane(lane, P), to = tc::t_lane(lane, P);
+  const int nk = T / FK;
+  issue(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<0>();
     __syncthreads();
-    load_tile_f32<DP>(Ks, k + base + (size_t)kt * TILE * st, st, D);
-    load_tile_f32<DP>(Vs, v + base + (size_t)kt * TILE * st, st, D);
+    if (kt + 1 < nk) issue(kt + 1, (kt + 1) & 1);
+    cp_async_commit();
+    float* ks = ring + (kt & 1) * 2 * FK * P;
+    tc::split_tile<DP>(ks, lo, 2 * FK);
     __syncthreads();
-    float s[4][4] = {};
-    gemm_nt<DP, P, P>(Qs, Ks, s, ty, tx);
+    float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) Ss[(ty + 16 * i) * SP + tx + 16 * j] = s[i][j] * scale;
-    __syncthreads();
-    {  // four neighbouring lanes share a row, 16 columns each
-      const int r = tid >> 2, part = tid & 3;
-      float* srow = Ss + r * SP + part * 16;
-      const float m_old = Ms[r];
-      float mx = m_old;
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    tc::nt<DP, NT>(s, qa, ks + bo, lo + bo);
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, srow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      float sum = 0.f;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = expf(srow[c] - mx);
-        srow[c] = p;
-        sum += p;
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] *= scale;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float alpha = expf(m_old - mx);
-        Al[r] = alpha;
-        Ms[r] = mx;
-        Lsum[r] = Lsum[r] * alpha + sum;
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - mx[e >> 1]);
+        l[e >> 1] += s[j][e];
       }
-    }
-    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = Al[ty + 16 * i];
+    for (int n = 0; n < KS; ++n)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) oacc[i][j] *= alpha;
-    }
-    gemm_nn<NJ, SP, P>(Ss, Vs, oacc, ty, tx);
+      for (int e = 0; e < 4; ++e) oacc[n][e] *= alpha[e >> 1];
+    tc::nn<DP, NT, KS>(oacc, s, ks + FK * P + to, lo + FK * P + to);  // O += P V
   }
-  __syncthreads();
+
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const float inv = 1.f / Lsum[r];
-    float* orow = o + (((size_t)b * T + qt * TILE + r) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (tx + 16 * j < D) orow[tx + 16 * j] = oacc[i][j] * inv;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  if (tid < TILE)
-    lse[((size_t)b * H + h) * T + qt * TILE + tid] = Ms[tid] + logf(Lsum[tid]);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(256)
-    flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ d_out,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int T, int H, int D,
-                         long long sb, long long st, long long sh, long long gb, long long gt,
-                         long long gh, float scale) {
-  constexpr int P = DP + 1, NJ = DP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + TILE * P;
-  float* Qs = Vs + TILE * P;
-  float* Gs = Qs + TILE * P;  // d_out
-  float* Ps = Gs + TILE * P;
-  float* dSs = Ps + TILE * SP;
-  float* Ls = dSs + TILE * SP;
-  float* Ds = Ls + TILE;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t base = (size_t)b * sb + (size_t)h * sh;
-  const size_t obase = (size_t)b * T * H * D + (size_t)h * D;
-  const long long opitch = (long long)H * D;
-  const float* lse_bh = lse + ((size_t)b * H + h) * T;
-  const float* delta_bh = delta + ((size_t)b * H + h) * T;
-
-  load_tile_f32<DP>(Ks, k + base + (size_t)kt * TILE * st, st, D);
-  load_tile_f32<DP>(Vs, v + base + (size_t)kt * TILE * st, st, D);
-  float dka[4][NJ], dva[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  for (int qt = 0; qt < T / TILE; ++qt) {
-    __syncthreads();
-    load_tile_f32<DP>(Qs, q + base + (size_t)qt * TILE * st, st, D);
-    load_tile_f32<DP>(Gs, d_out + obase + (size_t)qt * TILE * opitch, opitch, D);
-    if (tid < TILE) {
-      Ls[tid] = lse_bh[qt * TILE + tid];
-      Ds[tid] = delta_bh[qt * TILE + tid];
-    }
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    gemm_nt<DP, P, P>(Qs, Ks, s, ty, tx);   // rows: queries, columns: keys
-    gemm_nt<DP, P, P>(Gs, Vs, dp, ty, tx);  // dP[m, n] = dO[m] . V[n]
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ty + 16 * i;
-      const float l = Ls[m], dl = Ds[m];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] * scale - l);
-        Ps[m * SP + tx + 16 * j] = p;
-        dSs[m * SP + tx + 16 * j] = p * (dp[i][j] - dl);
-      }
-    }
-    __syncthreads();
-    gemm_tn<NJ, SP, P>(Ps, Gs, dva, ty, tx);   // dV[n, d] += P[m, n] dO[m, d]
-    gemm_tn<NJ, SP, P>(dSs, Qs, dka, ty, tx);  // dK[n, d] += dS[m, n] Q[m, d]
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = (size_t)b * gb + (size_t)h * gh + (size_t)(kt * TILE + ty + 16 * i) * gt;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      if (tx + 16 * j < D) {
-        dk[row + tx + 16 * j] = dka[i][j] * scale;
-        dv[row + tx + 16 * j] = dva[i][j];
-      }
-    }
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(256)
-    flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ d_out,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int T, int H, int D, long long sb, long long st,
-                        long long sh, long long gb, long long gt, long long gh, float scale) {
-  constexpr int P = DP + 1, NJ = DP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Gs = Qs + TILE * P;  // d_out
-  float* Ks = Gs + TILE * P;
-  float* Vs = Ks + TILE * P;
-  float* dSs = Vs + TILE * P;
-  float* Ls = dSs + TILE * SP;
-  float* Ds = Ls + TILE;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t base = (size_t)b * sb + (size_t)h * sh;
-  const size_t obase = (size_t)b * T * H * D + (size_t)h * D;
-  const long long opitch = (long long)H * D;
-
-  load_tile_f32<DP>(Qs, q + base + (size_t)qt * TILE * st, st, D);
-  load_tile_f32<DP>(Gs, d_out + obase + (size_t)qt * TILE * opitch, opitch, D);
-  if (tid < TILE) {
-    Ls[tid] = lse[((size_t)b * H + h) * T + qt * TILE + tid];
-    Ds[tid] = delta[((size_t)b * H + h) * T + qt * TILE + tid];
-  }
-  float dqa[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dqa[i][j] = 0.f;
-
-  for (int kt = 0; kt < T / TILE; ++kt) {
-    __syncthreads();
-    load_tile_f32<DP>(Ks, k + base + (size_t)kt * TILE * st, st, D);
-    load_tile_f32<DP>(Vs, v + base + (size_t)kt * TILE * st, st, D);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    gemm_nt<DP, P, P>(Qs, Ks, s, ty, tx);
-    gemm_nt<DP, P, P>(Gs, Vs, dp, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ty + 16 * i;
-      const float l = Ls[m], dl = Ds[m];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dSs[m * SP + tx + 16 * j] = expf(s[i][j] * scale - l) * (dp[i][j] - dl);
-    }
-    __syncthreads();
-    gemm_nn<NJ, SP, P>(dSs, Ks, dqa, ty, tx);  // dQ[m, d] += dS[m, n] K[n, d]
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = (size_t)b * gb + (size_t)h * gh + (size_t)(qt * TILE + ty + 16 * i) * gt;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (tx + 16 * j < D) dq[row + tx + 16 * j] = dqa[i][j] * scale;
+  const int row = qt * FWD_ROWS + warp * 16 + (lane >> 2);
+  float* orow = o + (((size_t)b * T + row) * H + h) * D;
+  tc::store<DP>(oacc, orow, orow + (size_t)8 * H * D, lane, 1.f / l[0], 1.f / l[1], D);
+  if ((lane & 3) == 0) {
+    float* lrow = lse + ((size_t)b * H + h) * T + row;
+    lrow[0] = m[0] + logf(l[0]);
+    lrow[8] = m[1] + logf(l[1]);
   }
 }
 
@@ -291,6 +194,7 @@ __global__ void __launch_bounds__(256)
 // so the eight threads of a quarter-warp that read eight rows hit eight
 // bank groups) and by broadcasts.
 
+constexpr int TILE = 64;       // rows of a block
 constexpr int PAN = 32;        // columns of D a first-product panel holds
 constexpr int PP = PAN + 4;    // its row pitch
 constexpr int FK = 128;        // keys of a forward tile
@@ -689,32 +593,12 @@ template <int DP>
 int launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int B, int T,
                int H, int D, long long sb, long long st, long long sh, float scale,
                cudaStream_t stream) {
-  constexpr int smem = fwd_f32_smem<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<DP>,
+  constexpr int smem = fwd_tc_smem<DP>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tf32_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_f32_kernel<DP><<<dim3(T / TILE, H, B), 256, smem, stream>>>(q, k, v, o, lse, T, H, D,
-                                                                         sb, st, sh, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int DP>
-int launch_bwd(const float* q, const float* k, const float* v, const float* d_out,
-               const float* lse, const float* delta, float* dq, float* dk, float* dv, int B, int T,
-               int H, int D, long long sb, long long st, long long sh, long long gb, long long gt,
-               long long gh, float scale, cudaStream_t stream) {
-  constexpr int smem_dkv = dkv_f32_smem<DP>(), smem_dq = dq_f32_smem<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_f32_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_dq_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_dq);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(T / TILE, H, B);
-  flash_dkv_f32_kernel<DP><<<grid, 256, smem_dkv, stream>>>(q, k, v, d_out, lse, delta, dk, dv, T,
-                                                            H, D, sb, st, sh, gb, gt, gh, scale);
-  flash_dq_f32_kernel<DP><<<grid, 256, smem_dq, stream>>>(q, k, v, d_out, lse, delta, dq, T, H, D,
-                                                          sb, st, sh, gb, gt, gh, scale);
+  flash_fwd_tf32_kernel<DP><<<dim3(T / FWD_ROWS, H, B), tc::THREADS, smem, stream>>>(
+      q, k, v, o, lse, T, H, D, sb, st, sh, scale);
   return (int)cudaGetLastError();
 }
 
@@ -800,8 +684,6 @@ int rfv_flash::bwd_f32_wide(const float* q, const float* k, const float* v, cons
 #undef RFV_DQ
 }
 
-#define RFV_F32_WIDTHS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
-
 int rfv_flash::fwd_f32(const float* q, const float* k, const float* v, float* o, float* lse,
                        int B, int T, int H, int D, int dp, long long sb, long long st,
                        long long sh, float scale, cudaStream_t stream) {
@@ -810,24 +692,6 @@ int rfv_flash::fwd_f32(const float* q, const float* k, const float* v, float* o,
 #define RFV_CASE(W) \
   case W:           \
     return launch_fwd<W>(q, k, v, o, lse, B, T, H, D, sb, st, sh, scale, stream);
-    RFV_F32_WIDTHS(RFV_CASE)
-#undef RFV_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-int rfv_flash::bwd_f32(const float* q, const float* k, const float* v, const float* d_out,
-                       const float* lse, const float* delta, float* dq, float* dk, float* dv,
-                       int B, int T, int H, int D, int dp, long long sb, long long st,
-                       long long sh, long long gb, long long gt, long long gh, float scale,
-                       cudaStream_t stream) {
-  if (D > dp) return (int)cudaErrorInvalidValue;
-  switch (dp) {
-#define RFV_CASE(W)                                                                             \
-  case W:                                                                                       \
-    return launch_bwd<W>(q, k, v, d_out, lse, delta, dq, dk, dv, B, T, H, D, sb, st, sh, gb, gt, \
-                         gh, scale, stream);
     RFV_F32_WIDTHS(RFV_CASE)
 #undef RFV_CASE
     default:

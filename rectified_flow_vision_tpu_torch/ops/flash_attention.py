@@ -20,12 +20,13 @@ D = 256 (``HEAD_DIM_WIDE``) they pad it in shared memory to 64, 128, 192 or
 stream 64-key tiles and split dkv and dq between their warpgroups; above 256
 the streamed kernels (``csrc/flash_attention_streamed.cu``) sum the logits
 over D one 64-column box at a time and write the outputs in chunks of 192 or
-256 columns. The fp32 kernels take D up to 128 (``HEAD_DIM_MAX_F32``),
-padded to the next multiple of 16; wider fp32 heads take the *_wide fp32
-kernels, whose blocks own every output column of their rows up to D = 256
-(O and dQ up to 384; the fewest chunks above it), so that each logit is
-computed once for each output block. Above 128 (fp32) and 256 (bf16) the
-width is a multiple of 64 (``HEAD_DIM_BOX``).
+256 columns. The fp32 kernels take D up to 128 (``HEAD_DIM_MAX_F32``) at
+D itself (3xTF32 products on the tensor cores, compiled at every multiple of
+8: DiT-XL's 72 runs at 72); wider fp32 heads take the *_wide fp32 kernels,
+whose blocks own every output column of their rows up to D = 256 (O and dQ
+up to 384; the fewest chunks above it), so that each logit is computed once
+for each output block. Above 128 (fp32) and 256 (bf16) the width is a
+multiple of 64 (``HEAD_DIM_BOX``).
 
 ``use_flash`` is the JAX package's rule on shape (``dit.py:131-135``): the
 kernel where T >= 1024 and T % 128 == 0, below that the plain attention that
@@ -79,14 +80,14 @@ def padded_head_dim(d: int) -> int:
 
 def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
     """The head width the kernels are compiled for that takes D = ``d``
-    (after ``padded_head_dim``): fp32 the next multiple of 16 up to 128,
-    otherwise the next multiple of 64 (bf16: 64, 128, 192 or 256, and above
-    256 the streamed kernels; fp32 above 128 the *_wide kernels). Raises only
-    for d < 1."""
+    (after ``padded_head_dim``): fp32 the padded width itself up to 128 (a
+    multiple of 8), otherwise the next multiple of 64 (bf16: 64, 128, 192 or
+    256, and above 256 the streamed kernels; fp32 above 128 the *_wide
+    kernels). Raises only for d < 1."""
     dk = padded_head_dim(d)
     if dtype == torch.bfloat16 or dk > HEAD_DIM_MAX_F32:
         return -(-dk // HEAD_DIM_BOX) * HEAD_DIM_BOX
-    return -(-dk // 16) * 16
+    return dk
 
 
 def _scale(q: Tensor, scale: Optional[float]) -> float:

@@ -8,7 +8,8 @@ widths the kernels take only zero-padded (4, 12), widths above 128 (136, 192,
 200, 256: the bf16 kernels' 192 and 256 instances, in fp32 the *_wide
 kernels), widths above 256 (264, 320, 384, 512: the streamed bf16 kernels,
 the fp32 *_wide kernels in two chunks), the padding identity, and the
-kernels' head-width rule, which needs no card. Tolerances: fp32 atol 1e-5
+kernels' head-width rule, which needs no card, and the fp32 kernels' 3xTF32
+split arithmetic, emulated in numpy. Tolerances: fp32 atol 1e-5
 forward (the same fp32 arithmetic, summed in another order), 1e-4 for dq,
 dk, dv; bf16 rtol 2e-2 (probabilities and outputs are rounded to bf16 on
 both sides, at the same points), and above 128 in bf16 2e-2 of each
@@ -72,20 +73,31 @@ class TestForward:
 
     @pytest.mark.parametrize("d", range(8, 129, 8))
     def test_every_head_width_from_8_to_128_has_a_kernel(self, d):
-        """bf16 pads D to one or two 64-column TMA boxes, fp32 to the next
-        multiple of 16; DiT-S/B/L (64) and XL (72) are among them."""
+        """bf16 pads D to one or two 64-column TMA boxes; fp32 runs at D
+        itself (the 3xTF32 kernels are compiled at every multiple of 8);
+        DiT-S/B/L (64) and XL (72) are among them."""
         bf16 = TFA.kernel_head_dim(d, torch.bfloat16)
         fp32 = TFA.kernel_head_dim(d, torch.float32)
         assert bf16 == (64 if d <= 64 else 128) and d <= bf16
-        assert fp32 % 16 == 0 and d <= fp32 < d + 16
+        assert fp32 == d
+
+    @pytest.mark.parametrize("d", range(1, 129))
+    def test_every_head_width_from_1_to_128_runs_at_its_padded_width(self, d):
+        """Every D from 1 to 128 reaches the fp32 kernels at the next
+        multiple of 8 (D itself where it is one), never wider: no zero
+        column beyond the padding that a 16-byte row needs."""
+        want = -(-d // 8) * 8
+        assert TFA.padded_head_dim(d) == want
+        assert TFA.kernel_head_dim(d, torch.float32) == want
+        assert TFA.kernel_head_dim(d, torch.bfloat16) == (64 if d <= 64 else 128)
 
     @pytest.mark.parametrize("d", [0, 4, 12, 20, 100, 127, 130, 136, 192, 200, 256, 260, 320,
                                    264, 384, 512, 520, 1000])
     def test_other_head_widths_are_padded_to_a_kernel_width(self, d):
         """Every D >= 1 reaches a kernel: zero-padded to the next multiple of
         8 (and 8 at least), then a kernel's width: bf16 the next multiple of
-        64 at every width (no ceiling), fp32 the next multiple of 16 up to
-        128 and of 64 above it. Only D = 0 raises."""
+        64 at every width (no ceiling), fp32 that multiple of 8 itself up to
+        128 and the next multiple of 64 above it. Only D = 0 raises."""
         limits = {torch.bfloat16: 0, torch.float32: TFA.HEAD_DIM_MAX_F32}
         for dtype, limit in limits.items():
             if d == 0:
@@ -224,6 +236,75 @@ class TestHeadWidths:
         for a, b in zip(grads_p, grads):
             np.testing.assert_allclose(a[..., :d].numpy(), b.numpy(), rtol=0, atol=1e-5)
             assert not a[..., d:].any()
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` on the fp32 bit pattern: 0x1000 added to the
+    magnitude bits and the low 13 cleared (round to nearest, ties away from
+    zero), the sign kept."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    mag = ((bits & np.uint32(0x7FFFFFFF)) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return (mag | (bits & np.uint32(0x80000000))).view(np.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the kernels' 3xTF32 products: hi = tf32(x), lo = tf32(x -
+    hi); lo b_hi + hi b_lo + hi b_hi in fp32, lo lo dropped."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+class TestSplitArithmetic:
+    """The fp32 kernels up to D = 128 compute every product in 3xTF32 on the
+    tensor cores. Their arithmetic, emulated here in numpy (fp32 sums), against
+    the JAX ``_attention`` and its ``jax.vjp`` at the plain versions'
+    tolerances: 1e-5 forward and log-sum-exp, 1e-4 for dq, dk, dv."""
+
+    def test_tf32_rounds_to_nearest_with_ties_away_from_zero(self):
+        ulp = 2.0 ** -10  # tf32's spacing in [1, 2)
+        x = np.array([1 + ulp / 2, 1 + ulp / 4, 1 + 3 * ulp / 4, 1.5 + ulp / 2, 3.0,
+                      2.0 ** -126, 1 + ulp / 2 - 2.0 ** -23], np.float32)
+        want = np.array([1 + ulp, 1, 1 + ulp, 1.5 + ulp, 3.0, 2.0 ** -126, 1], np.float32)
+        np.testing.assert_array_equal(_tf32(x), want)
+        np.testing.assert_array_equal(_tf32(-x), -want)
+        r = np.random.default_rng(21).standard_normal(4096).astype(np.float32) * 100
+        hi = _tf32(r)
+        assert not (hi.view(np.uint32) & np.uint32(0x1FFF)).any()
+        lo = _tf32(r - hi)
+        # hi + lo keeps 22 significant bits: within 2^-22 of |x|
+        assert (np.abs(hi.astype(np.float64) + lo - r) <= 2.0 ** -22 * np.abs(r)).all()
+
+    @pytest.mark.parametrize("d", [64, 72])
+    def test_3xtf32_forward_and_gradients_match_jax(self, d):
+        shape = (1, 1024, 2, d)
+        q, k, v = _qkv(shape, seed=31)
+        g = np.random.default_rng(32).standard_normal(shape).astype(np.float32)
+        out, vjp = jax.vjp(lambda *a: JD._attention(*a, use_flash=True),
+                           *(jnp.asarray(a) for a in (q, k, v)))
+        want = vjp(jnp.asarray(g))
+        scale = np.float32(1.0 / np.sqrt(d))
+        want_lse = np.asarray(jax.nn.logsumexp(
+            jnp.einsum("bthd,bshd->bhts", q, k) * scale, axis=-1))
+        qh, kh, vh, gh = (np.ascontiguousarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v, g))
+        s = _mm3(qh, kh.transpose(0, 1, 3, 2)) * scale  # [B, H, T, T]
+        m = s.max(-1, keepdims=True)
+        p = np.exp(s - m)
+        l_sum = p.sum(-1, keepdims=True)
+        o = _mm3(p, vh) / l_sum
+        lse = (m + np.log(l_sum))[..., 0]
+        np.testing.assert_allclose(o.transpose(0, 2, 1, 3), np.asarray(out), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(lse, want_lse, rtol=0, atol=1e-5)
+        # the backward kernels' formulas: P from the saved lse, delta = rowsum(dO O)
+        p = np.exp(_mm3(qh, kh.transpose(0, 1, 3, 2)) * scale - lse[..., None])
+        dp = _mm3(gh, vh.transpose(0, 1, 3, 2))
+        ds = p * (dp - (gh * o).sum(-1, keepdims=True))
+        dq = _mm3(ds, kh) * scale
+        dk = _mm3(ds.transpose(0, 1, 3, 2), qh) * scale
+        dv = _mm3(p.transpose(0, 1, 3, 2), gh)
+        for name, a, b in zip("qkv", (dq, dk, dv), want):
+            np.testing.assert_allclose(a.transpose(0, 2, 1, 3), np.asarray(b), rtol=0, atol=1e-4,
+                                       err_msg=f"d{name}")
 
 
 class TestBackward:

@@ -13,7 +13,9 @@ block) and 4 to 640 (flash attention, DiT-XL's 72 among them; 4, 12 and 20
 zero-padded; 136, 192, 200 and 256 on the bf16 kernels' 192 / 256 instances;
 264, 320, 384, 512 and 640 on the streamed bf16 kernels, 512 and 640 with
 their streamed layouts; every fp32 width above 128 on the *_wide fp32
-kernels), every
+kernels; the fp32 3xTF32 kernels at 8 to 128 against the plain versions and
+against float64, where their error is held to 4 times the plain fp32
+version's), every
 GroupNorm slab of the flagship, and group widths that take gn_silu's
 narrower vectors (2 and 3 channels a group). Tolerances as in chip_smoke.py: fp32 1e-4 (gn_silu) / 1e-3 (conv3x3,
 attention; reordered sums, cuDNN's algorithm choice), bf16 one rounding
@@ -440,7 +442,7 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rto
 
 
 # head widths 8 to 128 (DiT-S/B/L 64, XL 72; the bf16 kernels pad to 64 or
-# 128, the fp32 ones to a multiple of 16), T a multiple of 128, the
+# 128, the fp32 ones run at D), T a multiple of 128, the
 # 16384-token shape, widths the wrapper zero-pads (4, 12, 20), widths above
 # 128 (136, 192, 200, 256: bf16 on the 192 / 256 kernels, packed and
 # contiguous; fp32 on the *_wide kernels, one chunk) and above 256 (264, 320,
@@ -508,6 +510,64 @@ def test_flash_attention_backward(dev, dtype, shape, packed):
         assert float((a.float() - c.float()).abs().max()) <= 2 * tol * scale
     again = torch.autograd.grad(fused.flash_attention(*leaves), leaves, g)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# the fp32 kernels up to D = 128 (3xTF32 on the tensor cores, compiled at every
+# multiple of 8): widths from one n-tile to sixteen, DiT-S/B/L's 64 and XL's
+# 72, T from one 128-row block to eight, packed and contiguous q, k, v
+F32_TC_CASES = [(d, t, packed) for d in (8, 16, 24, 64, 72, 80, 128) for t in (128, 1024)
+                for packed in (True, False)]
+
+
+@pytest.mark.parametrize("d,t,packed", F32_TC_CASES)
+def test_flash_attention_f32_tensor_core_kernels(dev, d, t, packed):
+    """The fp32 kernels against the plain versions at FLASH_TOL: output and
+    log-sum-exp, then dq, dk, dv against the plain backward's formulas (each
+    within 1e-4 of its largest entry); two backward runs give the same
+    bits."""
+    q, k, v = _qkv(dev, torch.float32, 2, t, 3, d, seed=20 + d, packed=packed)
+    g = torch.randn(q.shape, generator=_gen(dev, 21), device=dev)
+    out, lse = FA.flash_attention_cuda(q, k, v)
+    torch.testing.assert_close(out, FA.flash_attention_plain(q, k, v), **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(lse, FA.flash_attention_lse_plain(q, k), rtol=1e-4, atol=1e-3)
+    got = FA.flash_attention_backward_cuda(q, k, v, out, lse, g)
+    want = FA.flash_attention_backward_plain(q, k, v, out, lse, g)
+    for a, b in zip(got, want):
+        scale = max(float(b.abs().max()), 1.0)
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+    again = FA.flash_attention_backward_cuda(q, k, v, out, lse, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _attention_f64(q, k, v, g):
+    """Forward and (dq, dk, dv) in float64 by autograd, [B, T, H, D]."""
+    leaves = [x.double().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    s = leaves[0] @ leaves[1].transpose(-1, -2) / q.shape[-1] ** 0.5
+    out = torch.softmax(s, dim=-1) @ leaves[2]
+    grads = torch.autograd.grad(out, leaves, g.double().transpose(1, 2))
+    return [x.transpose(1, 2) for x in (out.detach(), *grads)]
+
+
+@pytest.mark.parametrize("d", [64, 72, 128])
+@pytest.mark.parametrize("sigma", [1.0, 3.0], ids=["n01", "n03"])
+def test_flash_attention_f32_error_against_float64(dev, d, sigma):
+    """What exact fp32 stood for: against a float64 computation, the 3xTF32
+    kernels' max |error| in the output and in each of dq, dk, dv is at most 4
+    times the plain fp32 version's (TF32 off, set by the fixture). N(0, 1)
+    inputs, and N(0, 3^2) for peaked rows."""
+    gen = _gen(dev, 40 + d)
+    q, k, v = (torch.randn((2, 1024, 3, 4, d), generator=gen, device=dev) * sigma).unbind(2)
+    g = torch.randn((2, 1024, 4, d), generator=gen, device=dev)
+    ref = _attention_f64(q, k, v, g)
+    out, lse = FA.flash_attention_cuda(q, k, v)
+    kernel = (out, *FA.flash_attention_backward_cuda(q, k, v, out, lse, g))
+    p_out = FA.flash_attention_plain(q, k, v)
+    p_lse = FA.flash_attention_lse_plain(q, k)
+    plain = (p_out, *FA.flash_attention_backward_plain(q, k, v, p_out, p_lse, g))
+    for name, a, p, r in zip(("out", "dq", "dk", "dv"), kernel, plain, ref):
+        err_k = float((a.double() - r).abs().max())
+        err_p = float((p.double() - r).abs().max())
+        assert err_k <= 4 * err_p, (name, err_k, err_p)
 
 
 class _LibrarySpy:

@@ -15,7 +15,8 @@ checkout's kernels and reads, from random weights (seed 0), in bf16:
 - ``latent_serve``: ``throughput(4)`` of DiT-S/2 on 64x64x4 latents with the
   ConvVAE decode to 256x256x3, batch 256, three readings;
 - ``dit_train``: img/s of ``make_train_epoch`` for DiT-S/2 with ``remat`` at
-  batch 64 (6 steps a reading, four readings);
+  batch 64 (6 steps a reading, four readings); ``dit_train_f32`` the same
+  with fp32 compute (the fp32 flash kernels up to D = 128);
 - ``flash_fwd_ms`` / ``flash_bwd_ms``: the flash kernels' device time (CUDA
   events, at least 10 calls and 20 ms of them after a warm-up) summed over
   the 12 calls of one DiT-S/2
@@ -24,7 +25,8 @@ checkout's kernels and reads, from random weights (seed 0), in bf16:
   backward call at (64, 1024, H, D) in bf16: DiT-XL/2's 16 heads of 72, and
   6 heads of 4, 12, 136, 192, 256, 320, 384 and 512 (the zero-padded
   widths, the widths above 128 and above 256); ``flash_f32_d{D}_*`` the
-  same in fp32 at 6 heads of 64, 192, 256 and 384; ``flash_b2_d192_*`` the
+  same in fp32 at 6 heads of 64, 4, 12, 192, 256 and 384 and at DiT-XL/2's
+  16 heads of 72; ``flash_b2_d192_*`` the
   6 forward and 2 backward calls at (2, 1024, 6, 192) of the DiT with heads
   of 192;
 - ``gn_fwd_ms`` / ``gn_drop_fwd_ms``: the same for ``gn_silu_cuda`` over the
@@ -67,6 +69,8 @@ FLASH_CASES = (("flash_d72", "bfloat16", 64, 16, 72, 1, 1), ("flash_d4", "bfloat
                *((f"flash_d{d}", "bfloat16", 64, 6, d, 1, 1) for d in (136, 192, 256)),
                ("flash_b2_d192", "bfloat16", 2, 6, 192, 6, 2),
                ("flash_f32_d64", "float32", 64, 6, 64, 1, 1),
+               ("flash_f32_d72", "float32", 64, 16, 72, 1, 1),
+               *((f"flash_f32_d{d}", "float32", 64, 6, d, 1, 1) for d in (4, 12)),
                *((f"flash_d{d}", "bfloat16", 64, 6, d, 1, 1) for d in (320, 384, 512)),
                *((f"flash_f32_d{d}", "float32", 64, 6, d, 1, 1) for d in (192, 256, 384)))
 out = {}
@@ -183,6 +187,10 @@ model = BaseFlowModel(seed=0, compute_dtype="bfloat16", sample_dtype="bfloat16",
 latents = torch.randn((256, 64, 64, 4), generator=torch.Generator(device="cuda").manual_seed(2),
                       device="cuda")
 out["dit_train"] = train_rates(model, latents, 64, 1e-4)
+del model
+torch.cuda.empty_cache()
+model = BaseFlowModel(seed=0, compute_dtype="float32", device="cuda", **DIT)
+out["dit_train_f32"] = train_rates(model, latents, 64, 1e-4)
 del model, latents
 torch.cuda.empty_cache()
 
@@ -219,9 +227,11 @@ print(json.dumps(out))
 """
 
 FLASH_KEYS = ("flash_d72", "flash_d4", "flash_d12", "flash_d136", "flash_d192", "flash_d256",
-              "flash_b2_d192", "flash_f32_d64", "flash_d320", "flash_d384", "flash_d512",
-              "flash_f32_d192", "flash_f32_d256", "flash_f32_d384")
-METRICS = ("unet_serve", "unet_train", "latent_serve", "dit_train", "flash_fwd_ms", "flash_bwd_ms",
+              "flash_b2_d192", "flash_f32_d64", "flash_f32_d72", "flash_f32_d4", "flash_f32_d12",
+              "flash_d320", "flash_d384", "flash_d512", "flash_f32_d192", "flash_f32_d256",
+              "flash_f32_d384")
+METRICS = ("unet_serve", "unet_train", "latent_serve", "dit_train", "dit_train_f32",
+           "flash_fwd_ms", "flash_bwd_ms",
            *(f"{key}_{p}_ms" for key in FLASH_KEYS for p in ("fwd", "bwd")),
            "gn_fwd_ms", "gn_drop_fwd_ms")
 
