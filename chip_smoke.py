@@ -58,6 +58,37 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    seeds giving the same loss trajectory twice;
 9. train timing and trace: img/s of ``make_train_epoch`` at batch 256 in bf16,
    peak device memory, and one train step under ``torch.profiler``;
+9a. resume: both trainers at full width (bf16, EMA, device-resident
+   epochs, the state saved every epoch; ``RESUME``): two uninterrupted runs
+   of ``train_base_flow`` on a seeded 1024-image corpus at batch 128, then
+   one crashed after epoch 2's state is committed and resumed; the same
+   for ``train_rectified_flow`` (teacher-init, u-shaped t) on 1024 heun
+   pairs of the trained teacher; losses, weights and EMA of the resumed
+   run held to twice the two runs' spread (+ a floor), both numbers
+   printed; exact launch counts; then ``TrainStateManager`` and
+   ``AsyncSaver`` writing while training goes on: the snapshot at the
+   save, bit for bit;
+9b. HTTP: ``serving_http.make_server`` around ``SamplerService`` (batch
+   256, steps 1, 2, 4, bf16) on 127.0.0.1: 16 concurrent clients (n 1, 4,
+   16, 64), each sending its next request as the last one returns, for
+   windows of a few seconds (``HTTP``: three readings at 4 steps, three at
+   1 step), npy and PNG; coalescing (fewer sampler calls than requests),
+   shapes, range, a 400, /healthz, /metrics, exact launches; img/s (all
+   images over all the time) and p50 / p99 latency of each reading and of
+   all requests at a step count, the readings' spread, the share of the
+   time the batcher spent in the sampler; then ``python -m
+   rectified_flow_vision_tpu_torch.serving_http`` in a process of its own
+   answering a request;
+9c. metric networks: LPIPS and InceptionV3 (synthetic weights) at batch
+   256 of 64x64 images with the process's TF32 switches on, against the
+   CPU on 4 images (``METRIC_NETS``), ms per batch, and a control that
+   must fail the same gate: the networks with their TF32 pin taken away;
+   ``train_synthnet``'s 3 steps on the card from its default init against
+   the CPU, the update held relative to its norm, and a control at half
+   the lr that must fail that gate;
+9d. profiling: an ``annotate`` span in a ``trace()`` of a served batch,
+   ``device_memory_stats()`` nonzero, ``nan_check`` silent over a UNet
+   sample and raising on a NaN made on the card;
 10. dropout: ``ops.primitives.dropout`` on tensors on the card, forward and
     gradient (no model of either package calls the standalone kernel), and
     ``dropout_mask_apply`` on a cotangent (the backward kernel took its place
@@ -272,6 +303,31 @@ CLI = dict(
 CLI_KERNELS = ("gn_silu", "conv3x3", "attention_block", "gn_silu_dropout", "gn_silu_backward")
 # the CLI's quality gates: FID_BOOT bootstrap replicates a fid_deep
 FID_BOOT = 16
+# The resume phase: both trainers on the flagship UNet (bf16 on fp32 masters,
+# EMA, device-resident epochs), a seeded corpus, 8 steps an epoch, the state
+# saved every epoch; the reflow pairs from the trained teacher at 4 heun steps
+RESUME = dict(images=1024, batch=128, epochs=3, lr=2e-4, ema=0.999, pairs=1024, pair_batch=256,
+              teacher_steps=4)
+# two uninterrupted runs give one sample of the card's run-to-run spread
+# (cuDNN's backward sums in its own order); the resumed run's distance from
+# the first is another sample of it: held to twice the measured spread, plus
+# a floor for a card that repeats runs bit for bit (loss: relative; weights
+# and EMA: largest |difference| of an entry)
+RESUME_SPREAD_FACTOR, RESUME_FLOOR = 2.0, 1e-6
+# The HTTP phase: concurrent clients with these request sizes (client i
+# sends n = sizes[i % 4] again and again), readings of window_s seconds at
+# each step count, the batcher's coalescing window
+HTTP = dict(clients=16, sizes=(1, 4, 16, 64), steps=(4, 1), readings=3, window_s=2.5,
+            max_wait_ms=5.0)
+# The metric networks on the card against the CPU, both in exact fp32 with
+# other summation orders (cuDNN may take Winograd or FFT convolutions): rtol,
+# atol per entry, on the first cpu_slice images; train_synthnet on synth_n
+# training images at batch synth_batch (3 steps), its update (weights minus
+# init) on the card within synth_rtol of the CPU's, relative to its norm:
+# 34x the 5.9e-4 measured on an H100, 1/26 of the 0.52 of a run at half the
+# lr (a weight decay 100x too large moves the update by ~5e-4: not seen)
+METRIC_NETS = dict(cpu_slice=4, rtol=1e-3, atol=1e-5, synth_n=24, synth_batch=8,
+                   synth_rtol=0.02)
 
 
 def all_counts(build, **counts):
@@ -1942,6 +1998,560 @@ def cli_quality_gates(torch, cfg, ck: Path, out: Path, bench_mod, config_lib) ->
              f"{many} {ema_many}")
 
 
+def _state_diff(a, b):
+    """Largest |difference| of any entry between two {name: tensor} dicts."""
+    if a.keys() != b.keys():
+        fail(f"state dicts differ in their names: {sorted(a.keys() ^ b.keys())[:5]}")
+    return max(float((a[k].cpu().double() - b[k].cpu().double()).abs().max()) for k in a)
+
+
+def _rel_loss_diff(a, b):
+    return max(abs(x - y) / abs(x) for x, y in zip(a, b))
+
+
+def resume_phase(torch, build):
+    """Resume of both trainers at full width on the card, through the entry
+    points a user calls: ``train_base_flow`` (EMA, device-resident epochs)
+    and then ``train_rectified_flow`` (teacher-init, u-shaped t, EMA) on heun
+    pairs from the trained teacher, each run uninterrupted twice (their
+    difference is the card's own spread: cuDNN's backward may sum in another
+    order from run to run) and once crashed after epoch 2's state is
+    committed, then resumed. The resumed run's losses, weights and EMA are
+    held to RESUME_SPREAD_FACTOR x that spread + RESUME_FLOOR. Then a state
+    written by ``TrainStateManager`` and a checkpoint written by
+    ``AsyncSaver`` while training goes on equal snapshots taken at the save.
+    Returns the phase's launch counts."""
+    from rectified_flow_vision_tpu_torch import (
+        ArrayDataset, BaseFlowModel, RectifiedFlowModel, generate_reflow_pairs,
+        train_base_flow, train_rectified_flow,
+    )
+    from rectified_flow_vision_tpu_torch.utils import train_state as ts
+
+    import shutil
+
+    cfg = RESUME
+    root = ROOT / "build" / "resume_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    data = ArrayDataset(make_corpus(cfg["images"]))
+    common = dict(epochs=cfg["epochs"], lr=cfg["lr"], save_every=1, seed=SEED, progress=False,
+                  ema_decay=cfg["ema"], device_epoch=True)
+    pairs = {}
+
+    def base(tag):
+        model = BaseFlowModel(image_size=64, seed=SEED, compute_dtype="bfloat16",
+                              sample_dtype="bfloat16", device="cuda")
+        return model, train_base_flow(model, data, batch_size=cfg["batch"],
+                                      resume_dir=str(root / tag), **common)
+
+    def reflow(tag):
+        student = RectifiedFlowModel.from_base_model(pairs["teacher"], copy_weights=True,
+                                                     seed=SEED + 1000)
+        losses = train_rectified_flow(
+            student, pairs["x0"], pairs["x1"], batch_size=cfg["batch"], data_format="NHWC",
+            time_sampling="u_shaped", resume_dir=str(root / tag), **common)
+        return student, losses
+
+    orig_save = ts.TrainStateManager.save
+
+    def crashing_save(self, epoch, *args, **kwargs):
+        orig_save(self, epoch, *args, **kwargs)
+        if epoch == 1:  # epoch 2's state is committed, then the run dies
+            self.wait()
+            raise KeyboardInterrupt("simulated crash")
+
+    def final_state(tag):
+        params, _, losses, next_epoch, ema = ts.TrainStateManager(root / tag).restore()
+        if next_epoch != cfg["epochs"] or ema is None:
+            fail(f"{tag}: the final state is epoch {next_epoch - 1}, EMA {ema is not None}")
+        return params, ema, losses
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    for what, run in (("train_base_flow", base), ("train_rectified_flow", reflow)):
+        prefix = what.split("_")[1]
+        model_a, losses_a = run(f"{prefix}_a")
+        _, losses_b = run(f"{prefix}_b")
+        with mock.patch.object(ts.TrainStateManager, "save", crashing_save):
+            try:
+                run(f"{prefix}_c")
+                fail(f"{what}: the simulated crash did not happen")
+            except KeyboardInterrupt:
+                pass
+        if ts.TrainStateManager(root / f"{prefix}_c").epochs() != [0, 1]:
+            fail(f"{what}: the crashed run did not leave epochs 1 and 2 committed")
+        _, losses_c = run(f"{prefix}_c")
+        (pa, ea, la), (pb, eb, lb), (pc, ec, lc) = (final_state(f"{prefix}_{x}") for x in "abc")
+        if not (la == losses_a and lb == losses_b and lc == losses_c):
+            fail(f"{what}: the saved losses are not the returned ones")
+        if not np.isfinite(losses_a + losses_b + losses_c).all() or len(losses_c) != 3:
+            fail(f"{what}: losses {losses_a} {losses_b} {losses_c}")
+        spread = {"loss": _rel_loss_diff(losses_a, losses_b), "params": _state_diff(pa, pb),
+                  "ema": _state_diff(ea, eb)}
+        resumed = {"loss": _rel_loss_diff(losses_a, losses_c), "params": _state_diff(pa, pc),
+                   "ema": _state_diff(ea, ec)}
+        log(f"resume: {what}, {cfg['epochs']} epochs x {cfg['images'] // cfg['batch']} steps of "
+            f"{cfg['batch']} (bf16, EMA {cfg['ema']}, device epochs), crashed after epoch 2: "
+            f"losses {[round(v, 5) for v in losses_a]}; two uninterrupted runs differ by "
+            + ", ".join(f"{k} {v:.3e}" for k, v in spread.items())
+            + "; the resumed run from the first by "
+            + ", ".join(f"{k} {v:.3e}" for k, v in resumed.items())
+            + f" (bound {RESUME_SPREAD_FACTOR} x spread + {RESUME_FLOOR}; loss relative, weights "
+            "and EMA largest |difference|)")
+        for k, v in resumed.items():
+            if v > RESUME_SPREAD_FACTOR * spread[k] + RESUME_FLOOR:
+                fail(f"{what}: the resumed run's {k} differs by {v:.3e}, beyond "
+                     f"{RESUME_SPREAD_FACTOR} x the spread {spread[k]:.3e} + {RESUME_FLOOR}")
+        if what == "train_base_flow":
+            x0, x1 = generate_reflow_pairs(
+                model_a, cfg["pairs"], batch_size=cfg["pair_batch"],
+                num_steps=cfg["teacher_steps"], seed=SEED, data_format="NHWC", method="heun")
+            pairs.update(teacher=model_a, x0=x0, x1=x1)
+    launches = dict(build.LAUNCHES)
+    log(f"resume: both trainers in {time.perf_counter() - t0:.1f} s, launches {nonzero(launches)}")
+    steps_per_epoch = cfg["images"] // cfg["batch"]
+    # each trainer: runs a and b, the crashed run's 2 epochs and the resumed one's 1
+    train_steps = 2 * 3 * cfg["epochs"] * steps_per_epoch
+    forwards = -(-cfg["pairs"] // cfg["pair_batch"]) * cfg["teacher_steps"] * 2  # heun
+    expect = all_counts(build, **{
+        k: train_steps * TRAIN_STEP_LAUNCHES[k] + forwards * EVAL_FORWARD_LAUNCHES[k]
+        for k in TRAIN_STEP_LAUNCHES})
+    if launches != expect:
+        fail(f"resume launches {launches}, expected {expect}")
+    saver_phase(torch, pairs["teacher"], data)
+    shutil.rmtree(root)  # 3 GB of train states
+    return launches
+
+
+def saver_phase(torch, model, data) -> None:
+    """``TrainStateManager.save`` and ``AsyncSaver.save`` snapshot on the
+    caller's thread: training goes on in place while their threads write, and
+    what they wrote equals a copy taken at the save, bit for bit."""
+    from rectified_flow_vision_tpu_torch.models.base_flow import (
+        init_ema, make_optimizer, make_train_epoch)
+    from rectified_flow_vision_tpu_torch.utils import checkpoint as ckpt_io
+    from rectified_flow_vision_tpu_torch.utils import train_state as ts
+
+    opt = make_optimizer(model, RESUME["lr"], 10, 4)
+    ema = init_ema(model)
+    epoch = make_train_epoch(model, opt, coupled=False, ema=ema, ema_decay=RESUME["ema"])
+    corpus = torch.as_tensor(data.images, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    perm = torch.arange(4 * RESUME["batch"], device="cuda").reshape(4, -1) % len(data)
+    epoch(corpus, perm[:1], gen)
+    snap = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    snap_ema = {k: v.clone() for k, v in ema.items()}
+    snap_moments = {k: v.clone() for k, v in opt.adamw.state[opt.params[0]].items()}
+    mgr = ts.TrainStateManager(ROOT / "build" / "resume_smoke" / "saver")
+    saver = ckpt_io.AsyncSaver()
+    path = ROOT / "build" / "resume_smoke" / "saver.npz"
+    mgr.save(0, model.state_dict(), opt.state_dict(), [0.0], ema=ema)
+    saver.save(path, model.state_dict())
+    epoch(corpus, perm, gen)  # in place, while the two threads write
+    torch.cuda.synchronize()
+    mgr.close()
+    saver.wait()
+    params, opt_state, _, _, ema_r = ts.TrainStateManager(mgr.directory).restore()
+    moved = _state_diff(snap, model.state_dict())
+    saved = ckpt_io.load_params(path)[0]
+    exact = (all(torch.equal(params[k], v.cpu()) for k, v in snap.items())
+             and all(torch.equal(ema_r[k], v.cpu()) for k, v in snap_ema.items())
+             and all(torch.equal(opt_state["adamw"]["state"][0][k], v.cpu())
+                     for k, v in snap_moments.items())
+             and opt_state["step_count"] == 1
+             and all(np.array_equal(saved[k], v.cpu().numpy()) for k, v in snap.items()))
+    log(f"resume: TrainStateManager and AsyncSaver wrote the state at save while 4 more steps "
+        f"moved the weights by up to {moved:.3e}: {'bit for bit' if exact else 'DIFFERENT'}")
+    if not exact or moved == 0.0:
+        fail("a state written while training went on is not the snapshot taken at the save")
+
+
+def _get(url: str, timeout: float = 60.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def _post(url: str, payload: dict, timeout: float = 120.0):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def http_phase(torch, build):
+    """The HTTP front end at full width: ``SamplerService`` (batch 256, steps
+    1, 2, 4, bf16) behind ``make_server`` on 127.0.0.1, an ephemeral port.
+    HTTP["clients"] concurrent clients, client i asking for n =
+    HTTP["sizes"][i % 4] images (PNG for every fourth, else npy) and sending
+    its next request as soon as the last one returns, for HTTP["window_s"]
+    seconds: HTTP["readings"] such readings at each of HTTP["steps"]. npy
+    and PNG responses checked, requests coalesced into fewer sampler calls,
+    a 400 for an unconfigured step count, /healthz and /metrics. img/s of a
+    reading is all its images over the time from its start to its last
+    answer; p50 / p99 over its requests, and over all requests at a step
+    count, with the readings' spread and the share of the time the batcher
+    spent in the sampler. Then ``python -m
+    rectified_flow_vision_tpu_torch.serving_http`` in its own process
+    answers a request. Returns the in-process launch counts."""
+    import base64
+    import io
+    import threading
+
+    from PIL import Image
+
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+    from rectified_flow_vision_tpu_torch.serving import SamplerService
+    from rectified_flow_vision_tpu_torch.serving_http import make_server
+
+    model = BaseFlowModel(image_size=64, seed=SEED, sample_dtype="bfloat16", device="cuda")
+    build.reset_launches()
+    svc = SamplerService(model, step_counts=(1, 2, 4), batch_size=BATCH, seed=SEED)
+    calls, generate = [], svc.generate
+
+    def recording(n, num_steps=None, **kw):  # the batcher's sampler calls
+        calls.append((n, num_steps))
+        return generate(n, num_steps=num_steps, **kw)
+
+    def check(n, fmt, code, body, what):
+        if code != 200:
+            fail(f"HTTP: {what} returned {code}: {body[:200]!r}")
+        if fmt == "npy":
+            arr = np.load(io.BytesIO(body))
+            if arr.shape != (n, 3, 64, 64) or not np.isfinite(arr).all():
+                fail(f"HTTP: npy response of shape {arr.shape} for n={n}, or non-finite")
+            if arr.min() < -1.0 or arr.max() > 1.0:
+                fail("HTTP: npy response outside [-1, 1]")
+        else:
+            pngs = json.loads(body)["images_png_b64"]
+            imgs = [Image.open(io.BytesIO(base64.b64decode(p))) for p in pngs]
+            if len(imgs) != n or any(im.size != (64, 64) or im.mode != "RGB" for im in imgs):
+                fail(f"HTTP: PNG response of {len(imgs)} images, not {n} RGB 64x64")
+
+    svc.generate = recording
+    httpd, batcher = make_server(svc, "127.0.0.1", 0, max_wait_ms=HTTP["max_wait_ms"])
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    readings, n_requests, n_images = [], 0, 0
+    try:
+        for steps in HTTP["steps"]:
+            for r in range(HTTP["readings"]):
+                answers = [[] for _ in range(HTTP["clients"])]
+                sampler_s, first_call = batcher.stats["latency_sum_s"], len(calls)
+                t0 = time.perf_counter()
+
+                def client(i):
+                    n = HTTP["sizes"][i % len(HTTP["sizes"])]
+                    fmt = "png" if i % 4 == 0 else "npy"
+                    while (sent := time.perf_counter()) - t0 < HTTP["window_s"]:
+                        code, _, body = _post(url + "/generate", {"n": n, "num_steps": steps,
+                                                                   "format": fmt})
+                        answers[i].append((n, fmt, code, body, sent, time.perf_counter()))
+
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(HTTP["clients"])]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300)
+                wall = max(a[5] for ans in answers for a in ans) - t0
+                lat = [(a[5] - a[4]) * 1e3 for ans in answers for a in ans]
+                images = sum(a[0] for ans in answers for a in ans)
+                readings.append(dict(steps=steps, wall=wall, images=images, lat=lat,
+                                     sizes=[a[0] for ans in answers for a in ans],
+                                     calls=calls[first_call:],
+                                     sampler=batcher.stats["latency_sum_s"] - sampler_s))
+                for i, ans in enumerate(answers):
+                    if not ans:
+                        fail(f"HTTP: client {i} got no answer in {HTTP['window_s']} s")
+                    for j, (n, fmt, code, body, _, _) in enumerate(ans):
+                        check(n, fmt, code, body, f"request {j} of client {i}")
+                n_requests += len(lat)
+                n_images += images
+        bad_code, _, _ = _post(url + "/generate", {"n": 1, "num_steps": 3})
+        health_code, health = _get(url + "/healthz")
+        metrics_code, metrics = _get(url + "/metrics")
+    finally:
+        httpd.shutdown()
+        batcher.shutdown()
+        httpd.server_close()
+    launches = dict(build.LAUNCHES)
+
+    counters = dict(line.split() for line in metrics.decode().splitlines())
+    requests, batches = int(counters["rfv_requests_total"]), int(counters["rfv_batches_total"])
+    health = json.loads(health)
+    if bad_code != 400 or health_code != 200 or metrics_code != 200:
+        fail(f"HTTP: unconfigured steps gave {bad_code}, /healthz {health_code}, "
+             f"/metrics {metrics_code}")
+    if health["step_counts"] != [1, 2, 4] or health["batch_size"] != BATCH:
+        fail(f"HTTP: /healthz says {health}")
+    if not (requests == n_requests and batches < requests):
+        fail(f"HTTP: {requests} requests (clients counted {n_requests}) in {batches} "
+             "sampler calls: no coalescing")
+    images = int(counters["rfv_images_total"])
+    log(f"HTTP: {HTTP['clients']} concurrent clients, n in {HTTP['sizes']}, readings of "
+        f"{HTTP['window_s']} s: {requests} requests, {images} images in {batches} sampler calls "
+        f"(batch {BATCH}, bf16); a 400 for 3 steps; launches {nonzero(launches)}")
+    for steps in HTTP["steps"]:
+        mine = [r for r in readings if r["steps"] == steps]
+        rates = [r["images"] / r["wall"] for r in mine]
+        for r, rate in zip(mine, rates):
+            log(f"HTTP: {steps} steps, a reading: {rate:.2f} img/s ({r['images']} images, "
+                f"{len(r['lat'])} requests in {r['wall']:.3f} s), p50 "
+                f"{np.percentile(r['lat'], 50):.2f} ms, p99 {np.percentile(r['lat'], 99):.2f} ms; "
+                f"the batcher in the sampler {r['sampler'] / r['wall']:.3f} of the time")
+        lat = np.array([x for r in mine for x in r["lat"]])
+        sizes = np.array([x for r in mine for x in r["sizes"]])
+        mine_calls = [c for r in mine for c in r["calls"]]
+        fill = sum(n for n, _ in mine_calls) / (BATCH * sum(-(-n // BATCH) for n, _ in mine_calls))
+        log(f"HTTP: {steps} steps, all {len(mine)} readings: "
+            f"{sum(r['images'] for r in mine) / sum(r['wall'] for r in mine):.2f} img/s, "
+            f"readings {min(rates):.2f}-{max(rates):.2f} (spread "
+            f"{(max(rates) - min(rates)) / np.median(rates):.3f} of the median); {len(lat)} "
+            f"requests p50 {np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} ms; "
+            f"p50 / p99 by n: " + ", ".join(
+                f"{n} {np.percentile(lat[sizes == n], 50):.0f} / "
+                f"{np.percentile(lat[sizes == n], 99):.0f}" for n in HTTP["sizes"])
+            + f" ms; the batcher in the sampler "
+            f"{sum(r['sampler'] for r in mine) / sum(r['wall'] for r in mine):.3f} of the time, "
+            f"{len(mine_calls)} sampler calls filled {fill:.3f} of their batches of {BATCH}")
+    if len(calls) != batches or images != n_images:
+        fail(f"HTTP: {len(calls)} sampler calls for {batches} batches, {images} images "
+             f"(clients received {n_images})")
+    # warm-up (1 + 2 + 4 forwards), then each sampler call's batches of 256
+    forwards = (1 + 2 + 4) + sum(steps * -(-n // BATCH) for n, steps in calls)
+    expect = all_counts(build, **{k: v * forwards for k, v in EVAL_FORWARD_LAUNCHES.items()})
+    if launches != expect:
+        fail(f"HTTP launches {launches}, expected {expect} ({forwards} forwards)")
+    http_module_phase(torch, model)
+    return launches
+
+
+def http_module_phase(torch, model) -> None:
+    """``python -m rectified_flow_vision_tpu_torch.serving_http`` on a saved
+    checkpoint, in its own process on the card: it answers /healthz and one
+    request, then stops at SIGINT."""
+    import re
+    import signal
+
+    ckpt = ROOT / "build" / "http_smoke" / "flow.npz"
+    model.save(str(ckpt))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rectified_flow_vision_tpu_torch.serving_http", "--checkpoint",
+         str(ckpt), "--port", "0", "--steps", "2", "--batch-size", "16", "--device", "cuda"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        lines = []
+        port = None
+        while port is None:
+            line = proc.stdout.readline()
+            if not line:
+                fail("serving_http exited before serving: " + "".join(lines[-20:]))
+            lines.append(line)
+            m = re.search(r"serving on http://127\.0\.0\.1:(\d+)", line)
+            if m:
+                port = int(m.group(1))
+            if time.perf_counter() - t0 > 120:
+                fail("serving_http did not start within 120 s")
+        url = f"http://127.0.0.1:{port}"
+        _, health = _get(url + "/healthz")
+        code, _, body = _post(url + "/generate", {"n": 5, "num_steps": 2})
+        arr = np.load(__import__("io").BytesIO(body)) if code == 200 else None
+        if arr is None or arr.shape != (5, 3, 64, 64) or not np.isfinite(arr).all():
+            fail(f"serving_http answered {code} with {None if arr is None else arr.shape}")
+        log(f"HTTP: python -m rectified_flow_vision_tpu_torch.serving_http served 5 images at "
+            f"2 steps, {json.loads(health)['step_counts']}, "
+            f"{time.perf_counter() - t0:.1f} s from start to answer")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def lpips_weights(seed: int = 0) -> dict:
+    """Seeded synthetic AlexNet-LPIPS weights (the JAX package's tests draw
+    these: normal convs, small biases, uniform lin heads)."""
+    from rectified_flow_vision_tpu_torch.utils.lpips import _ALEX_LAYERS
+
+    rng = np.random.default_rng(seed)
+    w, cin = {}, 3
+    for i, (k, _, _, cout, _) in enumerate(_ALEX_LAYERS):
+        w[f"conv{i}_w"] = rng.normal(0, 0.1, (k, k, cin, cout)).astype(np.float32)
+        w[f"conv{i}_b"] = rng.normal(0, 0.01, (cout,)).astype(np.float32)
+        w[f"lin{i}_w"] = rng.uniform(0, 1, (cout,)).astype(np.float32)
+        cin = cout
+    return w
+
+
+def _close(got, want, rtol, atol):
+    """Largest |got - want| as a share of atol + rtol |want| (<= 1 passes)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
+
+
+def metric_nets_phase(torch) -> None:
+    """LPIPS and InceptionV3 with seeded synthetic weights at batch 256 of
+    64x64 images on the card, with the process's TF32 switches ON (the
+    networks pin exact fp32 themselves), against the port's own CPU result
+    on a slice of the batch (METRIC_NETS tolerances); ms per batch. The
+    control: the same networks with ``exact_fp32`` replaced by a null
+    context, so that cuDNN runs them in TF32; each network must fail the
+    gate there, or the gate could not see a lost pin. Then
+    ``train_synthnet``'s steps on the card from its default init (drawn
+    from the seed) against the CPU from the same tree: the update (weights
+    minus init) within METRIC_NETS["synth_rtol"] of the CPU's, relative to
+    its norm; the control, the CPU at half the lr, must fail that gate."""
+    import contextlib
+    from unittest import mock
+
+    from rectified_flow_vision_tpu_torch.utils import inception as I
+    from rectified_flow_vision_tpu_torch.utils import lpips as L
+    from rectified_flow_vision_tpu_torch.utils import synthnet as S
+
+    r = np.random.default_rng(SEED + 5)
+    a = np.tanh(r.standard_normal((BATCH, 3, 64, 64))).astype(np.float32)
+    b = np.tanh(r.standard_normal((BATCH, 3, 64, 64))).astype(np.float32)
+    k = METRIC_NETS["cpu_slice"]
+    lp_gpu, lp_cpu = L.LPIPS(lpips_weights(), "cuda"), L.LPIPS(lpips_weights(), "cpu")
+    inc_gpu = I.InceptionV3Features(I.synthetic_weights(0), "cuda")
+    inc_cpu = I.InceptionV3Features(I.synthetic_weights(0), "cpu")
+    rtol, atol = METRIC_NETS["rtol"], METRIC_NETS["atol"]
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = cudnn.allow_tf32, matmul.allow_tf32
+
+    def outputs():
+        return {"lpips": lp_gpu(a, b), "lpips fid_features": lp_gpu.fid_features(a),
+                "lpips pairwise": lp_gpu.pairwise_distance(a[:k], b[:k]),
+                "inception": inc_gpu(a)}
+
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        got = outputs()
+        a_dev, b_dev = torch.as_tensor(a, device="cuda"), torch.as_tensor(b, device="cuda")
+        ms = {"lpips": time_ms(torch, lambda: lp_gpu.distance(a_dev, b_dev), reps=3),
+              "inception": time_ms(torch, lambda: inc_gpu.forward(a_dev), reps=3)}
+        if (cudnn.allow_tf32, matmul.allow_tf32) != (True, True):
+            fail("a metric network did not restore the process's TF32 switches")
+        with mock.patch.object(L, "exact_fp32", contextlib.nullcontext), \
+                mock.patch.object(I, "exact_fp32", contextlib.nullcontext):
+            control = outputs()
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = prev
+    want = {"lpips": lp_cpu(a[:k], b[:k]), "lpips fid_features": lp_cpu.fid_features(a[:k]),
+            "lpips pairwise": lp_cpu.pairwise_distance(a[:k], b[:k]), "inception": inc_cpu(a[:k])}
+    shapes = {"lpips": (BATCH,), "lpips fid_features": (BATCH, 256), "lpips pairwise": (k, k),
+              "inception": (BATCH, 2048)}
+
+    def share(out, name):
+        return _close(out[name][:k] if name != "lpips pairwise" else out[name], want[name],
+                      rtol, atol)
+
+    worst, tf32 = {}, {}
+    for name, g in got.items():
+        if g.shape != shapes[name] or not np.isfinite(g).all():
+            fail(f"{name} on the card: shape {g.shape} or non-finite")
+        worst[name], tf32[name] = share(got, name), share(control, name)
+    log(f"metric networks: batch {BATCH} of 64x64, synthetic weights, TF32 switched on around "
+        f"them: LPIPS {ms['lpips']:.3f} ms a batch (two images a pair), InceptionV3 "
+        f"(resize to 299) {ms['inception']:.3f} ms a batch; card vs CPU on {k} images, worst "
+        "share of tolerance (rtol " + f"{rtol}, atol {atol}): "
+        + ", ".join(f"{n} {v:.3f}" for n, v in worst.items())
+        + "; the control without the TF32 pin: "
+        + ", ".join(f"{n} {v:.3f}" for n, v in tf32.items()))
+    if max(worst.values()) > 1.0:
+        fail("a metric network on the card differs from the CPU")
+    for net in ("lpips", "inception"):
+        if max(v for n, v in tf32.items() if n.startswith(net)) <= 1.0:
+            fail(f"the {net} gate passes the network run in TF32: it cannot see a lost pin")
+
+    kw = dict(n_train=METRIC_NETS["synth_n"], n_val=8, size=64, batch=METRIC_NETS["synth_batch"],
+              epochs=1, seed=SEED, progress=False)
+    lr = 3e-4
+    init = S.init_params(torch.Generator().manual_seed(SEED), device="cpu")
+    t0 = time.perf_counter()
+    p_gpu, m_gpu = S.train_synthnet(**kw, lr=lr, device="cuda")  # the default init of SEED
+    gpu_s = time.perf_counter() - t0
+    p_cpu, m_cpu = S.train_synthnet(**kw, lr=lr, params=init, device="cpu")
+    p_half, _ = S.train_synthnet(**kw, lr=lr / 2, params=init, device="cpu")
+    steps = (kw["n_train"] * 2 // 3 // kw["batch"]) + (kw["n_train"] // 3 // kw["batch"])
+
+    def update(p):
+        return torch.cat([(p[l][n].cpu() - init[l][n]).reshape(-1) for l in init for n in init[l]])
+
+    step_cpu = update(p_cpu)
+    rel = float((update(p_gpu) - step_cpu).norm() / step_cpu.norm())
+    rel_half = float((update(p_half) - step_cpu).norm() / step_cpu.norm())
+    diff = max(float((p_gpu[l][n].cpu() - p_cpu[l][n]).abs().max()) for l in init for n in init[l])
+    log(f"metric networks: train_synthnet {steps} steps (batch {kw['batch']}, 64 and 32 px) on "
+        f"the card from its default init in {gpu_s:.2f} s: the update within {rel:.3e} of the "
+        f"CPU's, relative to its norm {float(step_cpu.norm()):.3e} (limit "
+        f"{METRIC_NETS['synth_rtol']}; the control at half the lr {rel_half:.3e}); largest entry "
+        f"difference {diff:.3e}; validation accuracies card {m_gpu} CPU {m_cpu}")
+    if not rel <= METRIC_NETS["synth_rtol"]:
+        fail("train_synthnet on the card differs from the CPU")
+    if rel_half <= METRIC_NETS["synth_rtol"]:
+        fail("the train_synthnet gate passes a run at half the lr")
+
+
+def profiling_phase(torch, build):
+    """``annotate`` spans in a ``trace()`` of one served batch (with its
+    device kernels), ``device_memory_stats()`` nonzero, and ``nan_check``:
+    no false alarm over a UNet sample on the card, a raise on a NaN produced
+    there. Returns the phase's launch counts."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+    from rectified_flow_vision_tpu_torch.serving import SamplerService
+    from rectified_flow_vision_tpu_torch.utils import profiling as prof
+
+    model = BaseFlowModel(image_size=64, seed=SEED, sample_dtype="bfloat16", device="cuda")
+    build.reset_launches()
+    svc = SamplerService(model, step_counts=(4,), batch_size=BATCH, seed=SEED, warmup=False)
+    logdir = ROOT / "build" / "annotate_trace"
+    with prof.trace(str(logdir)):
+        with prof.annotate("rfv_served_batch"):
+            imgs = svc.generate(BATCH, num_steps=4)
+    events = json.loads((logdir / "trace.json").read_text())["traceEvents"]
+    spans = [e for e in events if e.get("name") == "rfv_served_batch"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not spans or not kernels or imgs.shape != (BATCH, 3, 64, 64):
+        fail(f"trace: {len(spans)} annotate spans, {len(kernels)} device kernels")
+    stats = prof.device_memory_stats()
+    dev = stats.get("cuda:0", {})
+    if not (dev.get("bytes_in_use", 0) > 0 and dev.get("peak_bytes_in_use", 0) > 0):
+        fail(f"device_memory_stats() read {stats}")
+    t0 = time.perf_counter()
+    with prof.nan_check():
+        clean = model.sample(batch_size=4, num_steps=1)
+    check_s = time.perf_counter() - t0
+    if not torch.isfinite(clean).all():
+        fail("the sample under nan_check is not finite")
+    try:
+        with prof.nan_check():
+            torch.log(-torch.ones(4, device="cuda"))
+        fail("nan_check did not raise on a NaN produced on the card")
+    except FloatingPointError as e:
+        raised = str(e)
+    launches = dict(build.LAUNCHES)
+    log(f"profiling: the annotate span 'rfv_served_batch' in trace.json with {len(kernels)} "
+        f"device kernels ({len(spans)} span); device_memory_stats {stats}; nan_check: a 1-step "
+        f"sample of 4 under it in {check_s:.2f} s, no alarm; a NaN on the card raised "
+        f"FloatingPointError ({raised}); launches {nonzero(launches)}")
+    expect = all_counts(build, **{k: v * 5 for k, v in EVAL_FORWARD_LAUNCHES.items()})
+    if launches != expect:
+        fail(f"profiling launches {launches}, expected {expect} (5 forwards)")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1995,6 +2605,13 @@ def main() -> None:
     train_launches, trained, data = train_phase(torch, build)
     train_timing_phase(torch, build, trained, data)
     del trained, data
+    torch.cuda.empty_cache()
+    phase("UNet resume, HTTP, metric networks, profiling")
+    resume_launches = resume_phase(torch, build)
+    torch.cuda.empty_cache()
+    http_launches = http_phase(torch, build)
+    metric_nets_phase(torch)
+    profiling_launches = profiling_phase(torch, build)
     torch.cuda.empty_cache()
     phase("dropout, DiT models")
     dropout_launches = dropout_phase(torch, build)
@@ -2118,7 +2735,8 @@ def main() -> None:
                "dropout_direct": dropout_launches, "latent_serve": latent_serve_launches,
                "latent_train": latent_train_launches, "cli": cli_launches,
                "dit_head_192": dit_wide_launches, "dit_head_384": dit_384_launches,
-               "dit_train_f32": dit_f32_launches}
+               "dit_train_f32": dit_f32_launches, "unet_resume": resume_launches,
+               "http": http_launches, "profiling": profiling_launches}
     # the wrapper whose kernel-phase rows an entry reads, where it is not the entry's own name
     row_names = {f"flash_attention_{route}{part}": f"flash_attention{part}"
                  for route in ("wide", "streamed", "f32", "f32_wide")

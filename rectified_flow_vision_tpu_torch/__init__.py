@@ -18,7 +18,12 @@ attention, ``LatentFlowPipeline``, latent serving through
 (``load_config``, ``quick_overlay``), synthetic data, the two training
 experiments, the benchmark with its metrics (``MetricsCalculator``) and
 report, and the CLI (``python -m rectified_flow_vision_tpu_torch``, or
-``rectified_flow_vision_tpu_torch.main.main(argv)``).
+``rectified_flow_vision_tpu_torch.main.main(argv)``), and the rest of the
+public API: resume of both trainers (``resume_dir``,
+``utils.train_state.TrainStateManager``), ``utils.checkpoint.AsyncSaver``,
+the HTTP front end (``serving_http``), the LPIPS and InceptionV3 networks,
+SynthNet training, the generation-speed helpers, ``.pt`` export and the
+profiling hooks. Meshes and the Winograd conv are not ported yet.
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
 

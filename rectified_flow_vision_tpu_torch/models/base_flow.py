@@ -25,8 +25,10 @@ pass ``data_format="NHWC"`` to stay in the internal layout.
 
 Randomness is explicit: the loss draws noise, times and dropout seeds from a
 ``torch.Generator`` on the model's device (or takes them as arguments), and
-the trainers seed one generator per epoch, so a seed fixes the trajectory.
-Resume and meshes come with later slices.
+the trainers seed one generator per epoch, so a seed fixes the trajectory
+and a run resumed from its saved train state (``resume_dir``,
+``utils/train_state.py``) repeats the uninterrupted one. Meshes come with a
+later slice.
 """
 
 from __future__ import annotations
@@ -492,6 +494,16 @@ class FlowOptimizer:
         self.adamw.step()
         self.step_count += 1
 
+    def state_dict(self) -> Dict[str, Any]:
+        """``step_count`` (the schedule's position) beside AdamW's state."""
+        return {"step_count": self.step_count, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore ``state_dict()``; AdamW moves its moments onto the
+        parameters' device (and a fused AdamW its ``step`` counts too)."""
+        self.step_count = int(state["step_count"])
+        self.adamw.load_state_dict(state["adamw"])
+
 
 def make_optimizer(
     model: BaseFlowModel, lr: float, epochs: int, steps_per_epoch: int,
@@ -595,16 +607,37 @@ DEVICE_EPOCH_MAX_BYTES = 2 * 1024**3
 def reject_unported(**options) -> None:
     """Raise for a trainer option whose module is not ported yet, naming the
     ROADMAP item that holds it."""
-    items = {
-        "mesh": "A9 (parallelism)",
-        "fsdp": "A9 (parallelism)",
-        "resume_dir": "A7 (checkpoint, resume)",
-    }
+    items = {"mesh": "A9 (parallelism)", "fsdp": "A9 (parallelism)"}
     for name, value in options.items():
         if value:
             raise NotImplementedError(
                 f"{name} is not ported to PyTorch yet: ROADMAP.md item {items[name]}"
             )
+
+
+def restore_train_state(
+    resume_dir: str, model: BaseFlowModel, opt: FlowOptimizer, use_ema: bool, what: str
+):
+    """The resume of both trainers: open ``resume_dir``'s ``TrainStateManager``
+    and load its latest state, if any, into ``model`` and ``opt`` in place.
+
+    Returns ``(manager, losses, start_epoch, ema)``. A restored EMA is dropped
+    when ``use_ema`` is off (a run that had one resumed without); None means
+    the caller seeds a fresh EMA from the current, possibly restored, params.
+    """
+    from rectified_flow_vision_tpu_torch.utils.train_state import TrainStateManager
+
+    mgr = TrainStateManager(resume_dir)
+    restored = mgr.restore()
+    if restored is None:
+        return mgr, [], 0, None
+    params, opt_state, losses, start_epoch, ema = restored
+    model.load_state_dict(params)
+    opt.load_state_dict(opt_state)
+    log.info("Resumed %s training from epoch %d (%s)", what, start_epoch, resume_dir)
+    if not use_ema or ema is None:
+        return mgr, losses, start_epoch, None
+    return mgr, losses, start_epoch, {k: v.to(model.device) for k, v in ema.items()}
 
 
 def epoch_generator(model: BaseFlowModel, seed: int, epoch: int) -> torch.Generator:
@@ -655,9 +688,13 @@ def train_base_flow(
     and reads the losses once per epoch. ``use_native_loader`` takes the
     dataset's C++ prefetching loader (``data/native_loader.py``); without its
     library it logs a warning and uses Python batches, as the JAX trainer
-    does. ``mesh``, ``fsdp`` and ``resume_dir`` are not ported yet and raise.
+    does. With ``resume_dir`` the full train state (weights, optimizer and
+    schedule, losses, EMA) is saved there every ``save_every`` epochs and at
+    the end, and a run restarts from the latest saved epoch: epoch ``k``
+    draws from its own generator and permutation, so a resumed run repeats
+    the uninterrupted one. ``mesh`` and ``fsdp`` are not ported yet and raise.
     """
-    reject_unported(mesh=mesh, fsdp=fsdp, resume_dir=resume_dir)
+    reject_unported(mesh=mesh, fsdp=fsdp)
     device = model.device
     is_dataset = hasattr(dataloader, "batches") and hasattr(dataloader, "num_batches")
     native = None
@@ -684,7 +721,12 @@ def train_base_flow(
 
     opt = make_optimizer(model, lr, epochs, steps_per_epoch, warmup_epochs)
     use_ema = ema_decay is not None and ema_decay > 0
-    ema = init_ema(model) if use_ema else None
+    state_mgr, losses, start_epoch, ema = None, [], 0, None
+    if resume_dir is not None:
+        state_mgr, losses, start_epoch, ema = restore_train_state(
+            resume_dir, model, opt, use_ema, "base flow")
+    if use_ema and ema is None:
+        ema = init_ema(model)
     step_kwargs = dict(coupled=False, ema=ema, ema_decay=ema_decay if use_ema else None)
 
     corpus_host = getattr(dataloader, "images", None) if is_dataset else None
@@ -704,8 +746,7 @@ def train_base_flow(
     else:
         train_step = make_train_step(model, opt, **step_kwargs)
 
-    losses: List[float] = []
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         gen = epoch_generator(model, seed, epoch)
         t0 = time.time()
         if device_epoch:
@@ -742,9 +783,21 @@ def train_base_flow(
             )
         if save_path and (epoch + 1) % save_every == 0:
             save_epoch_checkpoints(model, ema, save_path, f"epoch{epoch + 1}", ckpt_ext)
+        if state_mgr is not None and (epoch + 1) % save_every == 0:
+            state_mgr.save(epoch, model.state_dict(), opt.state_dict(), losses, ema=ema)
 
     if native is not None:
         native.close()
     if save_path:
         save_epoch_checkpoints(model, ema, save_path, "final", ckpt_ext)
+    if state_mgr is not None:
+        close_train_state(state_mgr, model, opt, losses, ema, start_epoch, epochs)
     return losses
+
+
+def close_train_state(state_mgr, model, opt, losses, ema, start_epoch: int, epochs: int) -> None:
+    """The trainers' last state save (when this run trained an epoch), then
+    wait for it to be committed."""
+    if epochs > start_epoch:
+        state_mgr.save(epochs - 1, model.state_dict(), opt.state_dict(), losses, ema=ema)
+    state_mgr.close()

@@ -31,12 +31,14 @@ from rectified_flow_vision_tpu_torch.models.base_flow import (
     DEVICE_EPOCH_MAX_BYTES,
     BaseFlowModel,
     _to_nhwc,
+    close_train_state,
     epoch_generator,
     init_ema,
     make_optimizer,
     make_train_epoch,
     make_train_step,
     reject_unported,
+    restore_train_state,
     save_epoch_checkpoints,
 )
 from rectified_flow_vision_tpu_torch.utils import checkpoint as ckpt_io
@@ -218,8 +220,9 @@ def train_rectified_flow(
     loss on (x0, x1) pairs with t ~ U[0, 1] by default (``time_sampling``
     selects logit_normal / u_shaped). With ``ema_decay`` an EMA of the student
     is carried and written as ``*_ema_*``: the weights to sample from.
-    ``mesh``, ``fsdp`` and ``resume_dir`` are not ported yet and raise."""
-    reject_unported(mesh=mesh, fsdp=fsdp, resume_dir=resume_dir)
+    ``resume_dir`` saves and restores the full train state, as in
+    ``train_base_flow``. ``mesh`` and ``fsdp`` are not ported yet and raise."""
+    reject_unported(mesh=mesh, fsdp=fsdp)
     device = model.device
     x0_data = _to_nhwc(x0_data, data_format, device).float()
     x1_data = _to_nhwc(x1_data, data_format, device).float()
@@ -230,7 +233,12 @@ def train_rectified_flow(
     steps_per_epoch = max(n // batch_size, 1)
     opt = make_optimizer(model, lr, epochs, steps_per_epoch)
     use_ema = ema_decay is not None and ema_decay > 0
-    ema = init_ema(model) if use_ema else None
+    state_mgr, losses, start_epoch, ema = None, [], 0, None
+    if resume_dir is not None:
+        state_mgr, losses, start_epoch, ema = restore_train_state(
+            resume_dir, model, opt, use_ema, "reflow")
+    if use_ema and ema is None:
+        ema = init_ema(model)
     step_kwargs = dict(
         coupled=True, ema=ema, ema_decay=ema_decay if use_ema else None,
         time_sampling=time_sampling,
@@ -245,8 +253,7 @@ def train_rectified_flow(
         # the per-step path keeps the pairs on the host and uploads each batch
         x0_host, x1_host = x0_data.cpu(), x1_data.cpu()
 
-    losses: List[float] = []
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         order = np.random.default_rng(seed * 99991 + epoch).permutation(n)
         gen = epoch_generator(model, seed, epoch)
         t0 = time.time()
@@ -271,9 +278,13 @@ def train_rectified_flow(
             )
         if save_path and (epoch + 1) % save_every == 0:
             save_epoch_checkpoints(model, ema, save_path, f"epoch{epoch + 1}", ckpt_ext)
+        if state_mgr is not None and (epoch + 1) % save_every == 0:
+            state_mgr.save(epoch, model.state_dict(), opt.state_dict(), losses, ema=ema)
 
     if save_path:
         save_epoch_checkpoints(model, ema, save_path, "final", ckpt_ext)
+    if state_mgr is not None:
+        close_train_state(state_mgr, model, opt, losses, ema, start_epoch, epochs)
     return losses
 
 

@@ -10,12 +10,33 @@ does.
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Iterator
 
 import torch
 import torch.nn.functional as F
 
 Tensor = torch.Tensor
+
+
+@contextlib.contextmanager
+def exact_fp32() -> Iterator[None]:
+    """cuDNN convolutions and cuBLAS matmuls in exact fp32 (TF32 off) inside,
+    the previous settings back on exit. The metric networks (SynthNet, LPIPS,
+    InceptionV3) run under it, so that a card computes what the CPU does up
+    to summation order whatever the process's TF32 defaults are (cuDNN's is
+    on)."""
+    cudnn = torch.backends.cudnn
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = prev
 
 
 def conv2d(x: Tensor, w: Tensor, b: Tensor, *, stride: int = 1) -> Tensor:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import os
 from io import BytesIO
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -130,3 +130,22 @@ def download_data(use_online: bool = True, config_path: Optional[str] = None) ->
 
     log.info("Data saved in: %s", save_dir)
     log.info("Total images: %d", len(os.listdir(save_dir)))
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    """CLI: ``python -m rectified_flow_vision_tpu_torch.utils.download_data
+    [--offline]`` fills the default config's data directory."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Download / generate mock images")
+    parser.add_argument(
+        "--offline",
+        action="store_true",
+        help="Generate synthetic images without a network connection",
+    )
+    args = parser.parse_args(argv)
+    download_data(use_online=not args.offline)
+
+
+if __name__ == "__main__":
+    main()

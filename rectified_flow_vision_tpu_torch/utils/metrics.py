@@ -5,24 +5,27 @@ the same numpy / scipy statistics on the same features, with the same
 soft-fallback contract:
 
 * SSIM: the scikit-image-compatible ``utils/ssim.py``;
-* perceptual distance: pretrained LPIPS when ``weights/lpips_alex.npz``
-  exists, else the SynthNet stand-in on the committed
-  ``weights/synthnet.npz``, else NaN; its nearest-neighbour precision and
-  recall over unpaired sets carry percentile bootstrap CIs;
+* perceptual distance: pretrained LPIPS (``utils/lpips.py``) when
+  ``weights/lpips_alex.npz`` exists, else the SynthNet stand-in on the
+  committed ``weights/synthnet.npz``, else NaN; its nearest-neighbour
+  precision and recall over unpaired sets carry percentile bootstrap CIs;
 * FID: raw flattened pixels by default (the reference's "simplified FID"),
   computed through the n x n Gram identity when d > n, or over a feature
-  backbone; ``compute_fid_deep_ci`` adds a bootstrap CI over the generated
-  set.
+  backbone (InceptionV3 pool3, ``utils/inception.py``, when
+  ``weights/inception_v3.npz`` exists, else SynthNet's);
+  ``compute_fid_deep_ci`` adds a bootstrap CI over the generated set;
+* speed: ``compute_generation_speed`` (a warm-up call, then each timed run
+  ended by ``torch.cuda.synchronize``, the counterpart of JAX's
+  ``block_until_ready``) and ``benchmark_models``, base against rectified.
 
 The feature backbones run on ``device`` (the card by default); the
-statistics run on the host in float64. The JAX package's generation-speed
-helpers (``compute_generation_speed``, ``benchmark_models``) are not ported:
-the benchmark times the samplers itself.
+statistics run on the host in float64.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -385,3 +388,96 @@ class MetricsCalculator:
         ]
         lo, hi = np.percentile(reps, [100 * alpha / 2, 100 * (1 - alpha / 2)])
         return {"fid": float(fid), "lo": float(lo), "hi": float(hi), "n": n}
+
+    # ---- speed -------------------------------------------------------------
+
+    def compute_generation_speed(
+        self,
+        model,
+        num_samples: int,
+        num_steps: int,
+        batch_size: Optional[int] = None,
+        num_runs: int = 5,
+        image_size: int = 64,
+    ) -> Dict[str, float]:
+        """Throughput of ``model.sample`` on the model's device (reference:
+        metrics.py:118-172).
+
+        The first run is preceded by a warm-up call (it builds the kernels);
+        every timed run ends with ``torch.cuda.synchronize`` on a card, so
+        queued launches cannot hide work. ``batch_size=None`` takes 64 on a
+        card and 4 on the CPU (the reference's batch 1 measures per-call
+        dispatch on an accelerator, not generation speed).
+        """
+        device = model.device
+        on_card = device.type == "cuda"
+        if batch_size is None:
+            batch_size = max(min(num_samples, 64 if on_card else 4), 1)
+        shape = (batch_size, image_size, image_size, model.in_channels)
+        gen = torch.Generator(device=device).manual_seed(0)
+
+        def run_batch():
+            noise = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+            return model.sample(noise=noise, num_steps=num_steps, data_format="NHWC")
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize(device)
+
+        times: List[float] = []
+        for run in range(num_runs):
+            if run == 0:  # warm-up: builds the kernels
+                run_batch()
+                sync()
+            start = time.perf_counter()
+            for _ in range(0, num_samples, batch_size):
+                run_batch()
+            sync()
+            times.append(time.perf_counter() - start)
+
+        total_time = float(np.mean(times))
+        return {
+            "total_time": total_time,
+            "time_per_image": total_time / num_samples,
+            "images_per_second": num_samples / total_time,
+            "time_std": float(np.std(times)),
+            "num_steps": num_steps,
+            "num_samples": num_samples,
+        }
+
+
+def benchmark_models(
+    base_model,
+    rectified_model,
+    steps_list: List[int],
+    num_samples: int = 50,
+    image_size: int = 64,
+    device: str | torch.device = "cuda",
+) -> Dict:
+    """Side-by-side speed benchmark (reference: utils/metrics.py:175-223);
+    each model samples on its own device."""
+    calc = MetricsCalculator(device)
+    results: Dict[str, list] = {"base_model": [], "rectified_model": []}
+
+    print("\n" + "=" * 60)
+    print("BENCHMARK: Base Model vs Rectified Model")
+    print("=" * 60)
+
+    for num_steps in steps_list:
+        base_speed = calc.compute_generation_speed(
+            base_model, num_samples, num_steps, image_size=image_size
+        )
+        base_speed["model"] = "base"
+        results["base_model"].append(base_speed)
+
+        rect_speed = calc.compute_generation_speed(
+            rectified_model, num_samples, num_steps, image_size=image_size
+        )
+        rect_speed["model"] = "rectified"
+        results["rectified_model"].append(rect_speed)
+
+        print(f"\nSteps: {num_steps}")
+        print(f"  Base:       {base_speed['time_per_image'] * 1000:.2f} ms/img")
+        print(f"  Rectified:  {rect_speed['time_per_image'] * 1000:.2f} ms/img")
+
+    return results

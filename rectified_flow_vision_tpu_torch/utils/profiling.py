@@ -1,17 +1,27 @@
-"""Profiling hook on ``torch.profiler``: ``trace(logdir)``, the port's
-counterpart of the JAX package's ``utils/profiling.trace``, which
-``experiments/benchmark.py`` wraps around a run when ``RFV_PROFILE`` names a
-directory. It records host and device activity and writes it to
-``<logdir>/trace.json`` (chrome trace format; TensorBoard and Perfetto load
-it)."""
+"""Profiling and debugging hooks on ``torch.profiler`` and the dispatcher.
+
+Counterpart of the JAX package's ``utils/profiling.py``:
+
+* ``trace(logdir)``: records host and device activity of the enclosed code
+  into ``<logdir>/trace.json`` (chrome trace format; TensorBoard and
+  Perfetto load it). ``experiments/benchmark.py`` wraps a run in it when
+  ``RFV_PROFILE`` names a directory;
+* ``annotate(name)``: a named span (``torch.profiler.record_function``) that
+  appears under that name in the trace;
+* ``nan_check(enable)``: raises ``FloatingPointError`` where an op produces
+  a NaN, as ``jax_debug_nans`` does; restores the previous state on exit;
+* ``device_memory_stats()``: bytes in use and their peak per CUDA device.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from pathlib import Path
-from typing import Iterator
+from typing import Dict, Iterator
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 @contextlib.contextmanager
@@ -27,3 +37,69 @@ def trace(logdir: str = "logs/torch_trace") -> Iterator[None]:
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
+
+
+def annotate(name: str):
+    """Named span shown inside profiler traces."""
+    return torch.profiler.record_function(name)
+
+
+# Ops whose output is uninitialised memory (or a tensor made from another's
+# storage), which may hold NaN bits that no computation produced.
+_UNINITIALISED = ("empty", "new_empty", "empty_like", "empty_strided", "set_", "resize_")
+
+_NAN_STATE = threading.local()
+
+
+class _NanCheckMode(TorchDispatchMode):
+    """Checks every floating output of every ATen op for NaN while
+    ``nan_check`` is on in this thread. The ops inside ``__torch_dispatch__``
+    run below the mode, so the check itself is not checked."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if getattr(_NAN_STATE, "enabled", False) and func.__name__.split(".")[0] not in _UNINITIALISED:
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                        and bool(torch.isnan(t).any())):
+                    raise FloatingPointError(f"NaN produced by {func}")
+        return out
+
+
+@contextlib.contextmanager
+def nan_check(enable: bool = True) -> Iterator[None]:
+    """Raise ``FloatingPointError`` where an op produces a NaN, while active.
+
+    The forward is checked op by op by a dispatch mode (each check reads one
+    flag back from the device, so it serialises a CUDA stream: a debugging
+    tool); the backward by autograd's anomaly mode, which raises where a
+    backward function returns NaN. ``nan_check(False)`` inside an active
+    check turns it off for its body. A hand-written CUDA kernel writes its
+    output outside the dispatcher, so a NaN it makes is caught at the next
+    op that reads it. The previous state comes back on exit.
+    """
+    prev = getattr(_NAN_STATE, "enabled", False)
+    prev_anomaly = torch.is_anomaly_enabled()
+    _NAN_STATE.enabled = enable
+    torch.autograd.set_detect_anomaly(enable)
+    try:
+        with _NanCheckMode() if enable else contextlib.nullcontext():
+            yield
+    finally:
+        _NAN_STATE.enabled = prev
+        torch.autograd.set_detect_anomaly(prev_anomaly)
+
+
+def device_memory_stats() -> Dict[str, Dict[str, int]]:
+    """bytes_in_use / peak_bytes_in_use per CUDA device, from the caching
+    allocator (``torch.cuda.memory_stats``); an empty dict without a card."""
+    if not torch.cuda.is_available():
+        return {}
+    stats = {}
+    for i in range(torch.cuda.device_count()):
+        s = torch.cuda.memory_stats(i)
+        stats[f"cuda:{i}"] = {
+            "bytes_in_use": int(s.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(s.get("allocated_bytes.all.peak", 0)),
+        }
+    return stats

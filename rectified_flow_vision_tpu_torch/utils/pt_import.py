@@ -283,6 +283,24 @@ def params_to_state_dict(
     return out
 
 
+def export_pt_checkpoint(model, path) -> None:
+    """Save a UNet flow model as a reference-compatible torch ``.pt``
+    checkpoint: ``{"state_dict", "config": {"image_size", "in_channels"}}``,
+    the state dict the reference's ``BaseFlowModel`` loads."""
+    import torch
+
+    net = model.velocity_net
+    sd = params_to_state_dict(model.params, list(net.channel_mult), net.num_res_blocks)
+    torch.save(
+        {
+            "state_dict": {k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+            "config": {"image_size": model.image_size, "in_channels": model.in_channels},
+        },
+        str(path),
+    )
+    print(f"Model exported to torch checkpoint: {path}")
+
+
 # ---------------------------------------------------------------------------
 # Trees whose module names are the tree's own keys (DiT, ConvVAE)
 # ---------------------------------------------------------------------------

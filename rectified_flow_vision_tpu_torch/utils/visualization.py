@@ -31,21 +31,15 @@ def _to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _pyplot(save_path: Optional[str]):
-    """matplotlib's pyplot on the headless Agg backend with the reference's
-    style (reference: visualization.py:14-20), or None, after one warning
-    naming the figure that is not written, where matplotlib is absent."""
-    try:
-        import matplotlib
+def setup_plot_style():
+    """Configure matplotlib's style (reference: visualization.py:14-20) on
+    the headless Agg backend and return pyplot; raises ImportError where
+    matplotlib is not installed."""
+    import matplotlib
 
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-    except ImportError:
-        log.warning(
-            "matplotlib is not installed: %s not written (the CSVs and "
-            "benchmark_report.txt carry every number)", save_path,
-        )
-        return None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
     try:
         plt.style.use("seaborn-v0_8-whitegrid")
     except OSError:
@@ -55,6 +49,19 @@ def _pyplot(save_path: Optional[str]):
     plt.rcParams["axes.labelsize"] = 14
     plt.rcParams["axes.titlesize"] = 16
     return plt
+
+
+def _pyplot(save_path: Optional[str]):
+    """pyplot with the reference's style, or None, after one warning naming
+    the figure that is not written, where matplotlib is absent."""
+    try:
+        return setup_plot_style()
+    except ImportError:
+        log.warning(
+            "matplotlib is not installed: %s not written (the CSVs and "
+            "benchmark_report.txt carry every number)", save_path,
+        )
+        return None
 
 
 def _save(plt, fig, save_path: Optional[str]) -> None:

@@ -95,10 +95,8 @@ def test_kernel_sources_are_listed():
     [
         ("base", dict(mesh=object()), "A9"),
         ("base", dict(fsdp=True), "A9"),
-        ("base", dict(resume_dir="state"), "A7"),
         ("reflow", dict(mesh=object()), "A9"),
         ("reflow", dict(fsdp=True), "A9"),
-        ("reflow", dict(resume_dir="state"), "A7"),
         ("dit", dict(mesh=object()), "A9"),
         ("dit", dict(seq_axis="seq"), "A9"),
         ("dit", dict(pipeline_apply=True), "A9"),

@@ -140,13 +140,25 @@ def test_both_packages_choose_synthnet_without_lpips_and_inception_weights(calcs
         TI.InceptionV3Features.load_default("cpu")
 
 
-def test_present_lpips_or_inception_weights_raise_rather_than_substitute(tmp_path,
-                                                                         monkeypatch):
+def test_present_lpips_or_inception_weights_load_the_network(tmp_path, monkeypatch):
+    """A weight file present is loaded, never substituted: load_default
+    returns the network with those arrays."""
+    lp, cin = {}, 3
+    for i, (k, _, _, cout, _) in enumerate(TL._ALEX_LAYERS):
+        lp.update({f"conv{i}_w": np.zeros((k, k, cin, cout), np.float32),
+                   f"conv{i}_b": np.zeros(cout, np.float32),
+                   f"lin{i}_w": np.full(cout, i, np.float32)})
+        cin = cout
+    files = {TL: lp, TI: TI.synthetic_weights(0)}
     for mod, cls in ((TL, TL.LPIPS), (TI, TI.InceptionV3Features)):
-        (tmp_path / "w.npz").write_bytes(b"")
-        monkeypatch.setattr(mod, "DEFAULT_WEIGHTS_PATH", tmp_path / "w.npz")
-        with pytest.raises(NotImplementedError, match="A5"):
-            cls.load_default("cpu")
+        np.savez(tmp_path / f"{mod.__name__}.npz", **files[mod])
+        monkeypatch.setattr(mod, "DEFAULT_WEIGHTS_PATH", tmp_path / f"{mod.__name__}.npz")
+        net = cls.load_default("cpu")
+        assert isinstance(net, cls)
+    assert [float(w.mean()) for w in TL.LPIPS.load_default("cpu").lins] == [0, 1, 2, 3, 4]
+    w = TI.InceptionV3Features.load_default("cpu").w["Conv2d_1a_3x3.w"]
+    np.testing.assert_array_equal(
+        w.permute(2, 3, 1, 0).numpy(), TI.synthetic_weights(0)["Conv2d_1a_3x3.w"])
 
 
 def test_fid_raw_pixels_matches(calcs, sets):
