@@ -132,6 +132,29 @@ card, outside a checkout, or when any phase fails. Phases, in order:
     report and its conclusions, and the benchmark's img/s at 1, 2 and 4 steps
     beside the serve phase's ``throughput(4)``.
 
+15. parallel (``PARALLEL``): (a) a process group of one rank over NCCL in
+    this process: explicit one-device meshes through ``make_train_step``
+    (DP, FSDP2, FSDP2 x TP; flagship UNet, batch 64, fp32) and
+    ``SamplerService(mesh=)`` (batch 256, 4 steps), each against no mesh on
+    the card with its img/s beside the no-mesh img/s and exact launch
+    counts; ``ring_attention_sharded`` on one rank against the flash kernel;
+    a one-stage ``pipeline_apply`` of DiT-S/2 against its plain forward; the
+    tensor-parallel forms of the attention-block kernel (a rank's heads, no
+    residual) and of the dropout kernels (a rank's channel slice, its mask
+    bits those of the whole activation) against their plain versions. (b)
+    two gloo ranks spawned on the one card, holding CUDA tensors: DP, TP
+    (dropout 0.1) and FSDP train steps of the flagship UNet (fp32, batch 64
+    global), a sequence-parallel DiT-S/2 step and a two-stage pipeline step
+    (depth 2), each against the single-rank result on the card within the
+    CPU tests' tolerances, each rank held to its exact kernel launches. Any
+    exception fails the phase. The ring and the pipeline run only where
+    ``ppermute`` of CUDA tensors over gloo gives the right values; where
+    gloo's TCP transport refuses them (``writev`` / ``readv`` of the device
+    pointer: "Bad address", the rank aborted) they are logged as not run,
+    with that error, after ``ppermute`` of CPU tensors gave the right values
+    (NCCL refuses two ranks on one card; more than one card is unproven
+    here).
+
 Every number is printed; the last two lines of standard output are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``. The profiler
 traces are kept in ``build/*_trace.json`` (chrome trace format); checkpoints
@@ -142,6 +165,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -2338,7 +2363,6 @@ def http_module_phase(torch, model) -> None:
     """``python -m rectified_flow_vision_tpu_torch.serving_http`` on a saved
     checkpoint, in its own process on the card: it answers /healthz and one
     request, then stops at SIGINT."""
-    import re
     import signal
 
     ckpt = ROOT / "build" / "http_smoke" / "flow.npz"
@@ -2552,6 +2576,591 @@ def profiling_phase(torch, build):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 15. parallel
+# ---------------------------------------------------------------------------
+
+# Phase 15: the parallel paths. (a) in this process, a process group of one
+# rank over NCCL: explicit one-device meshes through make_train_step (DP,
+# FSDP2, FSDP2 x TP) at the flagship's width, batch 64, fp32 compute (in
+# bf16 an FSDP2 step's gradients differ from no mesh's by bf16 roundings,
+# found on the CPU, and AdamW's first step turns such a difference on an
+# entry near zero into 2 lr), SamplerService(mesh=) at batch 256 in bf16,
+# ring attention
+# and a one-stage pipeline of DiT-S/2, each against the no-mesh path on the
+# card, with img/s beside the no-mesh img/s; the tensor-parallel forms of the
+# attention-block and dropout kernels against their plain versions. (b) two
+# gloo ranks spawned on the one card, holding CUDA tensors: DP, TP (dropout
+# 0.1: the ranks' channel-keyed masks) and FSDP train steps of the flagship
+# UNet (fp32, batch 64 global), a sequence-parallel DiT-S/2 step and a
+# two-stage pipeline step (depth 2), each against the single-rank result on
+# the card within the CPU tests' tolerances. NCCL refuses two ranks on one
+# card, so (b) runs over gloo, the train steps in one pair of processes and
+# ppermute, the ring and the pipeline in another (gloo's refusal of send /
+# recv of CUDA tensors aborts a rank).
+PARALLEL = dict(batch=64, timing_steps=4, serve_batch=256, dit_batch=2, dit_depth=2,
+                pipe_batch=4, microbatches=2, spawn_timeout=420)
+# the CPU tests' tolerances (tests/test_torch_parallel_*.py): train step
+# loss rel 1e-5, weights rtol 5e-3 / atol 1e-4; sequence-parallel DiT
+# forward 1e-4, loss and gradients 1e-5; pipeline 2e-4
+PAR_LOSS_RTOL, PAR_W_RTOL, PAR_W_ATOL = 1e-5, 5e-3, 1e-4
+PAR_SEQ_FWD, PAR_SEQ_GRAD, PAR_PIPE = 1e-4, 1e-5, 2e-4
+# gloo's TCP transport given a CUDA tensor's pointer (EFAULT)
+GLOO_CUDA_P2P = r"gloo/transport/tcp/pair\.cc:\d+\] (?:writev|readv|read|write) \S+: Bad address"
+PAR_UNET_CASES = {"dp2": dict(dp=2, tp=1, fsdp=False, dropout=0.0),
+                  "tp2": dict(dp=1, tp=2, fsdp=False, dropout=0.1),
+                  "fsdp2": dict(dp=2, tp=1, fsdp=True, dropout=0.0)}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _unet_inputs():
+    r = np.random.default_rng(SEED + 15)
+    b = PARALLEL["batch"]
+    x0 = r.standard_normal((b, 64, 64, 3)).astype(np.float32)
+    return x0, make_corpus(b), r.random(b).astype(np.float32)
+
+
+def _dit_cfg():
+    return dict(DIT, depth=PARALLEL["dit_depth"], dit_size=None, hidden_size=384, num_heads=6,
+                remat=False, sample_dtype="float32")
+
+
+def _dit_inputs(b):
+    r = np.random.default_rng(SEED + 16)
+    return tuple(r.standard_normal((b, 64, 64, 4)).astype(np.float32) for _ in range(2)) + (
+        r.random(b).astype(np.float32),)
+
+
+def _unet_step(torch, case, mesh, x0, x1, t):
+    """One coupled fp32 train step of the flagship UNet (seeded weights) on
+    this rank's rows; the global loss and the whole weights as numpy."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+    from rectified_flow_vision_tpu_torch.models import base_flow as BF
+    from rectified_flow_vision_tpu_torch.parallel import mesh as M
+
+    model = BaseFlowModel(image_size=64, seed=SEED, dropout=case["dropout"], device="cuda")
+    if mesh is not None:
+        M.place_params(mesh, model, fsdp=case["fsdp"])
+    opt = BF.make_optimizer(model, TRAIN["lr"], 1, 1, mesh=mesh)
+    step = BF.make_train_step(model, opt, coupled=True, mesh=mesh)
+    rows = [M.shard_batch(mesh, torch.as_tensor(a, device="cuda")) for a in (x0, x1)]
+    with mock.patch.object(BF, "sample_times", lambda *a, **k: torch.as_tensor(t, device="cuda")):
+        loss = float(step(tuple(rows), torch.Generator(device="cuda").manual_seed(SEED)))
+    return loss, {k: v.detach().cpu().numpy() for k, v in
+                  (M.full_state_dict(model) if mesh is not None else model.state_dict()).items()}
+
+
+def _dit_model(torch):
+    """DiT-S/2 at phase 15's depth, seeded weights, all moved off adaLN-Zero's
+    zeros, fp32."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+
+    model = BaseFlowModel(seed=SEED, device="cuda", **_dit_cfg())
+    randomize_zero_leaves(torch, model, SEED + 17)
+    return model
+
+
+def _dit_seq(torch, mesh, x1, x0, t, model=None):
+    """The DiT's (``_dit_model``) velocity, flow loss and every gradient,
+    with the tokens split over ``mesh``'s seq dim when given."""
+    model = model or _dit_model(torch)
+    net = model.velocity_net
+    x1, x0, t = (torch.as_tensor(a, device="cuda") for a in (x1, x0, t))
+    x_t, target = model.get_interpolation(x0, x1, t)
+    kw = dict(mesh=mesh, seq_axis="seq") if mesh is not None else {}
+    pred = net(x_t, t, masters=True, **kw)
+    loss = torch.mean(torch.square(pred - target))
+    named = dict(net.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return (pred.detach().cpu().numpy(), float(loss.detach()),
+            {k: g.cpu().numpy() for k, g in zip(named, grads)})
+
+
+def _dit_pipe(torch, mesh, x, tx, x1, x0, t):
+    """DiT-S/2 (depth 2) through ``pipeline_apply`` on ``mesh``'s stage dim:
+    the forward, then the pipeline loss's gradients (this stage's blocks, as
+    block-index names, and the rest)."""
+    from rectified_flow_vision_tpu_torch.parallel import pipeline as PP
+
+    net = _dit_model(torch).velocity_net
+    x, tx, x1, x0, t = (torch.as_tensor(a, device="cuda") for a in (x, tx, x1, x0, t))
+    with torch.no_grad():
+        fwd = net.pipeline_apply(x, tx, mesh, num_microbatches=PARALLEL["microbatches"])
+    _, loss_fn = PP.make_pipeline_train_step(net, lambda ps: torch.optim.SGD(ps, lr=0.0), mesh,
+                                             num_microbatches=PARALLEL["microbatches"])
+    rest, blocks = PP.split_pipeline_params(net, mesh)
+    loss = loss_fn(rest, blocks, x1, x0, t)
+    leaves = {**rest, **{f"stage.{k}": v for k, v in blocks.items()}}
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    stage = mesh.get_local_rank("stage")
+    out = {k: g.cpu().numpy() for k, g in grads.items() if not k.startswith("stage.")}
+    for k, g in grads.items():
+        if k.startswith("stage."):
+            per = g.shape[1]
+            for j in range(per):
+                out[f"blocks.{stage * per + j}.{k[6:]}"] = g[0, j].cpu().numpy()
+    return fwd.cpu().numpy(), float(loss.detach()), out
+
+
+def _parallel_rank(part, rank, world, store, out_dir, inputs):
+    """One of phase 15's two gloo ranks on the card, for ``part``: "steps"
+    (the UNet's DP, TP and FSDP train steps) or "p2p" (``ppermute`` of CPU,
+    then of CUDA tensors; ring attention and the pipeline where both ranks
+    got the right values). Each check's result or exception, and its kernel
+    launches, go to ``{part}_rank{R}.pkl`` as each check ends, and the
+    rank's standard error to ``{part}_rank{R}.err`` (an error in gloo's
+    transport thread aborts the process); the parent judges them."""
+    import faulthandler
+    import os
+    import pickle
+    import traceback
+
+    err = open(Path(out_dir) / f"{part}_rank{rank}.err", "w")
+    os.dup2(err.fileno(), 2)  # native aborts too
+    faulthandler.enable()  # a crash in native code prints where it was
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, str(ROOT))
+    from rectified_flow_vision_tpu_torch.ops import build
+    from rectified_flow_vision_tpu_torch.parallel import collectives
+    from rectified_flow_vision_tpu_torch.parallel import mesh as M
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    build.library()  # the parent built it: loaded, not rebuilt
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    results = {}
+
+    def run(fn):
+        try:
+            return dict(ok=True, value=fn())
+        except Exception as exc:
+            return dict(ok=False, reason=f"{type(exc).__name__}: {exc}".splitlines()[0],
+                        trace=traceback.format_exc())
+
+    def save():
+        with open(Path(out_dir) / f"{part}_rank{rank}.pkl", "wb") as f:
+            pickle.dump(results, f)
+
+    def attempt(name, fn):
+        print(f"parallel (b): rank {rank}: {name}", flush=True)
+        build.reset_launches()
+        results[name] = run(lambda: (fn(), torch.cuda.synchronize())[0])
+        results[name]["launches"] = dict(build.LAUNCHES)
+        save()
+        dist.barrier()
+
+    if part == "steps":
+        x0, x1, t = inputs["unet"]
+        for name, case in PAR_UNET_CASES.items():
+            attempt(name, lambda case=case: _unet_step(
+                torch, case, M.create_mesh(case["dp"], case["tp"], device="cuda"), x0, x1, t))
+    else:
+        right = [float((rank - 1) % world)] * 4
+        for dev in ("cpu", "cuda"):
+            results[f"ppermute_{dev}"] = run(lambda: collectives.ppermute(
+                torch.full((4,), float(rank), device=dev), dist.group.WORLD).cpu().tolist())
+            save()
+        ok = torch.tensor([int(all(results[f"ppermute_{d}"].get("value") == right
+                                   for d in ("cpu", "cuda")))])
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        if int(ok):
+            seq = DeviceMesh("cuda", torch.arange(world).reshape(1, world),
+                             mesh_dim_names=("data", "seq"))
+            attempt("dit_seq", lambda: _dit_seq(torch, seq, *inputs["dit_seq"]))
+            stage = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("stage",))
+            attempt("dit_pipe", lambda: _dit_pipe(torch, stage, *inputs["dit_pipe"]))
+    dist.destroy_process_group()
+
+
+def _spawn_pair(part, out, inputs, timeout):
+    """Run ``_parallel_rank(part, ...)`` in two spawned processes: their exit
+    codes, results and standard errors."""
+    import multiprocessing as mp
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_parallel_rank,
+                         args=(part, r, 2, str(out / f"{part}_store"), str(out), inputs))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, timeout - (time.perf_counter() - t0)))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    results, errs = [], []
+    for r in range(2):
+        f = out / f"{part}_rank{r}.pkl"
+        results.append(pickle.loads(f.read_bytes()) if f.exists() else {})
+        e = out / f"{part}_rank{r}.err"
+        errs.append(e.read_text(errors="replace") if e.exists() else "")
+    log(f"parallel (b): two gloo ranks on the card ({part}) ran in "
+        f"{time.perf_counter() - t0:.1f} s (process start and kernel load included)")
+    return [p.exitcode for p in procs], results, errs
+
+
+def _max_diff(got: dict, want: dict) -> float:
+    if set(got) != set(want):
+        fail(f"parallel: parameter names differ: {sorted(set(got) ^ set(want))[:4]}")
+    return max(float(np.abs(got[k] - want[k]).max()) for k in want)
+
+
+def _within(got: dict, want: dict, rtol: float, atol: float) -> bool:
+    return all(np.all(np.abs(got[k] - want[k]) <= atol + rtol * np.abs(want[k])) for k in want)
+
+
+def parallel_tp_kernels(torch) -> None:
+    """The tensor-parallel forms of two kernels against their plain versions:
+    the attention block on one of two ranks' heads without the residual
+    (the flagship mid block, batch 256), and the dropout kernels on one of two
+    ranks' channels of the level-2 norm2 (mask bits of its place in the whole
+    activation: the zeros exactly the plain version's)."""
+    from rectified_flow_vision_tpu_torch.ops import attention as A
+    from rectified_flow_vision_tpu_torch.ops import gn_silu as G
+    from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as D
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 18)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    c, ci = 256, 128
+    for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        x = randn(BATCH, 16, 16, c).to(dt)
+        args = (1 + 0.1 * randn(c), 0.1 * randn(c), (0.05 * randn(3 * ci, c)).to(dt),
+                0.1 * randn(3 * ci), (0.05 * randn(c, ci)).to(dt), torch.zeros(c, device="cuda"))
+        got = A.attention_block_cuda(x, *args, num_heads=2, residual=False)
+        want = A.attention_block_plain(x, *args, num_heads=2, residual=False)
+        rtol, atol = TOLERANCES[("attention_block", dname)]
+        err = float((got.float() - want.float()).abs().max())
+        log(f"parallel: attention_block, 2 heads of 64 (one of 2 ranks), no residual, {dname}: "
+            f"max |kernel - plain| {err:.3e}")
+        if not torch.all((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()):
+            fail(f"parallel: tensor-parallel attention_block {dname} disagrees ({err:.3e})")
+        xs = randn(BATCH, 16, 16, ci, scale=2.0).to(dt)
+        s, b = 1 + 0.1 * randn(ci), 0.1 * randn(ci)
+        for r in range(2):
+            chans = (r * ci, 2 * ci)
+            out, stats = D.gn_silu_dropout_cuda(xs, s, b, 1234, DROP_RATE, num_groups=4,
+                                                channels=chans)
+            plain = D.gn_silu_dropout_plain(xs, s, b, 1234, DROP_RATE, num_groups=4,
+                                            channels=chans)
+            keep = D.keep_mask(xs.shape, 1234, DROP_RATE, xs.device, chans)
+            whole = D.keep_mask((BATCH, 16, 16, 2 * ci), 1234, DROP_RATE, xs.device)
+            if not torch.equal(keep, whole[..., r * ci:(r + 1) * ci]):
+                fail("parallel: a channel slice's mask is not the whole activation's")
+            if not torch.equal(out == 0, ~keep | (plain == 0)):
+                fail(f"parallel: gn_silu_dropout rank {r} {dname}: the kernel's zeros are not "
+                     "the mask's")
+            rtol, atol = TOLERANCES[("gn_silu_dropout", dname)]
+            if not torch.all((out.float() - plain.float()).abs()
+                             <= atol + rtol * plain.float().abs()):
+                fail(f"parallel: gn_silu_dropout rank {r} {dname} disagrees with plain")
+            cot = (out + randn(*out.shape, scale=0.1)).to(dt)
+            got_b = D.gn_silu_dropout_backward_cuda(xs, cot, s, b, stats, 1234, DROP_RATE,
+                                                    num_groups=4, channels=chans)
+            want_b = D.gn_silu_dropout_backward_plain(xs, cot, s, b, G.gn_stats_plain(
+                xs, num_groups=4), 1234, DROP_RATE, num_groups=4, channels=chans)
+            tol = TOLERANCES[("gn_silu_backward", dname)][1]
+            for a, w in zip(got_b, want_b):
+                if float((a.float() - w.float()).abs().max()) > tol * float(w.float().abs().max()):
+                    fail(f"parallel: gn_silu_backward with a channel slice, rank {r} {dname}")
+        log(f"parallel: gn_silu_dropout / gn_silu_backward on both ranks' channel slices "
+            f"(128 of 256), {dname}: masks bit for bit the whole activation's, values within "
+            "the kernel-phase tolerances")
+
+
+def parallel_one_rank(torch, build) -> Counter:
+    """(a): a process group of one rank over NCCL, explicit one-device
+    meshes, against no mesh on the card. Returns the mesh paths' launches
+    (each path's counted from 0)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+    from rectified_flow_vision_tpu_torch.models import base_flow as BF
+    from rectified_flow_vision_tpu_torch.ops import fused
+    from rectified_flow_vision_tpu_torch.parallel import mesh as M
+    from rectified_flow_vision_tpu_torch.parallel.ring_attention import ring_attention_sharded
+    from rectified_flow_vision_tpu_torch.serving import SamplerService
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    total = Counter()
+    try:
+        mesh = M.create_mesh(device="cuda")
+        if dist.get_backend() != "nccl":
+            fail("parallel: the one-rank group is not NCCL")
+        data = torch.as_tensor(make_corpus(PARALLEL["batch"]), device="cuda")
+        runs = {}
+        for kind in ("none", "dp", "fsdp", "fsdp_tp"):
+            model = BaseFlowModel(image_size=64, seed=SEED, device="cuda")
+            m = None if kind == "none" else mesh
+            if m is not None:
+                M.place_params(m, model, fsdp=kind != "dp")
+            opt = BF.make_optimizer(model, TRAIN["lr"], 1000, 1, mesh=m)
+            step = BF.make_train_step(model, opt, coupled=False, mesh=m)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            build.reset_launches()  # this path's launches: one step
+            loss = float(step(data, gen))
+            launches = dict(build.LAUNCHES)
+            if launches != all_counts(build, **TRAIN_STEP_LAUNCHES):
+                fail(f"parallel: one {kind} step launched {launches}")
+            if m is not None:
+                total.update(launches)
+            weights = {k: v.detach().float().cpu().numpy() for k, v in (
+                M.full_state_dict(model) if m is not None else model.state_dict()).items()}
+            rates = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(PARALLEL["timing_steps"]):
+                    step(data, gen)
+                torch.cuda.synchronize()
+                rates.append(PARALLEL["batch"] * PARALLEL["timing_steps"]
+                             / (time.perf_counter() - t0))
+            runs[kind] = (loss, weights, float(np.median(rates)))
+            del model, opt, step
+            torch.cuda.empty_cache()
+        loss0, w0, r0 = runs["none"]
+        for kind in ("dp", "fsdp", "fsdp_tp"):
+            loss, w, r = runs[kind]
+            diff = _max_diff(w, w0)
+            log(f"parallel (a): make_train_step with a one-rank {kind} mesh (NCCL), batch "
+                f"{PARALLEL['batch']}, fp32: loss {loss!r} vs no mesh {loss0!r}; weights after "
+                f"one step max |diff| {diff:.3e}; img/s {r:.2f} vs no mesh {r0:.2f} "
+                f"(overhead {100 * (r0 / r - 1):.1f}%)")
+            if abs(loss - loss0) > PAR_LOSS_RTOL * abs(loss0) or not _within(
+                    w, w0, PAR_W_RTOL, PAR_W_ATOL):
+                fail(f"parallel: the one-rank {kind} step disagrees with no mesh")
+
+        imgs, rates = {}, {}
+        for kind in ("none", "mesh"):
+            model = BaseFlowModel(image_size=64, seed=SEED, device="cuda")
+            svc = SamplerService(model, step_counts=(4,), batch_size=PARALLEL["serve_batch"],
+                                 seed=SEED, mesh=None if kind == "none" else mesh)
+            build.reset_launches()
+            imgs[kind] = svc.generate(PARALLEL["serve_batch"], num_steps=4)
+            launches = dict(build.LAUNCHES)
+            if launches != all_counts(build, **{k: 4 * v for k, v in
+                                                EVAL_FORWARD_LAUNCHES.items()}):
+                fail(f"parallel: the {kind} service's batch launched {launches}")
+            if kind == "mesh":
+                total.update(launches)
+            rates[kind] = float(np.median([svc.throughput(4) for _ in range(3)]))
+            del svc, model
+        if not np.array_equal(imgs["mesh"], imgs["none"]):
+            fail("parallel: SamplerService(mesh=) on one rank differs from no mesh")
+        log(f"parallel (a): SamplerService(mesh=) one rank, batch {PARALLEL['serve_batch']}, 4 "
+            f"steps: images equal to no mesh's; throughput(4) {rates['mesh']:.2f} vs no mesh "
+            f"{rates['none']:.2f} img/s (overhead {100 * (rates['none'] / rates['mesh'] - 1):.1f}%)")
+
+        seq = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("seq",))
+        g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+        q, k, v = (torch.randn(FLASH_BWD_SHAPE, generator=g, device="cuda") for _ in range(3))
+        ring = ring_attention_sharded(q, k, v, seq)
+        flash = fused.flash_attention(q, k, v)
+        err = float((ring - flash).abs().max())
+        ring_ms = time_ms(torch, lambda: ring_attention_sharded(q, k, v, seq), reps=3)
+        flash_ms = time_ms(torch, lambda: fused.flash_attention(q, k, v), reps=3)
+        log(f"parallel (a): ring_attention_sharded on one rank at {FLASH_BWD_SHAPE} fp32 against "
+            f"the flash kernel: max |diff| {err:.3e}; {ring_ms:.2f} ms vs flash {flash_ms:.2f} ms "
+            "(the ring's block product is a plain matmul, as in the JAX package)")
+        if err > 1e-4:
+            fail(f"parallel: one-rank ring attention disagrees with flash ({err:.3e})")
+
+        stage = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("stage",))
+        dit = BaseFlowModel(seed=SEED, device="cuda", **{**DIT, "remat": False,
+                                                         "sample_dtype": "float32"})
+        randomize_zero_leaves(torch, dit, SEED + 17)
+        x = torch.randn((PARALLEL["pipe_batch"], 64, 64, 4), generator=g, device="cuda")
+        tt = torch.linspace(0.1, 0.9, PARALLEL["pipe_batch"], device="cuda")
+        with torch.no_grad():
+            want = dit.velocity_net(x, tt)
+            build.reset_launches()
+            got = dit.velocity_net.pipeline_apply(x, tt, stage,
+                                                  num_microbatches=PARALLEL["microbatches"])
+        launches = dict(build.LAUNCHES)
+        total.update(launches)
+        err = float((got - want).abs().max())
+        with torch.no_grad():
+            pipe_ms = time_ms(torch, lambda: dit.velocity_net.pipeline_apply(
+                x, tt, stage, num_microbatches=PARALLEL["microbatches"]), reps=3)
+            plain_ms = time_ms(torch, lambda: dit.velocity_net(x, tt), reps=3)
+        b = PARALLEL["pipe_batch"]
+        log(f"parallel (a): one-stage pipeline_apply of DiT-S/2 (depth {DIT_DEPTH}, batch {b}, "
+            f"{PARALLEL['microbatches']} microbatches, fp32) against the plain forward: max "
+            f"|diff| {err:.3e}; img/s {1e3 * b / pipe_ms:.2f} vs plain {1e3 * b / plain_ms:.2f}; "
+            f"launches {nonzero(launches)}")
+        if err > PAR_PIPE or launches.get("flash_attention", 0) != (
+                DIT_DEPTH * PARALLEL["microbatches"]):
+            fail(f"parallel: one-stage pipeline ({err:.3e}, launches {launches})")
+        del dit
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+def parallel_two_ranks(torch, build) -> Counter:
+    """(b): two gloo ranks spawned on the one card, against the single-rank
+    result on the card. Returns rank 0's launches in the checks that ran."""
+    import shutil
+
+    x0, x1, t = _unet_inputs()
+    dit_seq = _dit_inputs(PARALLEL["dit_batch"])
+    r = np.random.default_rng(SEED + 20)
+    x = r.standard_normal((PARALLEL["pipe_batch"], 64, 64, 4)).astype(np.float32)
+    tx = np.linspace(0.1, 0.9, PARALLEL["pipe_batch"]).astype(np.float32)
+    dit_pipe = (x, tx, *_dit_inputs(PARALLEL["pipe_batch"]))
+    inputs = dict(unet=(x0, x1, t), dit_seq=dit_seq, dit_pipe=dit_pipe)
+    out = ROOT / "build" / "parallel_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+
+    codes, ranks, errs = _spawn_pair("steps", out, inputs, PARALLEL["spawn_timeout"])
+    if codes != [0, 0]:
+        for e in errs:
+            print(e[-3000:], file=sys.stderr)
+        fail(f"parallel (b): the two ranks of the train steps exited with {codes}")
+    results = ranks[0]
+
+    def check_ran(name):  # any exception on either rank fails the phase
+        for r_, res in enumerate(ranks):
+            if not res[name]["ok"]:
+                print(res[name]["trace"], file=sys.stderr)
+                fail(f"parallel (b): {name} raised on rank {r_}: {res[name]['reason']}")
+
+    def check_launches(name, **expected):
+        want = all_counts(build, **expected)
+        for r_, res in enumerate(ranks):
+            if res[name]["launches"] != want:
+                fail(f"parallel (b): {name} on rank {r_} launched {res[name]['launches']}, "
+                     f"not {nonzero(want)}")
+
+    ran, total = [], Counter()
+
+    def passed(name):
+        ran.append(name)
+        total.update(results[name]["launches"])
+
+    for name, case in PAR_UNET_CASES.items():
+        check_ran(name)
+        loss, weights = results[name]["value"]
+        loss1, w1 = _unet_step(torch, case, None, x0, x1, t)
+        diff = _max_diff(weights, w1)
+        log(f"parallel (b): {name} train step (flagship UNet, fp32, batch "
+            f"{PARALLEL['batch']} global, dropout {case['dropout']}): loss {loss!r} vs one rank "
+            f"{loss1!r}; weights max |diff| {diff:.3e}; launches on each rank "
+            f"{nonzero(results[name]['launches'])}")
+        if abs(loss - loss1) > PAR_LOSS_RTOL * abs(loss1) or not _within(
+                weights, w1, PAR_W_RTOL, PAR_W_ATOL):
+            fail(f"parallel (b): {name} disagrees with one rank")
+        # every site on its kernel, the tensor-parallel ranks' channel slices too
+        check_launches(name, **(TRAIN_STEP_LAUNCHES if case["dropout"] else
+                                dict(EVAL_FORWARD_LAUNCHES, gn_silu_backward=29)))
+        passed(name)
+
+    # ppermute: right on CPU tensors on both ranks, and on CUDA tensors right
+    # or refused by gloo's TCP transport, which hands the tensor's device
+    # pointer to writev / readv (EFAULT, the rank aborted); anything else fails
+    codes, ranks, errs = _spawn_pair("p2p", out, inputs, PARALLEL["spawn_timeout"])
+    results = ranks[0]
+    outcome = []
+    for r_, res in enumerate(ranks):
+        want = [float((r_ - 1) % 2)] * 4
+        cpu, cuda = res.get("ppermute_cpu"), res.get("ppermute_cuda")
+        if cpu is None or not cpu["ok"] or cpu["value"] != want:
+            print(errs[r_][-3000:], file=sys.stderr)
+            fail(f"parallel (b): ppermute of CPU tensors on rank {r_}: {cpu}")
+        if cuda is not None and cuda["ok"] and cuda["value"] != want:
+            fail(f"parallel (b): ppermute of CUDA tensors on rank {r_} gave {cuda['value']}")
+        found = re.search(GLOO_CUDA_P2P, errs[r_] + (cuda or {}).get("reason", ""))
+        outcome.append("right" if cuda is not None and cuda["ok"] else
+                       found.group(0) if found else (cuda or {}).get("reason", "no result"))
+        log(f"parallel (b): ppermute of a CUDA tensor over gloo, rank {r_} (exit {codes[r_]}): "
+            f"{outcome[-1]}")
+    not_run = []
+    if outcome != ["right", "right"]:
+        if not any(re.search(GLOO_CUDA_P2P, o) for o in outcome):
+            for e in errs:
+                print(e[-3000:], file=sys.stderr)
+            fail(f"parallel (b): ppermute of CUDA tensors failed, and not by gloo's refusal: "
+                 f"{outcome}")
+        not_run = [f"{name} (gloo's send / recv of CUDA tensors: {outcome})"
+                   for name in ("dit_seq", "dit_pipe")]
+    else:
+        if codes != [0, 0]:
+            fail(f"parallel (b): the two ranks of ring attention and the pipeline exited with "
+                 f"{codes}")
+        check_ran("dit_seq")
+        pred, loss, grads = results["dit_seq"]["value"]
+        pred1, loss1, grads1 = _dit_seq(torch, None, *dit_seq)
+        fwd, gdiff = float(np.abs(pred - pred1).max()), _max_diff(grads, grads1)
+        log(f"parallel (b): sequence-parallel DiT-S/2 (depth {PARALLEL['dit_depth']}, batch "
+            f"{PARALLEL['dit_batch']}, 1024 tokens, 512 a rank, fp32) against one rank (flash): "
+            f"forward max |diff| {fwd:.3e}, loss {loss!r} vs {loss1!r}, gradients max |diff| "
+            f"{gdiff:.3e}")
+        if fwd > PAR_SEQ_FWD or abs(loss - loss1) > PAR_SEQ_GRAD or gdiff > PAR_SEQ_GRAD:
+            fail("parallel (b): the sequence-parallel DiT disagrees with one rank")
+        check_launches("dit_seq")  # the ring's block product is plain, as in JAX
+        passed("dit_seq")
+        check_ran("dit_pipe")
+        fwd, loss, grads = results["dit_pipe"]["value"]
+        one = _dit_pipe_reference(torch, *dit_pipe)
+        fdiff = float(np.abs(fwd - one[0]).max())
+        mine = {k: v for k, v in one[2].items() if k in grads}
+        gdiff = _max_diff(grads, mine)
+        log(f"parallel (b): two-stage pipeline of DiT-S/2 (depth {PARALLEL['dit_depth']}, batch "
+            f"{PARALLEL['pipe_batch']}, {PARALLEL['microbatches']} microbatches, fp32) against "
+            f"one rank: forward max |diff| {fdiff:.3e}, loss {loss!r} vs {one[1]!r}, rank 0's "
+            f"gradients max |diff| {gdiff:.3e}; launches on rank 0 "
+            f"{nonzero(results['dit_pipe']['launches'])}")
+        if fdiff > PAR_PIPE or abs(loss - one[1]) > PAR_PIPE or gdiff > PAR_PIPE:
+            fail("parallel (b): the pipeline disagrees with one rank")
+        # each stage's blocks at every one of the M + S - 1 ticks: the
+        # forward, then the loss's forward and backward
+        calls = PARALLEL["dit_depth"] // 2 * (PARALLEL["microbatches"] + 1)
+        check_launches("dit_pipe", flash_attention=2 * calls, flash_attention_backward=calls)
+        passed("dit_pipe")
+    log(f"parallel (b): ran at two ranks on the card: {ran}; not run at two ranks on the card "
+        f"(their multi-rank arithmetic rests on the CPU tests): {not_run or 'none'}")
+    return total
+
+
+def _dit_pipe_reference(torch, x, tx, x1, x0, t):
+    """The pipeline's forward and loss gradients without stages: the plain
+    DiT on the card."""
+    model = _dit_model(torch)
+    with torch.no_grad():
+        fwd = model.velocity_net(*(torch.as_tensor(a, device="cuda") for a in (x, tx)))
+    return (fwd.cpu().numpy(), *_dit_seq(torch, None, x1, x0, t, model=model)[1:])
+
+
+def parallel_phase(torch, build) -> dict:
+    """Phase 15: (a) one rank over NCCL, (b) two gloo ranks on the card.
+    Returns the launches of the mesh paths (a) and of rank 0 in (b)."""
+    parallel_tp_kernels(torch)
+    total = parallel_one_rank(torch, build)
+    total.update(parallel_two_ranks(torch, build))
+    log(f"parallel: launches of the mesh paths {nonzero(total)}")
+    return dict(total)
+
+
 def main() -> None:
     try:
         import torch
@@ -2643,6 +3252,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase("CLI")
     cli_launches = cli_phase(torch, build, serve_img_s)
+    phase("parallel")
+    parallel_launches = parallel_phase(torch, build)
+    torch.cuda.empty_cache()
 
     phase("done")
     csrc = "rectified_flow_vision_tpu_torch/ops/csrc/"
@@ -2736,7 +3348,8 @@ def main() -> None:
                "latent_train": latent_train_launches, "cli": cli_launches,
                "dit_head_192": dit_wide_launches, "dit_head_384": dit_384_launches,
                "dit_train_f32": dit_f32_launches, "unet_resume": resume_launches,
-               "http": http_launches, "profiling": profiling_launches}
+               "http": http_launches, "profiling": profiling_launches,
+               "parallel": parallel_launches}
     # the wrapper whose kernel-phase rows an entry reads, where it is not the entry's own name
     row_names = {f"flash_attention_{route}{part}": f"flash_attention{part}"
                  for route in ("wide", "streamed", "f32", "f32_wide")

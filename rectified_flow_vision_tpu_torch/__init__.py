@@ -23,7 +23,9 @@ public API: resume of both trainers (``resume_dir``,
 ``utils.train_state.TrainStateManager``), ``utils.checkpoint.AsyncSaver``,
 the HTTP front end (``serving_http``), the LPIPS and InceptionV3 networks,
 SynthNet training, the generation-speed helpers, ``.pt`` export and the
-profiling hooks. Meshes and the Winograd conv are not ported yet.
+profiling hooks, and parallelism (``parallel``: data, tensor and fully
+sharded parallel training, mesh serving, ring attention, the GPipe
+pipeline). The Winograd conv is not ported yet.
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
 

@@ -132,7 +132,9 @@ class PathsConfig:
 
 @dataclass
 class ParallelConfig:
-    """Mesh layout (the JAX package's extension; one card in this port)."""
+    """Mesh layout over the ranks ``torchrun`` starts (``experiments.
+    train_base.default_mesh``): data x model (tensor-parallel) ranks, and
+    FSDP over the data ranks."""
 
     data_axis: int = -1  # -1 => all remaining devices
     model_axis: int = 1  # tensor-parallel degree

@@ -22,6 +22,7 @@ from rectified_flow_vision_tpu_torch.config import Config, load_config
 from rectified_flow_vision_tpu_torch.data import ArrayDataset, ImageDataset
 from rectified_flow_vision_tpu_torch.models import BaseFlowModel, ConvVAE, train_base_flow
 from rectified_flow_vision_tpu_torch.models.base_flow import resolve_device
+from rectified_flow_vision_tpu_torch.parallel import mesh as mesh_lib
 from rectified_flow_vision_tpu_torch.utils.logging_config import get_logger
 
 log = get_logger("flow_vision.train_base")
@@ -66,7 +67,9 @@ def ensure_vae(cfg: Config, dataset, checkpoint_dir: Path, *, device="cuda") -> 
     from rectified_flow_vision_tpu_torch.models import train_vae
 
     vae_path = checkpoint_dir / "vae.npz"
-    if vae_path.exists():
+    found = vae_path.exists()
+    mesh_lib.barrier()  # every rank has looked before rank 0 may write it
+    if found:
         return ConvVAE.load(str(vae_path), device=device)
     log.info(
         "Training the ConvVAE (%dx -> %dx%d latents, %d epochs)...",
@@ -82,7 +85,9 @@ def ensure_vae(cfg: Config, dataset, checkpoint_dir: Path, *, device="cuda") -> 
         device=device,
     )
     _, mse = train_vae(vae, dataset.images, epochs=cfg.model.vae_epochs)
-    vae.save(str(vae_path))
+    if mesh_lib.writes_files():
+        vae.save(str(vae_path))
+    mesh_lib.barrier()
     log.info("VAE trained: recon MSE %.5f -> %s", mse, vae_path)
     return vae
 
@@ -99,16 +104,15 @@ def encode_dataset(vae: ConvVAE, images: np.ndarray, batch: int = 64) -> ArrayDa
 
 
 def default_mesh(cfg: Config, device: str | torch.device = "cuda"):
-    """None on one device, as the JAX trainers take a one-device mesh for no
-    mesh. More cards, or tensor parallelism, need the mesh of ROADMAP A9."""
-    device = torch.device(device)
-    cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    if cards <= 1 and cfg.parallel.model_axis == 1:
+    """The ``('data', 'model')`` mesh of ``cfg.parallel`` over the ranks of
+    the process group (``torchrun``, one a card); None on one rank without
+    tensor parallelism, as the JAX trainers take a one-device mesh for no
+    mesh."""
+    world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    if world == 1 and cfg.parallel.model_axis == 1:
         return None
-    raise NotImplementedError(
-        f"{cards} visible cards with parallel.model_axis={cfg.parallel.model_axis}: "
-        "meshes are not ported to PyTorch yet: ROADMAP.md item A9 (parallelism); "
-        "set CUDA_VISIBLE_DEVICES to one card"
+    return mesh_lib.create_mesh(
+        cfg.parallel.data_axis, cfg.parallel.model_axis, device=torch.device(device).type
     )
 
 
@@ -125,11 +129,14 @@ def main(
     checkpoint_dir.mkdir(parents=True, exist_ok=True)
 
     data_dir = root / cfg.data.data_dir
-    if not data_dir.exists() or not any(data_dir.iterdir()):
+    missing = not data_dir.exists() or not any(data_dir.iterdir())
+    mesh_lib.barrier()  # every rank has looked before rank 0 writes
+    if missing and mesh_lib.writes_files():
         log.info("No data found; generating synthetic data for demo...")
         from rectified_flow_vision_tpu_torch.utils.download_data import generate_synthetic_images
 
         generate_synthetic_images(str(data_dir), cfg.data.num_mock_images, cfg.data.image_size)
+    mesh_lib.barrier()
 
     dataset = ImageDataset(str(data_dir), cfg.data.image_size)
 
@@ -169,7 +176,8 @@ def main(
         warmup_epochs=cfg.training_base.warmup_epochs,
     )
 
-    np.save(str(checkpoint_dir / "base_flow_losses.npy"), losses)
+    if mesh_lib.writes_files():
+        np.save(str(checkpoint_dir / "base_flow_losses.npy"), losses)
 
     log.info("Training completed!")
     log.info("Model saved to: %s", checkpoint_dir / "base_flow_final.npz")

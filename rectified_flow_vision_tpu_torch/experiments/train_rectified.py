@@ -32,6 +32,7 @@ from rectified_flow_vision_tpu_torch.models import (
     train_rectified_flow,
 )
 from rectified_flow_vision_tpu_torch.models.base_flow import resolve_device
+from rectified_flow_vision_tpu_torch.parallel import mesh as mesh_lib
 from rectified_flow_vision_tpu_torch.utils import checkpoint as ckpt_io
 from rectified_flow_vision_tpu_torch.utils.logging_config import get_logger
 
@@ -105,6 +106,7 @@ def main(
         method=tr.teacher_method,
         real_data=real_data,
         data_pair_fraction=data_frac,
+        mesh=mesh,
     )
 
     losses = train_rectified_flow(
@@ -124,7 +126,8 @@ def main(
         time_sampling=tr.time_sampling,
     )
 
-    np.save(str(checkpoint_dir / "rectified_flow_k1_losses.npy"), losses)
+    if mesh_lib.writes_files():
+        np.save(str(checkpoint_dir / "rectified_flow_k1_losses.npy"), losses)
 
     if tr.ema_decay:
         # the production sampling weights: the benchmark evaluates the

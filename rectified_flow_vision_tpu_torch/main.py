@@ -13,6 +13,12 @@ rectified model (Reflow), 4) the comparative benchmark and its report. With
 ``--quick`` the overlay config is written to ``configs/config_quick.yaml``
 and used. The pipeline runs on the card; ``main(argv, device="cpu")`` runs
 the plain PyTorch path on the CPU, for tests.
+
+Across cards: ``torchrun --nproc_per_node=N -m rectified_flow_vision_tpu_torch
+...`` joins the process group first thing (``maybe_init_distributed``); the
+two trainings then run on the mesh of the config's ``parallel`` section
+(``model_axis``, ``fsdp``), and rank 0 alone prepares the data, writes the
+files and runs the benchmark.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from rectified_flow_vision_tpu_torch import config as config_lib
 from rectified_flow_vision_tpu_torch.config import QUICK_CONFIG_PATH, load_config, quick_overlay
 from rectified_flow_vision_tpu_torch.models.base_flow import resolve_device
+from rectified_flow_vision_tpu_torch.parallel import mesh as mesh_lib
 from rectified_flow_vision_tpu_torch.utils.logging_config import get_logger
 
 log = get_logger("flow_vision.main")
@@ -53,6 +60,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[List[str]] = None, *, device: str | torch.device = "cuda") -> None:
+    mesh_lib.maybe_init_distributed()
     args = parse_args(argv)
     device = resolve_device(device)
 
@@ -69,16 +77,18 @@ def main(argv: Optional[List[str]] = None, *, device: str | torch.device = "cuda
     if args.quick:
         log.info("QUICK MODE activated - Reduced configuration for demo")
         config = quick_overlay(config)
-        config.save(QUICK_CONFIG_PATH)  # written and used
+        if mesh_lib.writes_files():
+            config.save(QUICK_CONFIG_PATH)  # written and used
 
     # STEP 1: data
-    if not args.skip_download:
+    if not args.skip_download and mesh_lib.writes_files():
         log.info("=" * 60)
         log.info("STEP 1: Preparing test data")
         log.info("=" * 60)
         from rectified_flow_vision_tpu_torch.utils.download_data import download_data
 
         download_data(use_online=not args.offline, config_path=args.config)
+    mesh_lib.barrier()
 
     # STEP 2 + 3: training
     if not args.skip_training:
@@ -97,6 +107,9 @@ def main(argv: Optional[List[str]] = None, *, device: str | torch.device = "cuda
         )
 
         train_rectified(config, device=device)
+
+    if not mesh_lib.writes_files():
+        return
 
     # STEP 4: benchmark
     log.info("=" * 60)

@@ -27,8 +27,17 @@ Randomness is explicit: the loss draws noise, times and dropout seeds from a
 ``torch.Generator`` on the model's device (or takes them as arguments), and
 the trainers seed one generator per epoch, so a seed fixes the trajectory
 and a run resumed from its saved train state (``resume_dir``,
-``utils/train_state.py``) repeats the uninterrupted one. Meshes come with a
-later slice.
+``utils/train_state.py``) repeats the uninterrupted one.
+
+Meshes (``parallel/mesh.py``): the trainers and step functions take ``mesh``
+(a ``('data', 'model')`` ``DeviceMesh``) and ``fsdp``. Each rank holds the
+corpus and the same permutation and trains on its rows of every global
+batch; the noise and times of the whole batch are drawn on every rank from
+the same generator and each rank keeps its rows, and each rank's dropout
+seeds are folded by its data rank, as the JAX package's sharded kernel
+folds them. Gradients are averaged over ``data`` (FSDP2's reduce-scatter
+under ``fsdp``), the clip takes the norm of the whole gradient, and
+checkpoints hold the whole parameters, written by rank 0.
 """
 
 from __future__ import annotations
@@ -39,10 +48,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from rectified_flow_vision_tpu_torch.models.dit import DiT
 from rectified_flow_vision_tpu_torch.models.unet import UNet, count_parameters
+from rectified_flow_vision_tpu_torch.parallel import mesh as mesh_lib
 from rectified_flow_vision_tpu_torch.utils import checkpoint as ckpt_io
 from rectified_flow_vision_tpu_torch.utils import pt_import
 from rectified_flow_vision_tpu_torch.utils.logging_config import get_logger
@@ -118,7 +129,7 @@ class BaseFlowModel(nn.Module):
         self.compute_dtype = _DTYPES[compute_dtype]
         self.sample_dtype = _DTYPES[sample_dtype]
         if backbone == "dit":
-            self.velocity_net = DiT(
+            self._net_args = dict(
                 input_size=image_size,
                 patch_size=patch_size,
                 in_channels=in_channels,
@@ -130,7 +141,7 @@ class BaseFlowModel(nn.Module):
                 remat=remat,
             )
         else:
-            self.velocity_net = UNet(
+            self._net_args = dict(
                 in_channels=in_channels,
                 model_channels=model_channels,
                 out_channels=in_channels,
@@ -139,6 +150,7 @@ class BaseFlowModel(nn.Module):
                 attention_resolutions=attention_resolutions,
                 dropout=dropout,
             )
+        self.velocity_net = self.new_network()
         self.velocity_net.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -180,10 +192,18 @@ class BaseFlowModel(nn.Module):
     def num_parameters(self) -> int:
         return count_parameters(self)
 
+    def new_network(self) -> nn.Module:
+        """A fresh velocity network of this model's architecture (on the CPU,
+        initial weights not drawn)."""
+        return (DiT if self.backbone == "dit" else UNet)(**self._net_args)
+
     @property
     def params(self) -> Params:
-        """The weights as the JAX package's param tree (numpy, HWIO / (in, out))."""
-        sd = {k: v.detach().cpu().numpy() for k, v in self.state_dict().items()}
+        """The weights as the JAX package's param tree (numpy, HWIO / (in, out)).
+        While the network is placed on a mesh, every rank must read it: the
+        whole weights are gathered."""
+        sd = mesh_lib.full_state_dict(self) if mesh_lib.is_parallel(self) else self.state_dict()
+        sd = {k: v.detach().cpu().numpy() for k, v in sd.items()}
         return pt_import.backbone_state_dict_to_params(sd, self.backbone)
 
     @params.setter
@@ -229,6 +249,7 @@ class BaseFlowModel(nn.Module):
         seeds: Optional[Tensor] = None,
         train: bool = True,
         time_sampling: str = "uniform",
+        mesh=None,
     ) -> Tensor:
         """Flow-matching loss on an NHWC batch on the model's device, as a
         scalar in the autograd graph of the fp32 parameters.
@@ -240,19 +261,31 @@ class BaseFlowModel(nn.Module):
         mid-path; "u_shaped", the arcsine law peaked at both ends), and with
         ``train`` one int32 dropout seed per residual block of a UNet. A DiT
         has no dropout and takes ``remat`` at construction.
+
+        With ``mesh``, x1 (and x0) are this rank's rows of the global batch:
+        the noise and times of the whole batch are drawn and this rank's rows
+        kept, and the drawn dropout seeds are folded by the data rank. The
+        loss is the mean over this rank's rows.
         """
         gen = generator if generator is not None else self.generator
         net = self.velocity_net
+        dp, rank = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS), 0
+        rows = x1.shape[0]
+        if dp > 1:
+            rank = mesh_lib.axis_rank(mesh, mesh_lib.DATA_AXIS)
         if x0 is None:
-            x0 = torch.randn(x1.shape, generator=gen, dtype=x1.dtype, device=x1.device)
+            x0 = torch.randn((rows * dp,) + tuple(x1.shape[1:]), generator=gen, dtype=x1.dtype,
+                             device=x1.device).narrow(0, rank * rows, rows)
         if t is None:
-            t = sample_times(time_sampling, x1.shape[0], gen, x1.device)
+            t = sample_times(time_sampling, rows * dp, gen, x1.device).narrow(0, rank * rows, rows)
         unet = self.backbone == "unet"
         if unet and seeds is None and train and net.dropout > 0:
             seeds = torch.randint(
                 2**31 - 1, (net.num_dropout_seeds,), generator=gen, dtype=torch.int32,
                 device=x1.device,
             )
+            if mesh is not None:
+                seeds = seeds + rank
         x_t, target = self.get_interpolation(x0, x1, t)
         extra = dict(train=train, seeds=seeds, remat=self.remat) if unet else {}
         pred = net(x_t, t, dtype=self.compute_dtype, masters=True, **extra)
@@ -383,8 +416,12 @@ class BaseFlowModel(nn.Module):
     # ---- checkpointing ------------------------------------------------------
 
     def save(self, path: str) -> None:
-        """Save params + full architecture config to one .npz file."""
-        ckpt_io.save_params(path, self.params, self.config)
+        """Save params + full architecture config to one .npz file. While the
+        network is placed on a mesh every rank must call it, and rank 0
+        writes."""
+        params = self.params
+        if not mesh_lib.is_parallel(self) or mesh_lib.writes_files():
+            ckpt_io.save_params(path, params, self.config)
 
     def load(self, path: str) -> None:
         """Load params from .npz (the JAX package's format) or a reference .pt."""
@@ -469,25 +506,55 @@ class FlowOptimizer:
     The clip scales by 1/norm only where norm >= 1, with nothing added to the
     denominator, on the device (no value is read back). The lr of step n is
     ``schedule(n)``, counted from 0 and set from the host.
+
+    With ``mesh`` the norm is that of the whole gradient, as
+    ``optax.clip_by_global_norm`` takes it over the global tree: squares
+    summed over the data group where FSDP shards a parameter (a ``DTensor``)
+    and over the model group where ``tp_split`` marks a tensor-parallel shard;
+    a replicated parameter counts once.
     """
 
-    def __init__(self, params: Sequence[Tensor], schedule: Callable[[int], float]) -> None:
+    def __init__(
+        self, params: Sequence[Tensor], schedule: Callable[[int], float], *,
+        mesh=None, tp_split: Optional[Sequence[bool]] = None,
+    ) -> None:
+        from torch.distributed.tensor import DTensor
+
         self.params = list(params)
         self.schedule = schedule
         self.step_count = 0
+        self.mesh = mesh
+        self.tp_split = list(tp_split) if tp_split is not None else [False] * len(self.params)
+        self.sharded = any(isinstance(p, DTensor) for p in self.params)
         self.adamw = torch.optim.AdamW(
             self.params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01,
-            fused=self.params[0].device.type == "cuda",
+            fused=self.params[0].device.type == "cuda" and not self.sharded,
         )
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
+    def _norm(self, grads: List[Tensor]) -> Tensor:
+        if self.mesh is None:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        sq = torch.stack(torch._foreach_norm(grads)).square()
+        split = torch.tensor(self.tp_split, device=sq.device)
+        parts = torch.stack([sq[split].sum(), sq[~split].sum()])
+        if self.sharded:
+            dist.all_reduce(parts, group=mesh_lib.axis_group(self.mesh, mesh_lib.DATA_AXIS))
+        if any(self.tp_split):
+            split_sum = parts[:1].clone()
+            dist.all_reduce(split_sum, group=mesh_lib.axis_group(self.mesh, mesh_lib.MODEL_AXIS))
+            parts = torch.cat([split_sum, parts[1:]])
+        return parts.sum().sqrt()
+
     def step(self) -> None:
         grads = [p.grad for p in self.params]
         if any(g is None for g in grads):
             raise RuntimeError("FlowOptimizer.step: a parameter has no gradient")
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.sharded:  # FSDP: each rank scales its shard
+            grads = [g.to_local() for g in grads]
+        norm = self._norm(grads)
         torch._foreach_mul_(grads, torch.where(norm < 1.0, torch.ones_like(norm), 1.0 / norm))
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.step_count)
@@ -500,28 +567,44 @@ class FlowOptimizer:
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Restore ``state_dict()``; AdamW moves its moments onto the
-        parameters' device (and a fused AdamW its ``step`` counts too)."""
+        parameters' device (and a fused AdamW its ``step`` counts too), and
+        under FSDP they become shards like their parameters again."""
         self.step_count = int(state["step_count"])
         self.adamw.load_state_dict(state["adamw"])
+        if self.sharded:
+            for p in self.params:
+                st = self.adamw.state[p]
+                for k in ("exp_avg", "exp_avg_sq"):
+                    st[k] = mesh_lib.like(st[k], p)
 
 
 def make_optimizer(
     model: BaseFlowModel, lr: float, epochs: int, steps_per_epoch: int,
     warmup_epochs: float = 0.0,
+    mesh=None,
 ) -> FlowOptimizer:
     """AdamW (torch-default hyperparameters) + epoch-cosine lr + grad clip 1.0
-    over the model's parameters."""
+    over the model's parameters, as they are placed on ``mesh``."""
     schedule = make_epoch_cosine_schedule(lr, epochs, steps_per_epoch, warmup_epochs)
-    return FlowOptimizer(list(model.parameters()), schedule)
+    named = list(model.named_parameters())
+    tp_split = None
+    if mesh is not None and mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS) > 1:
+        tp_split = [mesh_lib.unet_param_spec(k, p.ndim).count(mesh_lib.MODEL_AXIS) > 0
+                    for k, p in named]
+    return FlowOptimizer([p for _, p in named], schedule, mesh=mesh, tp_split=tp_split)
 
 
 def init_ema(model: BaseFlowModel) -> Dict[str, Tensor]:
-    """A copy of the model's current parameters, by state-dict name."""
+    """A copy of the model's current parameters, by state-dict name (this
+    rank's shards on a mesh)."""
     return {k: p.detach().clone() for k, p in model.named_parameters()}
 
 
-def ema_params(ema: Dict[str, Tensor], backbone: str = "unet") -> Params:
-    """EMA weights as a param tree, for ``checkpoint.save_params``."""
+def ema_params(ema: Dict[str, Tensor], backbone: str = "unet", model=None) -> Params:
+    """EMA weights as a param tree, for ``checkpoint.save_params``. Shards on
+    a mesh are gathered in ``model``'s layout (every rank must call it)."""
+    if model is not None and mesh_lib.is_parallel(model):
+        ema = mesh_lib.full_tensors(model, ema)
     sd = {k: v.cpu().numpy() for k, v in ema.items()}
     return pt_import.backbone_state_dict_to_params(sd, backbone)
 
@@ -534,6 +617,7 @@ def make_train_step(
     ema: Optional[Dict[str, Tensor]] = None,
     ema_decay: Optional[float] = None,
     time_sampling: str = "uniform",
+    mesh=None,
 ) -> Callable[[Any, torch.Generator], Tensor]:
     """Build ``train_step(batch, generator) -> loss``: loss -> grad ->
     global-norm clip -> AdamW update, in place. ``batch`` is x1 (NHWC on the
@@ -541,6 +625,12 @@ def make_train_step(
     ``init_ema``) and ``ema_decay``, the moving average e*d + p*(1-d) of the
     updated parameters is kept in ``ema``. The loss comes back on the device,
     detached; nothing is read to the host.
+
+    With ``mesh`` (the model placed on it, ``mesh_lib.place_params``, and
+    ``opt`` made for it) ``batch`` is this rank's rows of the global batch:
+    the gradients are averaged over ``data`` (FSDP's own reduce-scatter does
+    it under FSDP) and the loss returned is the global batch's. A one-device
+    mesh runs the same collectives, so their cost shows.
     """
     if (ema is None) != (ema_decay is None):
         raise ValueError("ema and ema_decay go together")
@@ -550,16 +640,24 @@ def make_train_step(
         ema_list = [ema[k] for k in named]
         live = [p.detach() for p in named.values()]
 
+    if ema is not None and any(mesh_lib.is_dtensor(e) for e in ema_list):
+        ema_list, live = [e.to_local() for e in ema_list], [p.to_local() for p in live]
+    average = mesh is not None and not getattr(model.velocity_net, "fsdp", False)
+
     def train_step(batch, generator: torch.Generator) -> Tensor:
         x0, x1 = batch if coupled else (None, batch)
         opt.zero_grad()
-        loss = model.loss_fn(x1, generator, x0=x0, train=True, time_sampling=time_sampling)
+        loss = model.loss_fn(x1, generator, x0=x0, train=True, time_sampling=time_sampling,
+                             mesh=mesh)
         loss.backward()
+        if average:
+            mesh_lib.average_grads(mesh, opt.params)
         opt.step()
         if ema is not None:
             torch._foreach_mul_(ema_list, d)
             torch._foreach_add_(ema_list, live, alpha=1.0 - d)
-        return loss.detach()
+        loss = loss.detach()
+        return loss if mesh is None else mesh_lib.data_mean(mesh, loss)
 
     return train_step
 
@@ -572,6 +670,7 @@ def make_train_epoch(
     ema: Optional[Dict[str, Tensor]] = None,
     ema_decay: Optional[float] = None,
     time_sampling: str = "uniform",
+    mesh=None,
 ) -> Callable[[Any, Tensor, torch.Generator], Tensor]:
     """Build ``train_epoch(corpus, perm, generator) -> losses [steps]``.
 
@@ -580,15 +679,19 @@ def make_train_epoch(
     ``perm`` ([steps, B] indices on the device). The host only enqueues: the
     step losses stay on the device, for the caller to read once per epoch.
     Step math and random draws are those of ``make_train_step``, so the
-    trajectory equals the per-step path's.
+    trajectory equals the per-step path's. With ``mesh`` every rank holds the
+    corpus and the same ``perm`` and gathers its rows of each global batch.
     """
     step = make_train_step(
-        model, opt, coupled=coupled, ema=ema, ema_decay=ema_decay, time_sampling=time_sampling
+        model, opt, coupled=coupled, ema=ema, ema_decay=ema_decay, time_sampling=time_sampling,
+        mesh=mesh,
     )
 
     def train_epoch(corpus, perm: Tensor, generator: torch.Generator) -> Tensor:
         losses = []
         for idx in perm:
+            if mesh is not None:
+                idx = mesh_lib.shard_batch(mesh, idx)
             if coupled:
                 batch = (corpus[0].index_select(0, idx), corpus[1].index_select(0, idx))
             else:
@@ -604,22 +707,29 @@ def make_train_epoch(
 DEVICE_EPOCH_MAX_BYTES = 2 * 1024**3
 
 
-def reject_unported(**options) -> None:
-    """Raise for a trainer option whose module is not ported yet, naming the
-    ROADMAP item that holds it."""
-    items = {"mesh": "A9 (parallelism)", "fsdp": "A9 (parallelism)"}
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(
-                f"{name} is not ported to PyTorch yet: ROADMAP.md item {items[name]}"
-            )
+def place_for_training(model: BaseFlowModel, mesh, fsdp: bool, batch_size: Optional[int]):
+    """The trainers' placement: the model's parameters on ``mesh`` (FSDP when
+    ``fsdp``, else tensor parallel / replicated); the global batch must split
+    over ``data``. Returns the effective mesh (None for no or a one-device
+    mesh)."""
+    mesh = mesh_lib.effective_mesh(mesh)
+    if mesh is None:
+        return None
+    dp = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
+    if batch_size is not None and batch_size % dp:
+        raise ValueError(f"batch_size {batch_size} does not split over {dp} data ranks")
+    mesh_lib.place_params(mesh, model, fsdp=fsdp)
+    return mesh
 
 
 def restore_train_state(
-    resume_dir: str, model: BaseFlowModel, opt: FlowOptimizer, use_ema: bool, what: str
+    resume_dir: str, model: BaseFlowModel, opt: FlowOptimizer, use_ema: bool, what: str,
+    mesh=None,
 ):
     """The resume of both trainers: open ``resume_dir``'s ``TrainStateManager``
     and load its latest state, if any, into ``model`` and ``opt`` in place.
+    On a mesh each rank keeps its own shards' state, in ``resume_dir/rankR_of_N``
+    (a run resumes on a mesh of the same shape).
 
     Returns ``(manager, losses, start_epoch, ema)``. A restored EMA is dropped
     when ``use_ema`` is off (a run that had one resumed without); None means
@@ -627,17 +737,35 @@ def restore_train_state(
     """
     from rectified_flow_vision_tpu_torch.utils.train_state import TrainStateManager
 
+    if mesh is not None:
+        resume_dir = f"{resume_dir}/rank{dist.get_rank()}_of_{dist.get_world_size()}"
     mgr = TrainStateManager(resume_dir)
     restored = mgr.restore()
     if restored is None:
         return mgr, [], 0, None
     params, opt_state, losses, start_epoch, ema = restored
-    model.load_state_dict(params)
+    named = dict(model.named_parameters())
+    if mesh is None:
+        model.load_state_dict(params)
+    else:
+        with torch.no_grad():
+            for k, p in named.items():
+                mesh_lib.local(p).copy_(params[k])
     opt.load_state_dict(opt_state)
     log.info("Resumed %s training from epoch %d (%s)", what, start_epoch, resume_dir)
     if not use_ema or ema is None:
         return mgr, losses, start_epoch, None
-    return mgr, losses, start_epoch, {k: v.to(model.device) for k, v in ema.items()}
+    return mgr, losses, start_epoch, {
+        k: mesh_lib.like(v.to(model.device), named[k]) for k, v in ema.items()
+    }
+
+
+def save_train_state(state_mgr, epoch: int, model: BaseFlowModel, opt: FlowOptimizer,
+                     losses: List[float], ema) -> None:
+    """The trainers' state save: this rank's (local) tensors."""
+    local = mesh_lib.local_tree
+    state_mgr.save(epoch, local(dict(model.named_parameters())), local(opt.state_dict()),
+                   losses, ema=local(ema))
 
 
 def epoch_generator(model: BaseFlowModel, seed: int, epoch: int) -> torch.Generator:
@@ -649,12 +777,16 @@ def epoch_generator(model: BaseFlowModel, seed: int, epoch: int) -> torch.Genera
 def save_epoch_checkpoints(
     model: BaseFlowModel, ema: Optional[Dict[str, Tensor]], save_path: str, tag: str, ext: str
 ) -> None:
-    """``<save_path>_<tag><ext>`` and, with an EMA, ``<save_path>_ema_<tag><ext>``."""
-    model.save(f"{save_path}_{tag}{ext}")
-    if ema is not None:
-        ckpt_io.save_params(
-            f"{save_path}_ema_{tag}{ext}", ema_params(ema, model.backbone), model.config
-        )
+    """``<save_path>_<tag><ext>`` and, with an EMA, ``<save_path>_ema_<tag><ext>``:
+    whole weights, written by rank 0 of a process group once every rank has
+    gathered them; every rank returns when the files are written."""
+    params = model.params
+    ema_tree = ema_params(ema, model.backbone, model) if ema is not None else None
+    if mesh_lib.writes_files():
+        ckpt_io.save_params(f"{save_path}_{tag}{ext}", params, model.config)
+        if ema_tree is not None:
+            ckpt_io.save_params(f"{save_path}_ema_{tag}{ext}", ema_tree, model.config)
+    mesh_lib.barrier()
 
 
 def train_base_flow(
@@ -692,9 +824,15 @@ def train_base_flow(
     schedule, losses, EMA) is saved there every ``save_every`` epochs and at
     the end, and a run restarts from the latest saved epoch: epoch ``k``
     draws from its own generator and permutation, so a resumed run repeats
-    the uninterrupted one. ``mesh`` and ``fsdp`` are not ported yet and raise.
+    the uninterrupted one.
+
+    ``mesh`` (``parallel.mesh.create_mesh``; every rank calls the trainer
+    with the same arguments) trains data parallel over ``data`` and tensor
+    parallel over ``model``, or with ``fsdp`` fully sharded over ``data``;
+    each rank takes its rows of every global batch of ``batch_size``. The
+    losses are the global batches'. On return the model holds the whole
+    trained weights again on every rank. A one-device mesh is no mesh.
     """
-    reject_unported(mesh=mesh, fsdp=fsdp)
     device = model.device
     is_dataset = hasattr(dataloader, "batches") and hasattr(dataloader, "num_batches")
     native = None
@@ -719,15 +857,17 @@ def train_base_flow(
     if steps_per_epoch == 0:
         raise ValueError("empty dataloader")
 
-    opt = make_optimizer(model, lr, epochs, steps_per_epoch, warmup_epochs)
+    mesh = place_for_training(model, mesh, fsdp, batch_size if is_dataset else None)
+    opt = make_optimizer(model, lr, epochs, steps_per_epoch, warmup_epochs, mesh=mesh)
     use_ema = ema_decay is not None and ema_decay > 0
     state_mgr, losses, start_epoch, ema = None, [], 0, None
     if resume_dir is not None:
         state_mgr, losses, start_epoch, ema = restore_train_state(
-            resume_dir, model, opt, use_ema, "base flow")
+            resume_dir, model, opt, use_ema, "base flow", mesh)
     if use_ema and ema is None:
         ema = init_ema(model)
-    step_kwargs = dict(coupled=False, ema=ema, ema_decay=ema_decay if use_ema else None)
+    step_kwargs = dict(coupled=False, ema=ema, ema_decay=ema_decay if use_ema else None,
+                       mesh=mesh)
 
     corpus_host = getattr(dataloader, "images", None) if is_dataset else None
     if device_epoch is None:
@@ -742,7 +882,7 @@ def train_base_flow(
         raise ValueError("device_epoch=True needs a dataset with .images")
     if device_epoch:
         corpus_dev = torch.as_tensor(corpus_host, dtype=torch.float32, device=device)
-        train_epoch = make_train_epoch(model, opt, **step_kwargs)
+        train_epoch = make_train_epoch(model, opt, **step_kwargs)  # every rank holds the corpus
     else:
         train_step = make_train_step(model, opt, **step_kwargs)
 
@@ -771,7 +911,8 @@ def train_base_flow(
                 )
                 batches = (dataloader[j] for j in order)
             step_losses = [
-                train_step(torch.as_tensor(np.asarray(b), dtype=torch.float32, device=device), gen)
+                train_step(mesh_lib.shard_batch(mesh, torch.as_tensor(
+                    np.asarray(b), dtype=torch.float32, device=device)), gen)
                 for b in batches
             ]
             avg_loss = float(torch.stack(step_losses).mean())
@@ -784,7 +925,7 @@ def train_base_flow(
         if save_path and (epoch + 1) % save_every == 0:
             save_epoch_checkpoints(model, ema, save_path, f"epoch{epoch + 1}", ckpt_ext)
         if state_mgr is not None and (epoch + 1) % save_every == 0:
-            state_mgr.save(epoch, model.state_dict(), opt.state_dict(), losses, ema=ema)
+            save_train_state(state_mgr, epoch, model, opt, losses, ema)
 
     if native is not None:
         native.close()
@@ -792,6 +933,7 @@ def train_base_flow(
         save_epoch_checkpoints(model, ema, save_path, "final", ckpt_ext)
     if state_mgr is not None:
         close_train_state(state_mgr, model, opt, losses, ema, start_epoch, epochs)
+    mesh_lib.unshard(model)
     return losses
 
 
@@ -799,5 +941,5 @@ def close_train_state(state_mgr, model, opt, losses, ema, start_epoch: int, epoc
     """The trainers' last state save (when this run trained an epoch), then
     wait for it to be committed."""
     if epochs > start_epoch:
-        state_mgr.save(epochs - 1, model.state_dict(), opt.state_dict(), losses, ema=ema)
+        save_train_state(state_mgr, epochs - 1, model, opt, losses, ema)
     state_mgr.close()

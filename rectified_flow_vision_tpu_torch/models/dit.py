@@ -24,9 +24,17 @@ package dispatches. ``remat`` recomputes each block in the backward pass
 
 Parameters are fp32 with torch layouts; ``forward(x, t, dtype=)`` sees them
 as ``models.unet`` describes: rounded, detached, cached copies for sampling,
-or (``masters=True``) the fp32 masters inside the autograd graph. Sequence
-parallelism (``mesh`` / ``seq_axis``) and ``pipeline_apply`` are not ported
-yet and raise.
+or (``masters=True``) the fp32 masters inside the autograd graph.
+
+Sequence parallelism (``forward(mesh=, seq_axis=)``): each rank of the
+mesh's ``seq_axis`` keeps its slice of the tokens after the patch embedding
+(its ``pos_embed`` rows with them), the blocks run on it with ring attention
+(``parallel/ring_attention.py``) in place of flash, and an all-gather with
+its gradient at the head returns the whole output on every rank; the
+masters' gradients are summed over the ranks. ``pipeline_apply`` is the
+GPipe forward over a ``stage`` axis (``parallel/pipeline.py``). Tensor
+parallelism (``parallel/mesh.py`` ``shard_params``) splits each block's
+heads and MLP columns (``DiTBlock``).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from rectified_flow_vision_tpu_torch.models.unet import _ParamCache, _View
 from rectified_flow_vision_tpu_torch.ops import fused
 from rectified_flow_vision_tpu_torch.ops import primitives as P
+from rectified_flow_vision_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -79,17 +88,13 @@ DIT_SIZES = {
 }
 
 
-def reject_parallel(**options) -> None:
-    """Raise for a parallelism option, naming the ROADMAP item that holds it."""
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} is not ported to PyTorch yet: ROADMAP.md item A9 (parallelism)"
-            )
-
-
 class DiTBlock(nn.Module):
-    """One adaLN-Zero DiT block: tokens [B, T, C], c_emb [B, C] -> [B, T, C]."""
+    """One adaLN-Zero DiT block: tokens [B, T, C], c_emb [B, C] -> [B, T, C]
+    (the JAX package's ``block_apply``). With ``seq_group`` the tokens are
+    this rank's slice and attention is the ring over the group. Under tensor
+    parallelism (``v.tp``) qkv and mlp1 are column-parallel (the rank's heads
+    and hidden columns), proj and mlp2 row-parallel, summed over the group
+    with the bias added once; adaLN stays whole."""
 
     def __init__(self, hidden: int, mlp_dim: int) -> None:
         super().__init__()
@@ -99,21 +104,30 @@ class DiTBlock(nn.Module):
         self.mlp2 = nn.Linear(mlp_dim, hidden)
         self.ada = nn.Linear(hidden, 6 * hidden)
 
-    def forward(self, tokens: Tensor, c_emb: Tensor, v: _View, num_heads: int) -> Tensor:
+    def forward(
+        self, tokens: Tensor, c_emb: Tensor, v: _View, num_heads: int, seq_group=None
+    ) -> Tensor:
         b, t, hidden = tokens.shape
         hd = hidden // num_heads
+        if v.tp is not None:  # this rank's heads and MLP columns
+            num_heads //= v.tp.size
         mod = v.dense(P.silu(c_emb), self.ada)  # [B, 6C]
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
         # attention branch: q, k, v are views of the one projection
-        hmod = P.modulate(P.layer_norm(tokens), shift_msa, scale_msa)
+        hmod = v.to_tp(P.modulate(P.layer_norm(tokens), shift_msa, scale_msa))
         q, k, val = v.dense(hmod, self.qkv).reshape(b, t, 3, num_heads, hd).unbind(2)
-        att = fused.flash_attention(q, k, val)
-        att = v.dense(att.reshape(b, t, hidden), self.proj)
+        if seq_group is not None:
+            from rectified_flow_vision_tpu_torch.parallel.ring_attention import ring_attention
+
+            att = ring_attention(q, k, val, seq_group)
+        else:
+            att = fused.flash_attention(q, k, val)
+        att = v.row_dense(att.reshape(b, t, num_heads * hd), self.proj)
         tokens = tokens + gate_msa[:, None, :] * att
         # MLP branch
-        hmod = P.modulate(P.layer_norm(tokens), shift_mlp, scale_mlp)
+        hmod = v.to_tp(P.modulate(P.layer_norm(tokens), shift_mlp, scale_mlp))
         hmod = P.gelu_tanh(v.dense(hmod, self.mlp1))
-        hmod = v.dense(hmod, self.mlp2)
+        hmod = v.row_dense(hmod, self.mlp2)
         return tokens + gate_mlp[:, None, :] * hmod
 
 
@@ -168,6 +182,8 @@ class DiT(nn.Module):
         )
         self.final = _FinalLayer(h, cfg.patch_size * cfg.patch_size * cfg.out_channels)
         self._params = _ParamCache()
+        self.tp = None  # a parallel.mesh.TensorParallel once shard_params splits the weights
+        self.fsdp = False
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -217,34 +233,92 @@ class DiT(nn.Module):
         """Velocity v(x, t) in ``dtype``. x: [B, H, W, C] NHWC latents; t: [B].
         ``masters`` keeps the fp32 parameters in the autograd graph (the
         loss); otherwise they are rounded through ``dtype`` first, ``pos_embed``
-        included, as the JAX sampler casts its param tree."""
-        reject_parallel(mesh=mesh, seq_axis=seq_axis)
+        included, as the JAX sampler casts its param tree. With ``mesh`` and
+        ``seq_axis`` the tokens are split over that mesh dim (sequence
+        parallelism, see the module docstring); the output is whole."""
         cfg = self.cfg
-        v = _View(self._params, dtype, masters)
-        b, hh, ww, _ = x.shape
-        p = cfg.patch_size
-        gh, gw = hh // p, ww // p
-
-        tokens = v.conv(x.to(dtype), self.patch_embed)  # [B, gh, gw, hidden]
-        tokens = tokens.reshape(b, gh * gw, cfg.hidden_size) + v(self.pos_embed)
-        c_emb = self._time_embedding(t, v, dtype)  # [B, hidden]
+        group = mesh.get_group(seq_axis) if mesh is not None and seq_axis is not None else None
+        v = _View(self._params, dtype, masters, self.tp, sum_grads=group if masters else None)
+        tokens, c_emb = self._embed(x, t, v, dtype)
+        if group is not None:
+            n, r = collectives.group_size(group), collectives.group_rank(group)
+            if tokens.shape[1] % n:
+                raise ValueError(f"{tokens.shape[1]} tokens do not split over {n} ranks")
+            rows = tokens.shape[1] // n
+            tokens = tokens.narrow(1, r * rows, rows)
 
         remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             if remat:
                 tokens = checkpoint(
-                    blk, tokens, c_emb, v, cfg.num_heads, use_reentrant=False,
+                    blk, tokens, c_emb, v, cfg.num_heads, group, use_reentrant=False,
                     preserve_rng_state=False,
                 )
             else:
-                tokens = blk(tokens, c_emb, v, cfg.num_heads)
+                tokens = blk(tokens, c_emb, v, cfg.num_heads, group)
 
+        out = self._head(tokens, c_emb, v)
+        if group is not None:
+            out = collectives.all_gather(out, group, dim=1)
+        return self._unpatchify(out, x.shape)
+
+    def _embed(self, x: Tensor, t: Tensor, v: _View, dtype: torch.dtype):
+        """Patch tokens + positions [B, T, hidden], and the time embedding."""
+        b, hh, ww, _ = x.shape
+        p = self.cfg.patch_size
+        tokens = v.conv(x.to(dtype), self.patch_embed)  # [B, gh, gw, hidden]
+        tokens = tokens.reshape(b, (hh // p) * (ww // p), self.cfg.hidden_size)
+        return tokens + v(self.pos_embed), self._time_embedding(t, v, dtype)
+
+    def _head(self, tokens: Tensor, c_emb: Tensor, v: _View) -> Tensor:
+        """Final adaLN and the linear head: [B, T, p * p * C]."""
         shift, scale = v.dense(P.silu(c_emb), self.final.ada).chunk(2, dim=-1)
         tokens = P.modulate(P.layer_norm(tokens), shift, scale)
-        out = v.dense(tokens, self.final.linear)  # [B, T, p * p * C]
-        out = out.reshape(b, gh, gw, p, p, cfg.out_channels)
-        return out.permute(0, 1, 3, 2, 4, 5).reshape(b, hh, ww, cfg.out_channels)
+        return v.dense(tokens, self.final.linear)
 
-    def pipeline_apply(self, *args, **kwargs) -> None:
-        """The GPipe forward over a ``stage`` mesh axis: not ported yet, raises."""
-        reject_parallel(pipeline_apply=True)
+    def _unpatchify(self, out: Tensor, shape) -> Tensor:
+        b, hh, ww, _ = shape
+        p, c = self.cfg.patch_size, self.cfg.out_channels
+        out = out.reshape(b, hh // p, ww // p, p, p, c)
+        return out.permute(0, 1, 3, 2, 4, 5).reshape(b, hh, ww, c)
+
+    def pipeline_apply(
+        self,
+        x: Tensor,
+        t: Tensor,
+        mesh,
+        *,
+        stage_axis: str = "stage",
+        num_microbatches: Optional[int] = None,
+        dtype: torch.dtype = torch.float32,
+        masters: bool = False,
+        stacked_blocks=None,
+    ) -> Tensor:
+        """GPipe forward: the block stack split over ``mesh``'s ``stage_axis``
+        (``parallel/pipeline.py``); the patch embedding and the head run on
+        every stage. ``stacked_blocks``: this stage's stacked block weights
+        (``pipeline.split_pipeline_params``), else stacked from the module's
+        own. Returns the whole output on every stage."""
+        from rectified_flow_vision_tpu_torch.parallel import pipeline as PP
+
+        cfg = self.cfg
+        v = _View(self._params, dtype, masters)
+        if stacked_blocks is None:
+            stacked_blocks = PP.shard_stage_params(
+                mesh, PP.stack_block_params(self.blocks, mesh.size(
+                    mesh.mesh_dim_names.index(stage_axis))), stage_axis)
+        if not masters:
+            stacked_blocks = {k: val.detach() for k, val in stacked_blocks.items()}
+        tokens, c_emb = self._embed(x, t, v, dtype)
+
+        template = self.blocks[0]
+
+        def block_fn(params, tok, c):
+            return torch.func.functional_call(
+                template, params, (tok, c, _View(None, dtype, True), cfg.num_heads))
+
+        tokens = PP.pipeline_apply(
+            block_fn, stacked_blocks, tokens, c_emb, mesh, stage_axis=stage_axis,
+            num_microbatches=num_microbatches,
+        )
+        return self._unpatchify(self._head(tokens, c_emb, v), x.shape)

@@ -37,10 +37,12 @@ from rectified_flow_vision_tpu_torch.models.base_flow import (
     make_optimizer,
     make_train_epoch,
     make_train_step,
-    reject_unported,
+    place_for_training,
     restore_train_state,
     save_epoch_checkpoints,
+    save_train_state,
 )
+from rectified_flow_vision_tpu_torch.parallel import mesh as mesh_lib
 from rectified_flow_vision_tpu_torch.utils import checkpoint as ckpt_io
 from rectified_flow_vision_tpu_torch.utils.logging_config import get_logger
 
@@ -123,6 +125,7 @@ def generate_reflow_pairs(
     method: str = "euler",
     real_data=None,
     data_pair_fraction: float = 0.0,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Synthesize (noise, image) couplings for Reflow training, as numpy
     arrays of shape [num_pairs, ...].
@@ -139,7 +142,18 @@ def generate_reflow_pairs(
     corpus is smaller than the request. Data-side pairs come first.
 
     ``method`` selects the teacher's integrator ("euler", "midpoint", "heun").
+
+    With ``mesh`` (every rank calls it alike) each data rank integrates its
+    rows of every batch and the batches are gathered, so every rank returns
+    all the pairs, the same as without a mesh.
     """
+    mesh = mesh_lib.effective_mesh(mesh)
+    if batch_size % mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS):
+        raise ValueError(f"batch_size {batch_size} does not split over the data ranks")
+
+    def rows(fn, x):
+        return mesh_lib.gather_batch(mesh, fn(mesh_lib.shard_batch(mesh, torch.as_tensor(x))))
+
     num_data_pairs = 0
     if data_pair_fraction > 0.0:
         if real_data is None:
@@ -162,9 +176,8 @@ def generate_reflow_pairs(
             x1 = unique[start : start + batch_size]
             pad = batch_size - x1.shape[0]
             x1_full = np.concatenate([x1, x1[:1].repeat(pad, 0)]) if pad else x1
-            x0 = teacher_model.invert(
-                x1_full, num_steps=num_steps, data_format="NHWC", method=method
-            )
+            x0 = rows(lambda x: teacher_model.invert(
+                x, num_steps=num_steps, data_format="NHWC", method=method), x1_full)
             x0_parts.append(x0.cpu().numpy()[: x1.shape[0]])
         idx = np.arange(num_data_pairs) % n_unique
         x0_list.append(np.concatenate(x0_parts)[idx])
@@ -177,9 +190,8 @@ def generate_reflow_pairs(
     )
     for _ in range(-(-num_fwd_pairs // batch_size) if num_fwd_pairs else 0):
         x0 = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-        x1 = teacher_model.sample(
-            noise=x0, num_steps=num_steps, data_format="NHWC", method=method
-        )
+        x1 = rows(lambda x: teacher_model.sample(
+            noise=x, num_steps=num_steps, data_format="NHWC", method=method), x0)
         # to the host per batch: at most one rollout is in flight, and device
         # memory holds two batches
         x0_list.append(x0.cpu().numpy())
@@ -220,9 +232,8 @@ def train_rectified_flow(
     loss on (x0, x1) pairs with t ~ U[0, 1] by default (``time_sampling``
     selects logit_normal / u_shaped). With ``ema_decay`` an EMA of the student
     is carried and written as ``*_ema_*``: the weights to sample from.
-    ``resume_dir`` saves and restores the full train state, as in
-    ``train_base_flow``. ``mesh`` and ``fsdp`` are not ported yet and raise."""
-    reject_unported(mesh=mesh, fsdp=fsdp)
+    ``resume_dir`` saves and restores the full train state, and ``mesh`` /
+    ``fsdp`` place the training, as in ``train_base_flow``."""
     device = model.device
     x0_data = _to_nhwc(x0_data, data_format, device).float()
     x1_data = _to_nhwc(x1_data, data_format, device).float()
@@ -231,17 +242,18 @@ def train_rectified_flow(
         raise ValueError("no reflow pairs given")
 
     steps_per_epoch = max(n // batch_size, 1)
-    opt = make_optimizer(model, lr, epochs, steps_per_epoch)
+    mesh = place_for_training(model, mesh, fsdp, batch_size)
+    opt = make_optimizer(model, lr, epochs, steps_per_epoch, mesh=mesh)
     use_ema = ema_decay is not None and ema_decay > 0
     state_mgr, losses, start_epoch, ema = None, [], 0, None
     if resume_dir is not None:
         state_mgr, losses, start_epoch, ema = restore_train_state(
-            resume_dir, model, opt, use_ema, "reflow")
+            resume_dir, model, opt, use_ema, "reflow", mesh)
     if use_ema and ema is None:
         ema = init_ema(model)
     step_kwargs = dict(
         coupled=True, ema=ema, ema_decay=ema_decay if use_ema else None,
-        time_sampling=time_sampling,
+        time_sampling=time_sampling, mesh=mesh,
     )
     nbytes = (x0_data.numel() + x1_data.numel()) * 4
     if device_epoch is None:
@@ -267,7 +279,7 @@ def train_rectified_flow(
         else:
             step_losses = torch.stack([
                 train_step((x0_host[idx].to(device), x1_host[idx].to(device)), gen)
-                for idx in perm
+                for idx in map(lambda i: mesh_lib.shard_batch(mesh, i), perm)
             ])
         avg_loss = float(step_losses.mean())
         losses.append(avg_loss)
@@ -279,12 +291,13 @@ def train_rectified_flow(
         if save_path and (epoch + 1) % save_every == 0:
             save_epoch_checkpoints(model, ema, save_path, f"epoch{epoch + 1}", ckpt_ext)
         if state_mgr is not None and (epoch + 1) % save_every == 0:
-            state_mgr.save(epoch, model.state_dict(), opt.state_dict(), losses, ema=ema)
+            save_train_state(state_mgr, epoch, model, opt, losses, ema)
 
     if save_path:
         save_epoch_checkpoints(model, ema, save_path, "final", ckpt_ext)
     if state_mgr is not None:
         close_train_state(state_mgr, model, opt, losses, ema, start_epoch, epochs)
+    mesh_lib.unshard(model)
     return losses
 
 

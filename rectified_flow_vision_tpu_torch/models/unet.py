@@ -32,6 +32,17 @@ eval mode), ``conv3x3`` at conv1, conv2 and the upsample convs,
 ``attention_block`` at ``mid_attn``. The input and output convs, the
 stride-2 downsamples and the 1x1 shortcuts are plain convs, as the JAX
 package leaves them to XLA.
+
+Tensor parallelism (``parallel/mesh.py`` ``shard_params`` sets ``tp``): each
+rank holds its shards of the parameters that ``_TP_RULES`` splits, and the
+forward is Megatron's. A residual block's conv1 and time projection are
+column-parallel (the rank's out channels), norm2 runs the fused kernel on
+those channels with 8 / tp groups and the dropout mask of their place in the
+whole activation, conv2 is row-parallel: the ranks' partial sums are summed
+over the group and the bias added once. The attention block runs its kernels
+on the rank's heads without the residual, summed the same way; the time MLP
+splits its 4C hidden dim. ``copy_to_group`` / ``psum``
+(``parallel/collectives.py``) carry the gradients across the group.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from rectified_flow_vision_tpu_torch.ops import fused
 from rectified_flow_vision_tpu_torch.ops import primitives as P
+from rectified_flow_vision_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -93,13 +105,22 @@ class _ParamCache:
 class _View:
     """The parameters of one forward call, in that call's dtype: cached,
     rounded and detached copies for sampling, or (``masters``) the fp32
-    masters cast inside the autograd graph."""
+    masters cast inside the autograd graph; with ``tp`` (a
+    ``parallel.mesh.TensorParallel``) the rank's shards of them. With
+    ``sum_grads`` (a process group whose ranks each hold part of the tokens)
+    the masters' gradients are summed over it."""
 
-    def __init__(self, cache: _ParamCache, dtype: torch.dtype, masters: bool = False) -> None:
-        self.cache, self.dtype, self.masters = cache, dtype, masters
+    def __init__(
+        self, cache: _ParamCache, dtype: torch.dtype, masters: bool = False, tp=None,
+        sum_grads=None,
+    ) -> None:
+        self.cache, self.dtype, self.masters, self.tp = cache, dtype, masters, tp
+        self.sum_grads = sum_grads
 
     def __call__(self, p: Tensor, layout: str = "plain") -> Tensor:
         if self.masters:
+            if self.sum_grads is not None:
+                p = collectives.copy_to_group(p, self.sum_grads)
             return _layout(p, self.dtype, layout, round_f32=False)
         return self.cache.get(p, self.dtype, layout)
 
@@ -111,6 +132,14 @@ class _View:
         """A conv3x3 kernel site (``fused.conv2d_fused``)."""
         return fused.conv2d_fused(x, self(m.weight, "ohwi"), self(m.bias, "f32"))
 
+    def col_conv3x3(self, x: Tensor, m: nn.Conv2d) -> Tensor:
+        """A conv3x3 site that is column-parallel under tensor parallelism
+        (the rank's output channels)."""
+        if self.tp is None:
+            return self.conv3x3(x, m)
+        return fused.conv2d_fused(x, self(m.weight, "ohwi"), self(m.bias, "f32"),
+                                  shards=(1, self.tp.size))
+
     def gn_silu(self, x: Tensor, m: nn.GroupNorm) -> Tensor:
         return fused.gn_silu(
             x, self(m.weight, "f32"), self(m.bias, "f32"), num_groups=m.num_groups
@@ -119,13 +148,44 @@ class _View:
     def gn_silu_dropout(
         self, x: Tensor, m: nn.GroupNorm, rate: float, seed: Optional[Tensor], train: bool
     ) -> Tensor:
+        groups, channels = m.num_groups, None
+        if self.tp is not None:  # this rank's channels: their groups, their mask bits
+            c = x.shape[-1]
+            groups, channels = groups // self.tp.size, (self.tp.rank * c, self.tp.size * c)
         return fused.gn_silu_dropout(
             x, self(m.weight, "f32"), self(m.bias, "f32"), rate, seed,
-            train=train, num_groups=m.num_groups,
+            train=train, num_groups=groups, channels=channels,
         )
 
     def dense(self, x: Tensor, m: nn.Linear) -> Tensor:
         return P.dense(x, self(m.weight), self(m.bias, "f32"))
+
+    # ---- tensor parallelism (the identity without ``tp``) ----
+
+    def to_tp(self, x: Tensor) -> Tensor:
+        """A value every rank holds, entering column-parallel work."""
+        return x if self.tp is None else collectives.copy_to_group(x, self.tp.group)
+
+    def tp_sum(self, part: Tensor, bias: Tensor) -> Tensor:
+        """Row-parallel partial sums (bias-free), summed over the group in
+        fp32, then the bias added once and rounded to the part's dtype."""
+        return (collectives.psum(part.float(), self.tp.group) + bias).to(part.dtype)
+
+    def row_conv3x3(self, x: Tensor, m: nn.Conv2d) -> Tensor:
+        """A conv3x3 site that is row-parallel under tensor parallelism."""
+        if self.tp is None:
+            return self.conv3x3(x, m)
+        bias = self(m.bias, "f32")
+        part = fused.conv2d_fused(x, self(m.weight, "ohwi"), torch.zeros_like(bias),
+                                  shards=(self.tp.size, 1))
+        return self.tp_sum(part, bias)
+
+    def row_dense(self, x: Tensor, m: nn.Linear) -> Tensor:
+        """A dense layer that is row-parallel under tensor parallelism."""
+        if self.tp is None:
+            return self.dense(x, m)
+        bias = self(m.bias, "f32")
+        return self.tp_sum(P.dense(x, self(m.weight), torch.zeros_like(bias)), bias)
 
 
 class ResidualBlock(nn.Module):
@@ -151,13 +211,13 @@ class ResidualBlock(nn.Module):
         self, x: Tensor, t_emb: Tensor, v: _View, seed: Optional[Tensor] = None,
         train: bool = False,
     ) -> Tensor:
-        h = v.gn_silu(x, self.norm1)
-        h = v.conv3x3(h, self.conv1)
-        t_bias = v.dense(P.silu(t_emb), self.time_mlp[1])
+        h = v.to_tp(v.gn_silu(x, self.norm1))
+        h = v.col_conv3x3(h, self.conv1)
+        t_bias = v.dense(v.to_tp(P.silu(t_emb)), self.time_mlp[1])
         h = h + t_bias[:, None, None, :].to(h.dtype)
         # gn -> silu -> dropout is one fused pass; gn_silu in eval mode
         h = v.gn_silu_dropout(h, self.norm2, self.dropout, seed, train)
-        h = v.conv3x3(h, self.conv2)
+        h = v.row_conv3x3(h, self.conv2)
         shortcut = v.conv(x, self.shortcut) if self.shortcut is not None else x
         return h + shortcut
 
@@ -174,17 +234,28 @@ class AttentionBlock(nn.Module):
         self.num_heads = num_heads
 
     def forward(self, x: Tensor, v: _View) -> Tensor:
-        return fused.attention(
-            x,
+        weights = (
             v(self.norm.weight, "f32"),
             v(self.norm.bias, "f32"),
             v(self.qkv.weight, "mat"),
             v(self.qkv.bias, "f32"),
             v(self.proj.weight, "mat"),
-            v(self.proj.bias, "f32"),
-            num_heads=self.num_heads,
-            num_groups=self.norm.num_groups,
         )
+        bias = v(self.proj.bias, "f32")
+        if v.tp is None:
+            return fused.attention(
+                x, *weights, bias, num_heads=self.num_heads, num_groups=self.norm.num_groups
+            )
+        # the rank's heads, without the residual; their sum, the bias once,
+        # +x. x and the norm's affine, which every rank holds, feed
+        # rank-local work: their gradients are summed over the group.
+        ns, nb, *split = weights
+        part = fused.attention(
+            v.to_tp(x), v.to_tp(ns), v.to_tp(nb), *split, torch.zeros_like(bias),
+            num_heads=self.num_heads // v.tp.size, num_groups=self.norm.num_groups,
+            residual=False,
+        )
+        return x + v.tp_sum(part, bias)
 
 
 class UNet(nn.Module):
@@ -212,6 +283,9 @@ class UNet(nn.Module):
         # only at the middle block
         self.attention_resolutions = tuple(attention_resolutions)
         self.dropout = dropout
+        self.norm_groups = num_groups
+        self.tp = None  # a parallel.mesh.TensorParallel once shard_params splits the weights
+        self.fsdp = False
         chans = [model_channels * m for m in self.channel_mult]
         tdim = model_channels * 4
         levels = len(chans)
@@ -305,7 +379,7 @@ class UNet(nn.Module):
         backward pass instead of keeping its activations: a memory lever; the
         seed makes the recomputed mask the same.
         """
-        v = _View(self._params, dtype, masters)
+        v = _View(self._params, dtype, masters, self.tp)
         x = x.to(dtype)
         if train and seeds is not None and self.dropout > 0:
             if tuple(seeds.shape) != (self.num_dropout_seeds,) or seeds.dtype != torch.int32:
@@ -327,8 +401,8 @@ class UNet(nn.Module):
             return block(h, t_emb, v, seed, train)
 
         t_emb = P.sinusoidal_time_embedding(t, self.model_channels).to(dtype)
-        t_emb = v.dense(t_emb, self.time_mlp[1])
-        t_emb = v.dense(P.silu(t_emb), self.time_mlp[3])
+        t_emb = v.dense(v.to_tp(t_emb), self.time_mlp[1])
+        t_emb = v.row_dense(P.silu(t_emb), self.time_mlp[3])
 
         h = v.conv(x, self.input_conv)
         levels = len(self.channel_mult)

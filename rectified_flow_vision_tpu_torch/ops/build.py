@@ -61,14 +61,16 @@ _U, _L = ctypes.c_uint32, ctypes.c_longlong
 _SIGNATURES = {
     "rfv_gn_silu": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "rfv_gn_silu_backward": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _F, _I, _I, _I, _P,
     ],
-    "rfv_gn_silu_dropout": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _U, _F, _I, _P],
+    "rfv_gn_silu_dropout": [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _U, _F, _I, _I, _I, _P,
+    ],
     "rfv_dropout_mask_apply": [_P, _P, _P, _I, _L, _U, _F, _I, _P],
     "rfv_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rfv_conv3x3_smem": [_I, _I],
     "rfv_attention_block": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     "rfv_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _F, _I, _P],

@@ -30,17 +30,22 @@ from rectified_flow_vision_tpu_torch.ops import build
 Tensor = torch.Tensor
 
 
-def supports(x_shape, w_shape, stride: int) -> bool:
-    """The kernel's contract (as the JAX ``conv_pallas.supports``): 3x3,
-    stride 1, Cin and Cout multiples of 64, H >= 8 and 8 <= W <= 256.
-    ``w_shape`` is OHWI."""
+def supports(x_shape, w_shape, stride: int, *, multiple: int = 64) -> bool:
+    """Whether a conv is the kernel's site (as the JAX ``conv_pallas.supports``):
+    3x3, stride 1, Cin and Cout multiples of 64, H >= 8 and 8 <= W <= 256.
+    ``w_shape`` is OHWI. The kernel itself takes channels that are multiples
+    of ``KERNEL_MULTIPLE`` (``multiple=``), so that a tensor-parallel rank's
+    slice of a site's channels runs on it too."""
     if stride != 1 or len(w_shape) != 4 or tuple(w_shape[1:3]) != (3, 3):
         return False
     _, h, wdt, cin = x_shape
     cout = w_shape[0]
-    if w_shape[3] != cin or cin % 64 or cout % 64:
+    if w_shape[3] != cin or cin % multiple or cout % multiple:
         return False
     return h >= 8 and 8 <= wdt <= 256
+
+
+KERNEL_MULTIPLE = 16  # the fp32 kernel's k-chunk lies in one tap
 
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
@@ -84,9 +89,9 @@ def conv3x3_plain(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
 def conv3x3_cuda(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     """Launch the CUDA kernel. x: (N, H, W, Cin); w: (Cout, 3, 3, Cin) in x's
     dtype; b: (Cout,) fp32."""
-    build.require_cuda(x, "conv3x3")
-    if not supports(x.shape, w.shape, 1):
+    if not supports(x.shape, w.shape, 1, multiple=KERNEL_MULTIPLE):
         raise ValueError(f"conv3x3: shapes x {tuple(x.shape)}, w {tuple(w.shape)} not supported")
+    build.require_cuda(x, "conv3x3")
     n, h, wdt, cin = x.shape
     cout = w.shape[0]
     if n * h * wdt >= 2**31:

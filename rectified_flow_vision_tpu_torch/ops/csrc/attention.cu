@@ -455,44 +455,50 @@ int linear_f32(const void* a, const void* w, const void* bias, const void* resid
 
 }  // namespace
 
-// x, out: [B, H, W, C]; wqkv: [3C, C]; wproj: [C, C] (torch Linear layouts),
-// all contiguous in `dtype`; gscale, gbias: [C], bqkv: [3C], bproj: [C]
-// float32; qkv: [B, H*W, 3C]
-// and att: [B, H*W, C] workspaces in `dtype` (att first holds the normalised
-// x). bf16: the tiling of the two projections (ops/conv3x3.py tile_config
-// for C -> 3C and C -> C: bn, stages and box rows hb of each; the box
-// columns wb they share). Requires gn_silu's contract for C and G, C %
-// heads == 0, C / heads <= 128, and for bf16 C % 8 == 0. Any H * W >= 1.
+// x, out: [B, H, W, C]; wqkv: [3Ci, C]; wproj: [C, Ci] (torch Linear
+// layouts), all contiguous in `dtype`; gscale, gbias: [C], bqkv: [3Ci],
+// bproj: [C] float32; qkv: [B, H*W, 3Ci] and att: [B, H*W, max(C, Ci)]
+// workspaces in `dtype` (att first holds the normalised x). Ci, the width of
+// the heads, is C, or under tensor parallelism the rank's heads' share of
+// it; without `residual` the block returns proj(attention) alone (a rank's
+// partial sum). bf16: the tiling of the two projections (ops/conv3x3.py
+// tile_config for C -> 3Ci and Ci -> C: bn, stages and box rows hb of each;
+// the box columns wb they share). Requires gn_silu's contract for C and G,
+// Ci % heads == 0, Ci / heads <= 128, and for bf16 C % 8 == 0 and Ci % 8 ==
+// 0. Any H * W >= 1.
 extern "C" int rfv_attention_block(const void* x, const void* gscale, const void* gbias,
                                    const void* wqkv, const void* bqkv, const void* wproj,
                                    const void* bproj, void* qkv, void* att, void* out,
-                                   int B, int H, int W, int C, int heads, int G, float eps,
-                                   int qkv_bn, int qkv_stages, int qkv_hb, int proj_bn,
-                                   int proj_stages, int proj_hb, int wb, int dtype,
-                                   void* stream) {
+                                   int B, int H, int W, int C, int Ci, int heads, int G,
+                                   float eps, int residual, int qkv_bn, int qkv_stages,
+                                   int qkv_hb, int proj_bn, int proj_stages, int proj_hb, int wb,
+                                   int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int N = H * W, M = B * N, d = C / heads;
+  const int N = H * W, M = B * N, d = Ci / heads;
   const bool bf = dtype == RFV_DTYPE_BF16;
-  if (d > 128 || (bf && C % 8)) return (int)cudaErrorInvalidValue;
+  if (d > 128 || Ci % heads || (bf && (C % 8 || Ci % 8))) return (int)cudaErrorInvalidValue;
   // 1: the GroupNorm and the normalised x, rounded, into att
   int e = rfv_gn::forward_dtype<false, false>(x, gscale, gbias, nullptr, att, B, N, C, G, eps,
                                               rfv_gn::Dropout{}, dtype, st);
   if (e) return e;
   // 2: qkv = T(xn W_qkv^T + b)
-  e = bf ? rfv_conv::launch_bf16(att, wqkv, bqkv, nullptr, qkv, B, H, W, C, 3 * C, 1, qkv_bn,
+  e = bf ? rfv_conv::launch_bf16(att, wqkv, bqkv, nullptr, qkv, B, H, W, C, 3 * Ci, 1, qkv_bn,
                                  qkv_stages, wb, qkv_hb, st)
-         : linear_f32<false>(att, wqkv, bqkv, nullptr, qkv, M, C, 3 * C, st);
+         : linear_f32<false>(att, wqkv, bqkv, nullptr, qkv, M, C, 3 * Ci, st);
   if (e) return e;
   // 3: the core, qkv -> att
   if (d <= 32)
-    e = launch_core<32>(qkv, att, B, N, C, heads, d, bf, st);
+    e = launch_core<32>(qkv, att, B, N, Ci, heads, d, bf, st);
   else if (d <= 64)
-    e = launch_core<64>(qkv, att, B, N, C, heads, d, bf, st);
+    e = launch_core<64>(qkv, att, B, N, Ci, heads, d, bf, st);
   else
-    e = launch_core<128>(qkv, att, B, N, C, heads, d, bf, st);
+    e = launch_core<128>(qkv, att, B, N, Ci, heads, d, bf, st);
   if (e) return e;
-  // 4: out = T(x + T(att W_proj^T + b))
-  return bf ? rfv_conv::launch_bf16(att, wproj, bproj, x, out, B, H, W, C, C, 1, proj_bn,
-                                    proj_stages, wb, proj_hb, st)
-            : linear_f32<true>(att, wproj, bproj, x, out, M, C, C, st);
+  // 4: out = T(x + T(att W_proj^T + b)), or T(att W_proj^T + b)
+  const void* resid = residual ? x : nullptr;
+  if (bf)
+    return rfv_conv::launch_bf16(att, wproj, bproj, resid, out, B, H, W, Ci, C, 1, proj_bn,
+                                 proj_stages, wb, proj_hb, st);
+  return residual ? linear_f32<true>(att, wproj, bproj, x, out, M, Ci, C, st)
+                  : linear_f32<false>(att, wproj, bproj, nullptr, out, M, Ci, C, st);
 }

@@ -36,9 +36,13 @@
 //    Pixels past W or H are computed and not stored (none on the main path).
 //  - B, the weights, by TMA over [Cout, 9*Cin], box 64 x BN.
 //  - Both land 128-byte swizzled in a ring of 4-8 stages of BK = 64 (one
-//    tap, 64 input channels; Cin % 64 == 0), BM x 128 + BN x 128 bytes
-//    each, signalled by mbarriers (full: TMA bytes; empty: the 8 consumer
-//    warps).
+//    tap, 64 input channels), BM x 128 + BN x 128 bytes each, signalled by
+//    mbarriers (full: TMA bytes; empty: the 8 consumer warps). Cin need only
+//    be a multiple of 16 (a tensor-parallel rank's slice of 64 channels): a
+//    tap's last k-step then reads channels past Cin as zeros from TMA, and
+//    its weight box's columns past the tap (the next tap's, or past 9 * Cin)
+//    multiply those zeros. Cout below BN (a multiple of 8) leaves the
+//    weight box's rows past Cout zero-filled and those columns unstored.
 //  - Warpgroup 0 is the producer (one thread issues the TMA loads, 40
 //    registers); warpgroups 1 and 2 each own BM / 2 rows of the tile and run
 //    wgmma.m64nBNk16 (fp32 accumulators in registers, at most 128 a thread,
@@ -57,7 +61,8 @@
 //
 // float32: a SIMT kernel (64 x 64 tile, 4 x 4 outputs per thread, fp32
 // FMA), exact fp32 products, for the fp32 model path and checks; TF32 would
-// change the numbers.
+// change the numbers. A k-chunk of 16 lies in one tap (Cin % 16 == 0);
+// output channels past Cout read zero weights and are not stored.
 #include <cuda.h>
 
 #include "conv3x3.cuh"
@@ -201,7 +206,11 @@ __device__ __forceinline__ void wgmma_conv_body(const CUtensorMap& tm_x, const C
           mbar_expect_tx(&full[stage], STAGE_BYTES);
           uint8_t* st = smem + stage * STAGE_BYTES;
           tma_load_4d(st, &tm_x, &full[stage], ci0, tl.w0 + dx, tl.h0 + dy, tl.img);
-          tma_load_2d(st + A_STAGE_BYTES, &tm_w, &full[stage], kt * BK, tl.n0);
+          // the weights' K index of (tap, ci0); where Cin % 64 != 0 the box
+          // runs into the next tap's columns, which meet the zero-filled
+          // channels past Cin in A
+          tma_load_2d(st + A_STAGE_BYTES, &tm_w, &full[stage],
+                      (TAPS == 9 ? tap * s.Cin : 0) + ci0, tl.n0);
           if (++stage == s.stages) {
             stage = 0;
             phase ^= 1;
@@ -357,7 +366,7 @@ int launch_wgmma(const void* x, const void* w, const void* bias, const void* res
   int wb_log2 = 0;
   while ((1 << wb_log2) < wb) ++wb_log2;
   if ((1 << wb_log2) != wb || wb * hb != 128 * sub_tiles<BN>() || Cin % 8 || Cout % 8 ||
-      (taps == 9 && Cin % BK) || (taps != 9 && taps != 1) || (taps == 9 && resid))
+      (taps == 9 && Cin % 16) || (taps != 9 && taps != 1) || (taps == 9 && resid))
     return (int)cudaErrorInvalidValue;
 
   CUtensorMap tm_x, tm_w;
@@ -438,8 +447,8 @@ __global__ void __launch_bounds__(256)
     if (img >= 0 && ih >= 0 && ih < H && iw >= 0 && iw < W)
       a = *reinterpret_cast<const float4*>(x + (((size_t)img * H + ih) * W + iw) * Cin + ci0 +
                                            lk);
-    const float4 b =
-        *reinterpret_cast<const float4*>(w + (size_t)(n0 + lrow) * K + k0 + lk);
+    float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (n0 + lrow < Cout) b = *reinterpret_cast<const float4*>(w + (size_t)(n0 + lrow) * K + k0 + lk);
     As[lk + 0][lrow] = a.x;
     As[lk + 1][lrow] = a.y;
     As[lk + 2][lrow] = a.z;
@@ -465,7 +474,7 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int mo = m0 + ty * 4 + i;
-    if (mo < M) {
+    if (mo < M && n0 + tx * 4 < Cout) {  // Cout % 16 == 0: a thread's 4 columns all in or out
       float v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) v[j] = acc[i][j] + bias[n0 + tx * 4 + j];
@@ -498,7 +507,7 @@ int rfv_conv::launch_bf16(const void* x, const void* w, const void* bias, const 
 }
 
 // x: [N, H, W, Cin], w: [Cout, 3, 3, Cin], y: [N, H, W, Cout], all contiguous
-// in `dtype`; bias: [Cout] float32. Requires Cin % 64 == 0, Cout % 64 == 0.
+// in `dtype`; bias: [Cout] float32. Requires Cin % 16 == 0, Cout % 16 == 0.
 // bf16 only: bn (64, 128, 192 or 256), the ring's `stages`, and the A box of
 // hb rows x wb columns (wb a power of two, wb * hb = 128 or 256 as bn asks):
 // ops/conv3x3.py tile_config.
@@ -510,7 +519,7 @@ extern "C" int rfv_conv3x3(const void* x, const void* w, const void* bias, void*
     return rfv_conv::launch_bf16(x, w, bias, nullptr, y, N, H, W, Cin, Cout, 9, bn, stages, wb,
                                  hb, st);
   const int M = N * H * W;
-  dim3 grid((M + FBM - 1) / FBM, Cout / FBN);
+  dim3 grid((M + FBM - 1) / FBM, (Cout + FBN - 1) / FBN);
   conv3x3_f32_kernel<<<grid, 256, 0, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(y), N, H, W, Cin, Cout);

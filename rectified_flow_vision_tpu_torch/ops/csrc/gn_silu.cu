@@ -68,12 +68,14 @@ extern "C" int rfv_gn_silu(const void* x, const void* scale, const void* bias, v
 // null (the mask regenerated from it: g' = g * inv_keep where the element's
 // bits < thresh, else 0). x, g, dx: [B, HW, C] contiguous in `dtype`; scale,
 // bias: [C] float32; stats: the forward's [B, G] float2; part: [B, C] float2
-// workspace; dscale, dbias: [C] float32. Contract as rfv_gn_silu.
+// workspace; dscale, dbias: [C] float32. c_off, c_total: the channels'
+// place in an unsharded activation (rfv_gn::Dropout; 0, 0 for none).
+// Contract as rfv_gn_silu.
 extern "C" int rfv_gn_silu_backward(const void* x, const void* g, const void* scale,
                                     const void* bias, const void* stats, const void* seed,
                                     void* part, void* dx, void* dscale, void* dbias, int B,
                                     int HW, int C, int G, unsigned thresh, float inv_keep,
-                                    int dtype, void* stream) {
+                                    int c_off, int c_total, int dtype, void* stream) {
   if (C % G || G > rfv_gn::kMaxGroups || B < 1 || B > 65535 || HW < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -83,7 +85,8 @@ extern "C" int rfv_gn_silu_backward(const void* x, const void* g, const void* sc
   float2* pt = static_cast<float2*>(part);
   float* ds = static_cast<float*>(dscale);
   float* db = static_cast<float*>(dbias);
-  const rfv_gn::Dropout drop{static_cast<const int*>(seed), thresh, inv_keep};
+  const rfv_gn::Dropout drop{static_cast<const int*>(seed), thresh, inv_keep, (uint32_t)c_off,
+                             (uint32_t)c_total};
   if (dtype == RFV_DTYPE_BF16) {
     const rfv_gn::BwdArgs<bf16> a{static_cast<const bf16*>(x), static_cast<const bf16*>(g), sc,
                                   bi, s2, pt, static_cast<bf16*>(dx), HW, C, G, 0, drop};

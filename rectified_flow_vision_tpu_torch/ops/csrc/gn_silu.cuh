@@ -39,11 +39,29 @@ constexpr int kChunkBytes = 16384;
 
 // Dropout: `seed` points at one int32 on the device, so the caller never has
 // to bring a seed drawn there to the host.
+//
+// Under tensor parallelism a rank holds channels [c_off, c_off + C) of an
+// activation of c_total channels; an element's bits are then those of its
+// place in the whole activation, pixel * c_total + c_off + channel, so the
+// ranks together drop what one card would. c_total 0 means C, no offset.
 struct Dropout {
   const int* seed;
   uint32_t thresh;  // keep where bits < thresh
   float inv_keep;
+  uint32_t c_off;
+  uint32_t c_total;
 };
+
+// The flat index that keys the dropout bits of a pixel's channel c (see
+// Dropout), mod 2^32 as the bits take it; a thread's rows step it by
+// nrow * drop_width, one add a vector.
+__device__ __forceinline__ uint32_t drop_width(const Dropout& d, int C) {
+  return d.c_total ? d.c_total : (uint32_t)C;
+}
+
+__device__ __forceinline__ uint32_t drop_index(const Dropout& d, int pixel, int c, int C) {
+  return (uint32_t)pixel * drop_width(d, C) + d.c_off + (uint32_t)c;
+}
 
 // ---- Hopper primitives: cluster barrier, bulk copies, mbarrier ----
 
@@ -315,7 +333,9 @@ __device__ __forceinline__ void fwd_body(const FwdArgs<T>& a) {
     }
     uint32_t seed = 0;
     if constexpr (DROP) seed = (uint32_t)*a.drop.seed;
-    for (int p = t.r; p < t.np; p += t.nrow) {
+    uint32_t di = drop_index(a.drop, t.p0 + t.r, t.j * V, a.C);
+    const uint32_t dstep = (uint32_t)t.nrow * drop_width(a.drop, a.C);
+    for (int p = t.r; p < t.np; p += t.nrow, di += dstep) {
       const size_t i = (size_t)p * a.C + t.j * V;
       float v[V];
       loadv<V>(src + i, v);
@@ -326,7 +346,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs<T>& a) {
       }
       if constexpr (DROP) {
         uint32_t bits[V];
-        dropout_bits<V>(seed, (uint32_t)b, (uint32_t)((size_t)t.p0 * a.C + i), bits);
+        dropout_bits<V>(seed, (uint32_t)b, di, bits);
 #pragma unroll
         for (int e = 0; e < V; ++e) v[e] = bits[e] < a.drop.thresh ? v[e] * a.drop.inv_keep : 0.f;
       }
@@ -438,15 +458,16 @@ __global__ void __launch_bounds__(kBwdThreads) gn_silu_bwd_kernel(const BwdArgs<
   float s1[V], s2[V];
 #pragma unroll
   for (int e = 0; e < V; ++e) s1[e] = s2[e] = 0.f;
+  uint32_t di = drop_index(a.drop, t.p0 + t.r, t.j * V, a.C);
+  const uint32_t dstep = (uint32_t)t.nrow * drop_width(a.drop, a.C);
   if (t.active)
-    for (int p = t.r; p < t.np; p += t.nrow) {
+    for (int p = t.r; p < t.np; p += t.nrow, di += dstep) {
       if constexpr (RES) arr.wait(bars, p, waited);
       const size_t i = (size_t)p * a.C + t.j * V;
       float x[V], g[V], xh[V];
       loadv<V>(xs + i, x);
       loadv<V>(gs + i, g);
-      bwd_dz<T, V, DROP>(x, g, ga, be, m, rs, seed, (uint32_t)b,
-                      (uint32_t)((size_t)t.p0 * a.C + i), a.drop, xh);
+      bwd_dz<T, V, DROP>(x, g, ga, be, m, rs, seed, (uint32_t)b, di, a.drop, xh);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         s1[e] += g[e];

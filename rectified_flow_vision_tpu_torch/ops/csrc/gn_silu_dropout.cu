@@ -14,6 +14,8 @@
 // g * mask / keep: the backward no longer needs it, it stays for any caller
 // that holds a cotangent apart from x. A mask tensor is never written or
 // read: the bits are Philox4x32-10 of (seed, image, element) (common.cuh),
+// the element's index taken in the unsharded activation under tensor
+// parallelism (rfv_gn::Dropout),
 // about fifteen integer operations per element, which every pass recomputes.
 //
 // The TPU's bits cannot be replayed, so parity with the JAX package is by
@@ -65,13 +67,16 @@ int mask_launch_widest(const void* g, const void* seed, void* out, int B, long l
 }  // namespace
 
 // As rfv_gn_silu, then dropout: seed points at one int32 on the device,
-// an element is kept where its bits < thresh and scaled by inv_keep.
-// Requires HW * C < 2^32 as well.
+// an element is kept where its bits < thresh and scaled by inv_keep. c_off,
+// c_total: the channels' place in an unsharded activation of c_total
+// channels (rfv_gn::Dropout; 0, 0 for none). Requires HW * c_total < 2^32 as
+// well.
 extern "C" int rfv_gn_silu_dropout(const void* x, const void* scale, const void* bias,
                                    const void* seed, void* stats, void* y, int B, int HW, int C,
-                                   int G, float eps, unsigned thresh, float inv_keep, int dtype,
-                                   void* stream) {
-  const rfv_gn::Dropout drop{static_cast<const int*>(seed), thresh, inv_keep};
+                                   int G, float eps, unsigned thresh, float inv_keep, int c_off,
+                                   int c_total, int dtype, void* stream) {
+  const rfv_gn::Dropout drop{static_cast<const int*>(seed), thresh, inv_keep, (uint32_t)c_off,
+                             (uint32_t)c_total};
   return rfv_gn::forward_dtype<true, true>(x, scale, bias, stats, y, B, HW, C, G, eps, drop,
                                            dtype, static_cast<cudaStream_t>(stream));
 }

@@ -7,6 +7,8 @@ is no size cap (the JAX side's VMEM slab cap is a TPU limit) and no fallback
 when a build or a launch fails. The one exception is the conv's contract: a
 conv outside ``conv3x3.supports`` (not 3x3/stride 1, or channels not
 multiples of 64) is the plain conv on every device, as in the JAX package.
+A tensor-parallel rank's slice of a conv is judged by the whole conv: a
+site's slice takes the kernel or raises.
 
 On a CUDA tensor each kernel runs inside a ``torch.autograd.Function``.
 The GroupNorm kernels, flash attention and the standalone dropout have
@@ -80,18 +82,20 @@ class _GnSilu(torch.autograd.Function):
 
 class _GnSiluDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, seed, rate, num_groups):
-        out, stats = D.gn_silu_dropout_cuda(x, scale, bias, seed, rate, num_groups=num_groups)
+    def forward(ctx, x, scale, bias, seed, rate, num_groups, channels):
+        out, stats = D.gn_silu_dropout_cuda(x, scale, bias, seed, rate, num_groups=num_groups,
+                                            channels=channels)
         ctx.save_for_backward(x, scale, bias, stats, seed)
-        ctx.rate, ctx.num_groups = rate, num_groups
+        ctx.rate, ctx.num_groups, ctx.channels = rate, num_groups, channels
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, scale, bias, stats, seed = ctx.saved_tensors
         grads = D.gn_silu_dropout_backward_cuda(x, g, scale, bias, stats, seed, ctx.rate,
-                                                num_groups=ctx.num_groups)
-        return (*_gn_grads(ctx, grads), None, None, None)
+                                                num_groups=ctx.num_groups,
+                                                channels=ctx.channels)
+        return (*_gn_grads(ctx, grads), None, None, None, None)
 
 
 class _Conv3x3(torch.autograd.Function):
@@ -115,22 +119,24 @@ class _Conv3x3(torch.autograd.Function):
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ns, nb, wq, bq, wp, bp, num_heads, num_groups):
+    def forward(ctx, x, ns, nb, wq, bq, wp, bp, num_heads, num_groups, residual):
         ctx.save_for_backward(x, ns, nb, wq, bq, wp, bp)
-        ctx.num_heads, ctx.num_groups = num_heads, num_groups
+        ctx.num_heads, ctx.num_groups, ctx.residual = num_heads, num_groups, residual
         return A.attention_block_cuda(
-            x, ns, nb, wq, bq, wp, bp, num_heads=num_heads, num_groups=num_groups
+            x, ns, nb, wq, bq, wp, bp, num_heads=num_heads, num_groups=num_groups,
+            residual=residual,
         )
 
     @staticmethod
     def backward(ctx, g):
         def plain(*args):
             return A.attention_block_plain(
-                *args, num_heads=ctx.num_heads, num_groups=ctx.num_groups
+                *args, num_heads=ctx.num_heads, num_groups=ctx.num_groups,
+                residual=ctx.residual,
             )
 
         grads = _plain_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[:7], g)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -174,21 +180,32 @@ def gn_silu_dropout(
     *,
     train: bool,
     num_groups: int = 8,
+    channels: D.Channels = None,
 ) -> Tensor:
     """GroupNorm + SiLU + dropout as one fused pass. In eval mode, at rate 0
-    or without a seed it is ``gn_silu``."""
+    or without a seed it is ``gn_silu``. ``channels`` = (offset, total) keys
+    the mask of a tensor-parallel rank's channel slice by its place in the
+    whole activation (``ops/gn_silu_dropout.py``)."""
     if not train or rate <= 0.0 or seed is None:
         return gn_silu(x, scale, bias, num_groups=num_groups)
     if _on_cpu(x):
-        return D.gn_silu_dropout_plain(x, scale, bias, seed, rate, num_groups=num_groups)
+        return D.gn_silu_dropout_plain(x, scale, bias, seed, rate, num_groups=num_groups,
+                                       channels=channels)
     seed = D.seed_tensor(seed, x.device)
-    return _GnSiluDropout.apply(x, scale, bias, seed, float(rate), num_groups)
+    return _GnSiluDropout.apply(x, scale, bias, seed, float(rate), num_groups, channels)
 
 
-def conv2d_fused(x: Tensor, w_ohwi: Tensor, b: Tensor, *, stride: int = 1) -> Tensor:
+def conv2d_fused(
+    x: Tensor, w_ohwi: Tensor, b: Tensor, *, stride: int = 1, shards: Tuple[int, int] = (1, 1)
+) -> Tensor:
     """NHWC conv with an OHWI weight: the conv3x3 kernel inside its contract,
-    the plain conv outside it."""
-    if C.supports(x.shape, w_ohwi.shape, stride):
+    the plain conv outside it. ``shards`` = (in, out): the weight is a
+    tensor-parallel rank's slice, 1 / in of the whole conv's input channels
+    and 1 / out of its output channels; the whole conv decides the site, and
+    on a CUDA tensor the kernel raises if the slice is outside what it takes."""
+    cout, kh, kw, cin = w_ohwi.shape
+    whole = (cout * shards[1], kh, kw, cin * shards[0])
+    if C.supports((*x.shape[:-1], whole[3]), whole, stride):
         if _on_cpu(x):
             return C.conv3x3_plain(x, w_ohwi, b)
         return _Conv3x3.apply(x, w_ohwi, b)
@@ -206,15 +223,19 @@ def attention(
     *,
     num_heads: int = 4,
     num_groups: int = 8,
+    residual: bool = True,
 ) -> Tensor:
-    """Spatial self-attention block (norm -> qkv -> attn -> proj -> +x)."""
+    """Spatial self-attention block (norm -> qkv -> attn -> proj -> +x); a
+    tensor-parallel rank passes its heads' weights and ``residual=False``
+    (``ops/attention.py``)."""
     if _on_cpu(x):
         return A.attention_block_plain(
             x, norm_scale, norm_bias, w_qkv, b_qkv, w_proj, b_proj,
-            num_heads=num_heads, num_groups=num_groups,
+            num_heads=num_heads, num_groups=num_groups, residual=residual,
         )
     return _Attention.apply(
-        x, norm_scale, norm_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads, num_groups
+        x, norm_scale, norm_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads, num_groups,
+        residual,
     )
 
 

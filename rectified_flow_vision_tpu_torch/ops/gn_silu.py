@@ -127,10 +127,11 @@ def gn_silu_cuda(
 
 def launch_backward(
     x: Tensor, g: Tensor, scale: Tensor, bias: Tensor, stats: Tensor, num_groups: int,
-    seed: Optional[Tensor], thresh: int, inv_keep: float,
+    seed: Optional[Tensor], thresh: int, inv_keep: float, channels: Tuple[int, int] = (0, 0),
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """The backward kernel, with the dropout mask of ``seed`` (a (1,) int32
-    tensor on x's device) or without (None)."""
+    tensor on x's device) or without (None); ``channels`` places x's channels
+    in an unsharded activation for the mask (``gn_silu_dropout``)."""
     check_args("gn_silu_backward", x, scale, bias, num_groups)
     b, h, w, c = x.shape
     g = g.contiguous()
@@ -144,7 +145,7 @@ def launch_backward(
         x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(), stats.data_ptr(),
         None if seed is None else seed.data_ptr(), part.data_ptr(), dx.data_ptr(),
         dscale.data_ptr(), dbias.data_ptr(), b, h * w, c, num_groups, thresh, inv_keep,
-        build.DTYPE_CODES[x.dtype], build.stream_ptr(x),
+        channels[0], channels[1], build.DTYPE_CODES[x.dtype], build.stream_ptr(x),
     )
     build.check(rc, "gn_silu_backward")
     build.LAUNCHES["gn_silu_backward"] += 1

@@ -12,7 +12,13 @@ caller with a cotangent apart from x).
 
 The TPU kernels draw bits from the core's own generator, which cannot be
 replayed, so parity is by contract: an element's 32 bits are a pure function
-of (seed, image index, element index within the image). Here that function
+of (seed, image index, element index within the image). Under tensor
+parallelism a rank holds a slice of the channels (``channels`` = (offset,
+total)), and an element's index is its place in the whole activation,
+pixel * total + offset + channel, so the ranks of one data shard drop what
+the unsharded activation would. Under data parallelism each rank runs on
+its rows with the seed folded by its data rank (``models/base_flow.py``),
+as the JAX package's sharded kernel does. Here that function
 is Philox4x32-10 with key = (seed, ``DROPOUT_KEY1``), counter = (image,
 element // 4, 0, 0) and lane = element % 4, written once in CUDA
 (``csrc/common.cuh``) and once below in PyTorch integer ops. The plain
@@ -26,7 +32,7 @@ to the host).
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +42,7 @@ from rectified_flow_vision_tpu_torch.ops import gn_silu as G
 
 Tensor = torch.Tensor
 Seed = Union[int, Tensor]
+Channels = Optional[Tuple[int, int]]  # (offset, total) of a channel slice
 
 DROPOUT_KEY1 = 0x52465644
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -81,40 +88,49 @@ def _seed_word(seed: Seed, device: torch.device) -> Tensor:
     return torch.tensor([int(seed) & _MASK32], dtype=torch.int64, device=device)
 
 
-def dropout_bits(shape, seed: Seed, device: torch.device) -> Tensor:
-    """The 32 dropout bits of every element of a (B, ...) tensor, as int64."""
+def dropout_bits(shape, seed: Seed, device: torch.device, channels: Channels = None) -> Tensor:
+    """The 32 dropout bits of every element of a (B, ..., C) tensor, as int64;
+    with ``channels`` = (offset, total), of channels [offset, offset + C) of a
+    tensor of ``total`` channels."""
     b = int(shape[0])
     n = 1
     for s in shape[1:]:
         n *= int(s)
-    quads = -(-n // 4)
     image = torch.arange(b, dtype=torch.int64, device=device)[:, None]
-    quad = torch.arange(quads, dtype=torch.int64, device=device)[None, :]
     zero = torch.zeros((), dtype=torch.int64, device=device)
-    words = philox4x32_10((image, quad, zero, zero), (_seed_word(seed, device), DROPOUT_KEY1))
+    key = (_seed_word(seed, device), DROPOUT_KEY1)
+    c = int(shape[-1])
+    off, total = _channel_slice(c, channels)
+    quads = -(-n // 4)
+    quad = torch.arange(quads, dtype=torch.int64, device=device)
+    if total != c:  # a slice's quad (4 of its channels) at its place in the whole tensor
+        quad = (4 * quad // c) * (total // 4) + off // 4 + (4 * quad % c) // 4
+    words = philox4x32_10((image, quad[None, :], zero, zero), key)
     words = torch.broadcast_tensors(*words)
     return torch.stack(words, dim=-1).reshape(b, quads * 4)[:, :n].reshape(tuple(shape))
 
 
-def keep_mask(shape, seed: Seed, rate: float, device: torch.device) -> Tensor:
+def keep_mask(
+    shape, seed: Seed, rate: float, device: torch.device, channels: Channels = None
+) -> Tensor:
     """Boolean mask of the kept elements."""
-    return dropout_bits(shape, seed, device) < rate_consts(rate)[0]
+    return dropout_bits(shape, seed, device, channels) < rate_consts(rate)[0]
 
 
-def dropout_mask_apply_plain(g: Tensor, seed: Seed, rate: float) -> Tensor:
+def dropout_mask_apply_plain(g: Tensor, seed: Seed, rate: float, channels: Channels = None) -> Tensor:
     """g * mask / keep in fp32, rounded once to g's dtype."""
     inv_keep = rate_consts(rate)[1]
-    keep = keep_mask(g.shape, seed, rate, g.device)
+    keep = keep_mask(g.shape, seed, rate, g.device, channels)
     return torch.where(keep, g.float() * inv_keep, 0.0).to(g.dtype)
 
 
 def gn_silu_dropout_plain(
     x: Tensor, scale: Tensor, bias: Tensor, seed: Seed, rate: float,
-    *, num_groups: int = 8, eps: float = 1e-5,
+    *, num_groups: int = 8, eps: float = 1e-5, channels: Channels = None,
 ) -> Tensor:
     """dropout(silu(group_norm(x))) in plain PyTorch, with the kernel's mask."""
     act = G.gn_silu_plain(x, scale, bias, num_groups=num_groups, eps=eps)
-    return dropout_mask_apply_plain(act, seed, rate)
+    return dropout_mask_apply_plain(act, seed, rate, channels)
 
 
 def seed_tensor(seed: Seed, device: torch.device) -> Tensor:
@@ -127,6 +143,25 @@ def seed_tensor(seed: Seed, device: torch.device) -> Tensor:
                         device=device)
 
 
+def _channel_slice(c: int, channels: Channels) -> Tuple[int, int]:
+    """(offset, total) of a slice of width ``c``, (0, c) for a whole tensor.
+    A slice's offset, width and total are multiples of 4, so that each Philox
+    quad lies in one rank."""
+    if channels is None:
+        return 0, c
+    off, total = (int(v) for v in channels)
+    if off < 0 or off + c > total or (total != c and (c % 4 or off % 4 or total % 4)):
+        raise ValueError(f"channels {channels} do not hold a slice of width {c} "
+                         "(offset, width and total multiples of 4)")
+    return off, total
+
+
+def channel_args(x: Tensor, channels: Channels) -> Tuple[int, int]:
+    """The kernels' (c_off, c_total): (0, 0) for a whole tensor."""
+    off, total = _channel_slice(x.shape[-1], channels)
+    return (0, 0) if channels is None else (off, total)
+
+
 def _check_image_size(kernel: str, b: int, n: int) -> None:
     if n >= 2**32 or b > 65535:
         raise ValueError(
@@ -137,12 +172,12 @@ def _check_image_size(kernel: str, b: int, n: int) -> None:
 
 def gn_silu_dropout_backward_plain(
     x: Tensor, g: Tensor, scale: Tensor, bias: Tensor, stats: Tensor, seed: Seed, rate: float,
-    *, num_groups: int = 8,
+    *, num_groups: int = 8, channels: Channels = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """(dx, dscale, dbias) by the backward kernel's formulas: the cotangent
     times mask / keep in fp32 (not rounded), then ``G.gn_silu_backward_plain``."""
     inv_keep = rate_consts(rate)[1]
-    keep = keep_mask(g.shape, seed, rate, g.device)
+    keep = keep_mask(g.shape, seed, rate, g.device, channels)
     gm = torch.where(keep, g.float() * inv_keep, 0.0)
     return G.gn_silu_backward_plain(x, gm, scale, bias, stats, num_groups=num_groups)
 
@@ -154,16 +189,18 @@ def _check_rate(kernel: str, rate: float) -> None:
 
 def gn_silu_dropout_cuda(
     x: Tensor, scale: Tensor, bias: Tensor, seed: Seed, rate: float,
-    *, num_groups: int = 8, eps: float = 1e-5,
+    *, num_groups: int = 8, eps: float = 1e-5, channels: Channels = None,
 ) -> Tuple[Tensor, Tensor]:
     """Launch the forward kernel. x: (B, H, W, C) bf16/fp32; scale, bias: (C,)
-    fp32; seed: int or (1,) int32 tensor on x's device; 0 < rate < 1. Returns
-    (y, stats), stats the saved ``[B, G, 2]``."""
+    fp32; seed: int or (1,) int32 tensor on x's device; 0 < rate < 1;
+    ``channels``: x's place in an unsharded activation. Returns (y, stats),
+    stats the saved ``[B, G, 2]``."""
     build.require_cuda(x, "gn_silu_dropout")
     _check_rate("gn_silu_dropout", rate)
     G.check_args("gn_silu_dropout", x, scale, bias, num_groups)
     b, h, w, c = x.shape
-    _check_image_size("gn_silu_dropout", b, h * w * c)
+    c_off, c_total = channel_args(x, channels)
+    _check_image_size("gn_silu_dropout", b, h * w * max(c, c_total))
     seed_t = seed_tensor(seed, x.device)
     thresh, inv_keep = rate_consts(rate)
     stats = torch.empty((b, num_groups, 2), device=x.device, dtype=torch.float32)
@@ -171,7 +208,7 @@ def gn_silu_dropout_cuda(
     rc = build.library().rfv_gn_silu_dropout(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), seed_t.data_ptr(),
         stats.data_ptr(), out.data_ptr(), b, h * w, c, num_groups, eps,
-        thresh, inv_keep, build.DTYPE_CODES[x.dtype], build.stream_ptr(x),
+        thresh, inv_keep, c_off, c_total, build.DTYPE_CODES[x.dtype], build.stream_ptr(x),
     )
     build.check(rc, "gn_silu_dropout")
     build.LAUNCHES["gn_silu_dropout"] += 1
@@ -180,16 +217,18 @@ def gn_silu_dropout_cuda(
 
 def gn_silu_dropout_backward_cuda(
     x: Tensor, g: Tensor, scale: Tensor, bias: Tensor, stats: Tensor, seed: Seed, rate: float,
-    *, num_groups: int = 8,
+    *, num_groups: int = 8, channels: Channels = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Launch the backward kernel with the mask of (seed, x.shape)
+    """Launch the backward kernel with the mask of (seed, x.shape, channels)
     regenerated inside: (dx, dscale, dbias)."""
     build.require_cuda(x, "gn_silu_backward")
     _check_rate("gn_silu_backward", rate)
-    _check_image_size("gn_silu_backward", x.shape[0], x[0].numel())
+    chans = channel_args(x, channels)
+    _check_image_size("gn_silu_backward", x.shape[0],
+                      x[0].numel() // x.shape[-1] * max(x.shape[-1], chans[1]))
     thresh, inv_keep = rate_consts(rate)
     return G.launch_backward(x, g, scale, bias, stats, num_groups,
-                             seed_tensor(seed, x.device), thresh, inv_keep)
+                             seed_tensor(seed, x.device), thresh, inv_keep, chans)
 
 
 def dropout_mask_apply_cuda(g: Tensor, seed: Seed, rate: float) -> Tensor:

@@ -106,28 +106,32 @@ def spatial_attention(
     *,
     num_heads: int = 4,
     num_groups: int = 8,
+    residual: bool = True,
 ) -> Tensor:
     """Multi-head self-attention over spatial positions (NHWC in/out).
 
     GroupNorm -> qkv projection -> softmax attention over H*W tokens
     (fp32 logits and softmax) -> output projection -> residual add. The
-    projections take Linear-layout weights: ``w_qkv`` (3C, C), ``w_proj``
-    (C, C).
+    projections take Linear-layout weights: ``w_qkv`` (3Ci, C), ``w_proj``
+    (C, Ci), with Ci = C, or under tensor parallelism the rank's
+    ``num_heads`` heads' share of it; without ``residual`` the projection is
+    returned alone (a rank's partial sum).
     """
     b, h, w, c = x.shape
     n = h * w
-    d = c // num_heads
+    ci = w_qkv.shape[0] // 3
+    d = ci // num_heads
     xn = group_norm(x, norm_scale, norm_bias, num_groups=num_groups)
     qkv = dense(xn.reshape(b, n, c), w_qkv, b_qkv)
     q, k, v = (
-        t.reshape(b, n, num_heads, d).transpose(1, 2) for t in qkv.split(c, dim=-1)
+        t.reshape(b, n, num_heads, d).transpose(1, 2) for t in qkv.split(ci, dim=-1)
     )
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
     attn = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.matmul(attn.float(), v.float()).to(x.dtype)
-    out = out.transpose(1, 2).reshape(b, n, c)
+    out = out.transpose(1, 2).reshape(b, n, ci)
     out = dense(out, w_proj, b_proj).reshape(b, h, w, c)
-    return x + out
+    return x + out if residual else out
 
 
 def dropout(x: Tensor, rate: float, seed=None, *, train: bool) -> Tensor:

@@ -10,9 +10,12 @@ Counterpart of the JAX package's ``serving.py``:
 * noise comes from a seeded ``torch.Generator`` on the model's device, so a
   service built with the same seed returns the same images;
 * with a ``vae`` the flow model samples latents and a ConvVAE decode (bf16,
-  clipped to [-1, 1]) maps them to pixel images before they are returned.
-
-Mesh serving comes with a later slice.
+  clipped to [-1, 1]) maps them to pixel images before they are returned;
+* with a ``mesh`` (``parallel.mesh.create_mesh``; every rank builds the
+  service alike and calls it alike) the parameters are tensor-parallel over
+  ``model``, each data rank samples its rows of every batch and the rows are
+  gathered, so ``generate`` returns the whole batch on every rank, the same
+  images as without a mesh.
 
 Example:
     svc = SamplerService.from_checkpoint("checkpoints/rectified_flow_k1_final.npz",
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from rectified_flow_vision_tpu_torch.models.base_flow import BaseFlowModel, _from_nhwc
+from rectified_flow_vision_tpu_torch.parallel import mesh as mesh_lib
 from rectified_flow_vision_tpu_torch.utils.logging_config import get_logger
 
 log = get_logger("flow_vision.serving")
@@ -50,11 +54,18 @@ class SamplerService:
         batch_size: int = 256,
         method: str = "euler",
         seed: int = 0,
+        mesh=None,
         warmup: bool = True,
         vae=None,
         vae_params=None,
     ) -> None:
         self.model = model
+        self.mesh = mesh
+        if mesh is not None:
+            dp = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
+            if batch_size % dp:
+                raise ValueError(f"batch_size {batch_size} does not split over {dp} data ranks")
+            mesh_lib.shard_params(mesh, model)
         self.batch_size = batch_size
         self.method = method
         self.step_counts = tuple(step_counts)
@@ -105,9 +116,15 @@ class SamplerService:
         return stats
 
     def _run(self, sampler, noise: torch.Tensor) -> torch.Tensor:
-        """One batch: the sampler, then the decode of a latent service."""
-        out = sampler(noise)
-        return out if self._decode is None else self._decode(out)
+        """One batch: the sampler, then the decode of a latent service; on a
+        mesh, of this rank's rows, then gathered."""
+        out = sampler(mesh_lib.shard_batch(self.mesh, noise))
+        out = out if self._decode is None else self._decode(out)
+        return out if self.mesh is None else mesh_lib.gather_batch(self.mesh, out)
+
+    def _gathered(self, sampler):
+        """The sampler on this rank's rows, its output gathered."""
+        return lambda x: mesh_lib.gather_batch(self.mesh, sampler(mesh_lib.shard_batch(self.mesh, x)))
 
     def _noise(self) -> torch.Tensor:
         return torch.randn(
@@ -137,8 +154,11 @@ class SamplerService:
 
     def throughput(self, num_steps: int, iters: int = 8) -> float:
         """Steady-state images/sec, each batch fed the previous batch's output
-        (a latent service decodes every batch besides)."""
+        (a latent service decodes every batch besides; on a mesh, each rank
+        its rows, the output gathered)."""
         sampler = self._samplers[num_steps]
+        if self.mesh is not None:
+            sampler = self._gathered(sampler)
         x = sampler(self._noise())
         if self._decode is not None:
             self._decode(x)

@@ -83,6 +83,22 @@ class TestPhilox:
             words = _philox_uint64((image, elem // 4, 0, 0), (seed, TD.DROPOUT_KEY1))
             assert int(bits[image, elem]) == words[elem % 4]
 
+    @pytest.mark.parametrize("off,width,total", [(0, 8, 16), (8, 8, 16), (4, 4, 12),
+                                                 (32, 32, 128), (0, 12, 12)])
+    def test_channel_slice_bits_are_the_whole_tensors(self, off, width, total):
+        """A tensor-parallel rank's channels [off, off + width) of an
+        activation of ``total`` channels draw the bits of their place in the
+        whole activation (pixel * total + off + channel); (0, C) is the whole
+        tensor."""
+        whole = TD.dropout_bits((2, 3, 5, total), 77, CPU)
+        got = TD.dropout_bits((2, 3, 5, width), 77, CPU, channels=(off, total))
+        assert torch.equal(got, whole[..., off:off + width])
+
+    @pytest.mark.parametrize("channels", [(2, 16), (0, 18), (12, 16)])
+    def test_channel_slices_off_the_quads_are_refused(self, channels):
+        with pytest.raises(ValueError, match="multiples of 4"):
+            TD.dropout_bits((1, 2, 2, 8), 1, CPU, channels=channels)
+
     def test_seed_forms_agree_and_wrap_to_32_bits(self):
         shape = (2, 4, 4, 8)
         ref = TD.dropout_bits(shape, -5, CPU)

@@ -79,12 +79,26 @@ def test_build_model_matches_the_jax_package(path):
     assert tm.device.type == "cpu"
 
 
-def test_default_mesh_is_none_on_one_device_and_raises_for_more():
+def test_default_mesh_is_none_on_one_device_and_raises_for_more(tmp_path):
+    """One rank without tensor parallelism is no mesh; a model axis that the
+    ranks do not hold raises, as the JAX package's ``create_mesh`` does (and
+    without a process group there are no ranks to lay a mesh over)."""
+    import torch.distributed as dist
+
     cfg = TC.Config()
     assert TTB.default_mesh(cfg, "cpu") is None
     cfg.parallel.model_axis = 2
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(RuntimeError, match="process group"):
         TTB.default_mesh(cfg, "cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(ValueError, match="model_axis=2 must divide device count 1"):
+            TTB.default_mesh(cfg, "cpu")
+        cfg.parallel.model_axis = 1
+        assert TTB.default_mesh(cfg, "cpu") is None
+    finally:
+        dist.destroy_process_group()
 
 
 def _q(steps, model, fid, ssim, lo=None, hi=None, prec=0.05):

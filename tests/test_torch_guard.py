@@ -93,20 +93,26 @@ def test_kernel_sources_are_listed():
 @pytest.mark.parametrize(
     "trainer,option,item",
     [
-        ("base", dict(mesh=object()), "A9"),
+        ("base", dict(mesh=True), "A9"),
         ("base", dict(fsdp=True), "A9"),
-        ("reflow", dict(mesh=object()), "A9"),
+        ("reflow", dict(mesh=True), "A9"),
         ("reflow", dict(fsdp=True), "A9"),
-        ("dit", dict(mesh=object()), "A9"),
+        ("dit", dict(mesh=True), "A9"),
         ("dit", dict(seq_axis="seq"), "A9"),
         ("dit", dict(pipeline_apply=True), "A9"),
     ],
     ids=lambda v: v if isinstance(v, str) else "-".join(v),
 )
-def test_unported_trainer_options_raise_and_name_their_roadmap_item(trainer, option, item):
-    """What a later slice brings raises now, before any work, and says where
-    ROADMAP.md holds it; nothing is silently ignored."""
-    import numpy as np
+def test_unported_trainer_options_raise_and_name_their_roadmap_item(
+        trainer, option, item, tmp_path):
+    """The options that raised until their ROADMAP item was ported now run:
+    each on a process group of this process alone (gloo, on the CPU) and a
+    one-rank mesh, matching the result without them. The item is recorded as
+    ported in ROADMAP.md section A, found by its bold label (the list's
+    numbering changes whenever the roadmap is re-ordered), and the items
+    still open remain there."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
 
     from rectified_flow_vision_tpu_torch.models import (
         DiT,
@@ -114,28 +120,87 @@ def test_unported_trainer_options_raise_and_name_their_roadmap_item(trainer, opt
         train_base_flow,
         train_rectified_flow,
     )
+    from rectified_flow_vision_tpu_torch.parallel.mesh import create_mesh
 
-    model = RectifiedFlowModel(
-        image_size=8, model_channels=16, channel_mult=[1], num_res_blocks=1, device="cpu"
-    )
-    x = np.zeros((2, 8, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md item {item}"):
-        if trainer == "base":
-            train_base_flow(model, [x], epochs=1, **option)
-        elif trainer == "reflow":
-            train_rectified_flow(model, x, x, epochs=1, data_format="NHWC", **option)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        x = np.random.default_rng(0).standard_normal((2, 8, 8, 3)).astype(np.float32)
+        if trainer in ("base", "reflow"):
+            kw = dict(option, mesh=create_mesh(device="cpu"))
+            runs = []
+            for extra in (kw, {}):
+                model = RectifiedFlowModel(image_size=8, model_channels=16, channel_mult=[1],
+                                           num_res_blocks=1, device="cpu")
+                if trainer == "base":
+                    losses = train_base_flow(model, [x], epochs=1, progress=False, **extra)
+                else:
+                    losses = train_rectified_flow(model, x, x[::-1].copy(), epochs=1,
+                                                  batch_size=2, data_format="NHWC",
+                                                  progress=False, **extra)
+                runs.append((losses, model.params["input_conv"]["w"]))
+            assert runs[0][0] == runs[1][0]
+            np.testing.assert_array_equal(runs[0][1], runs[1][1])
         else:
-            dit = DiT(input_size=8, hidden_size=32, depth=1, num_heads=2)
-            lat, t = torch.zeros((1, 8, 8, 4)), torch.zeros((1,))
-            if "pipeline_apply" in option:
-                dit.pipeline_apply(lat, t, object())
-            else:
-                dit(lat, t, **option)
-    # the item exists in ROADMAP.md section A, found by its bold label (the
-    # list's numbering changes whenever the roadmap is re-ordered)
+            dit = DiT(input_size=8, hidden_size=32, depth=2, num_heads=2)
+            dit.reset_parameters(torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                for p in dit.parameters():
+                    p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator().manual_seed(1)))
+            lat = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 8, 8, 4))
+                                   .astype(np.float32))
+            t = torch.tensor([0.3, 0.7])
+            with torch.no_grad():
+                want = dit(lat, t)
+                if "pipeline_apply" in option:
+                    stage = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("stage",))
+                    got = dit.pipeline_apply(lat, t, stage, num_microbatches=2)
+                else:
+                    dims = ("seq",) if "mesh" in option else ("data", "seq")
+                    mesh = DeviceMesh("cpu", torch.arange(1).reshape((1,) * len(dims)),
+                                      mesh_dim_names=dims)
+                    got = dit(lat, t, mesh=mesh, seq_axis="seq")
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
+    finally:
+        dist.destroy_process_group()
     roadmap = (ROOT / "ROADMAP.md").read_text()
     section_a = roadmap.split("\n### A.", 1)[1].split("\n### B.", 1)[0]
-    assert re.search(rf"\*\*{item}\b", section_a), item
+    ported, still_open = section_a.split("\n1. ", 1)
+    assert re.search(rf"\*\*{item}\b", ported), item
+    assert re.search(r"\*\*A10\b", still_open)
+
+
+@pytest.mark.parametrize("site", ["gn_silu_dropout_channels", "attention_heads", "row_conv",
+                                  "row_conv_slice_of_32", "col_conv_slice_of_32",
+                                  "conv_slice_of_8"])
+def test_tensor_parallel_sites_take_the_kernel_or_raise(site):
+    """The tensor-parallel forms of the kernel sites (a rank's channel slice
+    of the dropout mask, a rank's heads without the residual, a row-parallel
+    conv without its bias, a rank's 32 of a site's 64 input or output
+    channels) never take a plain version or a library call off the CPU: on a
+    device without the kernels (``meta``) they raise for want of CUDA, and a
+    slice narrower than the conv kernel takes (8 of 64 channels) raises for
+    its shape."""
+    from rectified_flow_vision_tpu_torch.ops import fused
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    x, s = meta(1, 8, 8, 64), meta(64)
+    with pytest.raises(ValueError, match="not supported" if site == "conv_slice_of_8" else "CUDA"):
+        if site == "gn_silu_dropout_channels":
+            fused.gn_silu_dropout(x, s, s, 0.1, 7, train=True, num_groups=4, channels=(64, 128))
+        elif site == "attention_heads":
+            fused.attention(x, s, s, meta(96, 64), meta(96), meta(64, 32), s, num_heads=2,
+                            residual=False)
+        elif site == "row_conv":
+            fused.conv2d_fused(x, meta(64, 3, 3, 64), s)
+        elif site == "row_conv_slice_of_32":
+            fused.conv2d_fused(meta(1, 8, 8, 32), meta(64, 3, 3, 32), s, shards=(2, 1))
+        elif site == "col_conv_slice_of_32":
+            fused.conv2d_fused(x, meta(32, 3, 3, 64), meta(32), shards=(1, 2))
+        else:
+            fused.conv2d_fused(meta(1, 8, 8, 8), meta(64, 3, 3, 8), s, shards=(8, 1))
 
 
 def _native_corpus(tmp_path):

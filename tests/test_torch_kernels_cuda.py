@@ -7,7 +7,8 @@ fixture, not at import). On a machine with a card and nvcc:
 
 Shapes are small but cover ragged tiles (M not a multiple of the conv's
 128-row tile, boxes wider or taller than the image, 35 tokens in attention,
-C not a multiple of 32), every conv shape of the flagship forward, the
+C not a multiple of 32), every conv shape of the flagship forward and of
+its tensor-parallel slices, the
 attention block at 1024 and 4096 tokens, head widths 4 to 64 (attention
 block) and 4 to 640 (flash attention, DiT-XL's 72 among them; 4, 12 and 20
 zero-padded; 136, 192, 200 and 256 on the bf16 kernels' 192 / 256 instances;
@@ -144,13 +145,19 @@ def test_conv3x3(dev, dtype, shape, cout):
 # (N, H, W, Cin, Cout): the flagship forward's ten shapes at batch 2, then a
 # tile M that is no multiple of 128 and H below the box (9 x 8), W at both
 # ends of the contract (8, 256, and 10: a box wider than the image), Cout
-# 192 and 512 (two output-channel tiles), Cin 576 (81 k-steps)
+# 192 and 512 (two output-channel tiles), Cin 576 (81 k-steps); then the
+# tensor-parallel slices of the flagship's 64-channel level (32 at
+# model_axis 2, 16 at 4, as conv1's output and conv2's input), and channels
+# that are multiples of 16 only (Cin 48 and 96: a k-step past a tap's
+# channels; Cout 80: a column tile past Cout)
 CONV_SHAPES = [
     (2, 64, 64, 64, 64), (2, 64, 64, 192, 64), (2, 64, 64, 128, 128),
     (2, 32, 32, 64, 128), (2, 32, 32, 128, 128), (2, 32, 32, 384, 128), (2, 32, 32, 256, 256),
     (2, 16, 16, 128, 256), (2, 16, 16, 256, 256), (2, 16, 16, 512, 256),
     (1, 9, 8, 64, 64), (2, 12, 8, 64, 128), (1, 8, 256, 64, 64), (1, 11, 10, 128, 192),
     (1, 8, 8, 576, 512), (3, 16, 16, 64, 192),
+    (2, 64, 64, 64, 32), (2, 64, 64, 32, 64), (2, 64, 64, 192, 16), (2, 64, 64, 16, 64),
+    (1, 11, 10, 48, 80), (1, 9, 8, 96, 32),
 ]
 
 
@@ -232,6 +239,72 @@ def test_gn_silu_dropout(dev, dtype, shape):
     assert torch.equal(again, out)
     torch.testing.assert_close(stats, G.gn_stats_plain(x), rtol=1e-5, atol=1e-5)
     assert not torch.equal(D.gn_silu_dropout_cuda(x, s, b, seed + 1, rate)[0], out)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,ranks", [((3, 8, 8, 64), 2), ((2, 5, 7, 32), 4),
+                                         ((2, 16, 16, 256), 2)])
+def test_gn_silu_dropout_channel_slices(dev, dtype, shape, ranks):
+    """Tensor parallelism: each rank's channel slice drops what the whole
+    activation drops there, in the forward and the backward kernel."""
+    g = _gen(dev, 5)
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.3).to(dtype)
+    c = shape[-1]
+    cs = c // ranks
+    s = torch.randn(c, generator=g, device=dev) * 0.2 + 1
+    b = torch.randn(c, generator=g, device=dev) * 0.2
+    seed, rate = 98765, 0.2
+    whole = D.keep_mask(shape, seed, rate, dev)
+    for r in range(ranks):
+        sl = slice(r * cs, (r + 1) * cs)
+        xs, ss, bs = x[..., sl].contiguous(), s[sl].contiguous(), b[sl].contiguous()
+        chans = (r * cs, c)
+        groups = 8 // ranks
+        out, stats = D.gn_silu_dropout_cuda(xs, ss, bs, seed, rate, num_groups=groups,
+                                            channels=chans)
+        act = G.gn_silu_plain(xs, ss, bs, num_groups=groups)
+        keep = whole[..., sl]
+        assert torch.equal((out != 0) | (act == 0), keep | (act == 0))
+        want = D.gn_silu_dropout_plain(xs, ss, bs, seed, rate, num_groups=groups, channels=chans)
+        torch.testing.assert_close(out.float(), want.float(), **_tol(dtype, fp32=1e-4))
+        cot = (out.float() + 0.1 * torch.randn(out.shape, generator=g, device=dev)).to(dtype)
+        got = D.gn_silu_dropout_backward_cuda(xs, cot, ss, bs, stats, seed, rate,
+                                              num_groups=groups, channels=chans)
+        ref = D.gn_silu_dropout_backward_plain(xs, cot, ss, bs, stats, seed, rate,
+                                               num_groups=groups, channels=chans)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        for a, w in zip(got, ref):
+            assert float((a.float() - w.float()).abs().max()) <= tol * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,heads,ranks", [((2, 16, 16, 256), 4, 2), ((3, 8, 8, 128), 4, 4)])
+def test_attention_block_head_slices(dev, dtype, shape, heads, ranks):
+    """Tensor parallelism: a rank's heads (width Ci = C / ranks) without the
+    residual; the ranks' sums plus the bias and x are the whole block."""
+    g = _gen(dev, 6)
+    c = shape[-1]
+    ci = c // ranks
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    ns = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    nb = 0.1 * torch.randn(c, generator=g, device=dev)
+    wq = (0.05 * torch.randn(3 * c, c, generator=g, device=dev)).to(dtype)
+    bq = 0.1 * torch.randn(3 * c, generator=g, device=dev)
+    wp = (0.05 * torch.randn(c, c, generator=g, device=dev)).to(dtype)
+    bp = 0.1 * torch.randn(c, generator=g, device=dev)
+    zero = torch.zeros(c, device=dev)
+    total = torch.zeros(shape, device=dev)
+    for r in range(ranks):
+        rows = torch.cat([torch.arange(r * ci, (r + 1) * ci) + k * c for k in range(3)])
+        args = (ns, nb, wq[rows].contiguous(), bq[rows].contiguous(),
+                wp[:, r * ci:(r + 1) * ci].contiguous(), zero)
+        got = A.attention_block_cuda(x, *args, num_heads=heads // ranks, residual=False)
+        want = A.attention_block_plain(x, *args, num_heads=heads // ranks, residual=False)
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, bf16_atol=6e-2))
+        total += got.float()
+    whole = A.attention_block_plain(x, ns, nb, wq, bq, wp, bp, num_heads=heads)
+    tol = _tol(dtype, bf16_atol=1.5e-1)
+    torch.testing.assert_close((total + bp + x.float()).to(dtype).float(), whole.float(), **tol)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

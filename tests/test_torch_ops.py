@@ -262,6 +262,24 @@ class TestConv3x3:
         assert TC.supports(x_shape, w_shape, stride) is ok
         assert JC.supports(x_shape, (kh, kw, i, o), stride) is ok
 
+    @pytest.mark.parametrize(
+        "x_shape,w_shape,ok",
+        [
+            ((1, 16, 16, 32), (64, 3, 3, 32), True),
+            ((1, 16, 16, 64), (32, 3, 3, 64), True),
+            ((1, 16, 16, 16), (48, 3, 3, 16), True),
+            ((1, 16, 16, 8), (64, 3, 3, 8), False),
+            ((1, 16, 16, 64), (24, 3, 3, 64), False),
+            ((1, 16, 16, 32), (64, 1, 1, 32), False),
+        ],
+    )
+    def test_kernel_takes_tensor_parallel_slices(self, x_shape, w_shape, ok):
+        """The kernel takes channels in multiples of 16 (a rank's slice of a
+        site's 64 at model_axis 4); which convs are its sites stays the JAX
+        contract."""
+        assert TC.supports(x_shape, w_shape, 1, multiple=TC.KERNEL_MULTIPLE) is ok
+        assert TC.supports(x_shape, w_shape, 1) is False
+
 
     @pytest.mark.parametrize("h,w,cin,cout", [
         (64, 64, 64, 64), (64, 64, 192, 64), (64, 64, 128, 128), (32, 32, 64, 128),
