@@ -49,6 +49,18 @@ card, outside a checkout, or when any phase fails. Phases, in order:
 7. gradient: full-width UNet, fp32, batch 4, dropout 0.1, fixed x0, t and
    seeds: the loss and every parameter's gradient on the card (kernels
    forward, ``gn_silu_backward`` backward) against the plain path on the CPU;
+7a. winograd: the Winograd F(2x2, 3x3) conv (``ops/winograd.py``) that
+   ``RFV_CONV_WINOGRAD`` selects, the variable set by the script only inside
+   this phase and phase 15's ``tp2_winograd``: at every conv3x3 shape of the
+   flagship forward (batch 256) fp32 against cuDNN's fp32 conv (TF32 off) and
+   bf16 against the conv3x3 kernel's error (``WINOGRAD_*``), the ms a call of
+   Winograd, the conv3x3 kernel and cuDNN (median of 10 CUDA-event
+   readings each); the flagship forward at batch 256 in bf16 gate on and
+   off (0 / 30 conv3x3 launches, 30 / 0 Winograd calls, the bf16 contract
+   against the fp32 forward); one bf16 train step with dropout 0.1 gate on
+   and off (launches, loss, the 30 conv sites' gradient norms); and
+   ``SamplerService.throughput(4)`` (batch 256, bf16) off, on, on, off, with
+   the card's name and power limit;
 8. train: at full width, bf16 compute on fp32 masters: ``train_base_flow`` on
    a seeded 512-image corpus (batch 64, EMA 0.999, device-resident epochs),
    heun-teacher ``generate_reflow_pairs`` (pair batch 256),
@@ -143,8 +155,9 @@ card, outside a checkout, or when any phase fails. Phases, in order:
     residual) and of the dropout kernels (a rank's channel slice, its mask
     bits those of the whole activation) against their plain versions. (b)
     two gloo ranks spawned on the one card, holding CUDA tensors: DP, TP
-    (dropout 0.1) and FSDP train steps of the flagship UNet (fp32, batch 64
-    global), a sequence-parallel DiT-S/2 step and a two-stage pipeline step
+    (dropout 0.1; also under ``RFV_CONV_WINOGRAD``, every conv site's slice
+    on the Winograd conv) and FSDP train steps of the flagship UNet (fp32,
+    batch 64 global), a sequence-parallel DiT-S/2 step and a two-stage pipeline step
     (depth 2), each against the single-rank result on the card within the
     CPU tests' tolerances, each rank held to its exact kernel launches. Any
     exception fails the phase. The ring and the pipeline run only where
@@ -163,6 +176,7 @@ of the train phases go to ``build/smoke_ckpt/``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -353,6 +367,21 @@ HTTP = dict(clients=16, sizes=(1, 4, 16, 64), steps=(4, 1), readings=3, window_s
 # lr (a weight decay 100x too large moves the update by ~5e-4: not seen)
 METRIC_NETS = dict(cpu_slice=4, rtol=1e-3, atol=1e-5, synth_n=24, synth_batch=8,
                    synth_rtol=0.02)
+
+# The Winograd phase: the gate the user sets by name (as in the JAX package),
+# set by the script only inside ``winograd_gate`` and restored after. Per
+# conv shape: fp32 within WINOGRAD_F32_RTOL of the largest |y| of cuDNN's fp32
+# conv with TF32 off (the transforms round at the outputs' scale); bf16 error
+# against that fp32 truth at most WINOGRAD_BF16_FACTOR times the conv3x3
+# kernel's (floor 1e-3: tests/test_winograd.py's contract). The flagship
+# forward in bf16: the same contract against the fp32 forward. One bf16 train
+# step (dropout 0.1): loss within WINOGRAD_LOSS_RTOL of the gate-off step's,
+# each conv site's weight-gradient norm within WINOGRAD_GRAD_RTOL (bf16
+# rounding at other points through ~60 layers forward and backward).
+WINOGRAD_GATE = "RFV_CONV_WINOGRAD"
+WINOGRAD_F32_RTOL, WINOGRAD_BF16_FACTOR, WINOGRAD_BF16_FLOOR = 1e-4, 4.0, 1e-3
+WINOGRAD_LOSS_RTOL, WINOGRAD_GRAD_RTOL = 1e-2, 2e-2
+WINOGRAD_READINGS = 10  # CUDA-event readings a time, their median kept
 
 
 def all_counts(build, **counts):
@@ -1117,6 +1146,200 @@ def gradient_phase(torch, build) -> None:
         f"{worst_name} at {worst:.3f} of its tolerance ({GRAD_RTOL} x max|g| + {GRAD_ATOL})")
     if loss_err > LOSS_ATOL or worst > 1.0:
         fail("loss or gradients on the card differ from the CPU plain path")
+
+
+@contextlib.contextmanager
+def winograd_gate(on: bool = True):
+    """``RFV_CONV_WINOGRAD`` set (or unset) inside, the previous value back on
+    exit."""
+    old = os.environ.get(WINOGRAD_GATE)
+    if on:
+        os.environ[WINOGRAD_GATE] = "1"
+    else:
+        os.environ.pop(WINOGRAD_GATE, None)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(WINOGRAD_GATE, None)
+        else:
+            os.environ[WINOGRAD_GATE] = old
+
+
+def median_ms(torch, fn, readings: int = WINOGRAD_READINGS) -> float:
+    """Median of ``readings`` CUDA-event timings of one ``fn()`` each."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(readings):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def conv_sites(model) -> dict:
+    """The 30 weights of the flagship's conv2d_fused sites: conv1 and conv2
+    of each res-block, and the upsample convs."""
+    sites = {n: p for n, p in model.named_parameters()
+             if re.search(r"\.conv[12]\.weight$|upsamples\.\d+\.1\.weight$", n)}
+    if len(sites) != EVAL_FORWARD_LAUNCHES["conv3x3"]:
+        fail(f"winograd: found {len(sites)} conv sites, not {EVAL_FORWARD_LAUNCHES['conv3x3']}")
+    return sites
+
+
+def winograd_phase(torch, build, shape_calls) -> None:
+    """The Winograd conv of ``ops/winograd.py`` behind ``RFV_CONV_WINOGRAD``:
+    (a) at every conv3x3 shape of the flagship forward, batch 256, against
+    cuDNN's fp32 conv (fp32) and the conv3x3 kernel's bf16 error (bf16), with
+    the ms a call of Winograd, the conv3x3 kernel and cuDNN (``conv3x3_plain``);
+    (b) the flagship forward at batch 256 in bf16 gate on and off (launches,
+    Winograd calls, outputs), one bf16 train step with dropout 0.1 on and
+    off, and ``SamplerService.throughput(4)`` on and off, in turns."""
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel
+    from rectified_flow_vision_tpu_torch.models.unet import UNet
+    from rectified_flow_vision_tpu_torch.ops import conv3x3 as C
+    from rectified_flow_vision_tpu_torch.ops import primitives as P
+    from rectified_flow_vision_tpu_torch.ops import winograd as W
+    from rectified_flow_vision_tpu_torch.serving import SamplerService
+
+    log(f"winograd: card {card_line()}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    bf16 = torch.bfloat16
+    per_forward = {"bf16": np.zeros(3), "fp32": np.zeros(3)}
+    for (h, w, cin, cout), n in sorted(shape_calls["conv3x3"].items()):
+        x = torch.randn((BATCH, h, w, cin), generator=gen, device="cuda")
+        bound = 1 / math.sqrt(9 * cin)
+        wt = (torch.rand((cout, 3, 3, cin), generator=gen, device="cuda") * 2 - 1) * bound
+        b = (torch.rand((cout,), generator=gen, device="cuda") * 2 - 1) * bound
+        with P.exact_fp32():
+            truth = C.conv3x3_plain(x, wt, b)
+            scale = float(truth.abs().max())
+            err32 = float((W.winograd_conv3x3(x, wt, b) - truth).abs().max())
+            xb, wb = x.to(bf16), wt.to(bf16)
+            err_w = float((W.winograd_conv3x3(xb, wb, b).float() - truth).abs().max())
+            err_k = float((C.conv3x3_cuda(xb, wb, b).float() - truth).abs().max())
+            ms = {dname: [median_ms(torch, lambda f=f, a=a: f(*a)) for f in
+                          (W.winograd_conv3x3, C.conv3x3_cuda, C.conv3x3_plain)]
+                  for dname, a in (("bf16", (xb, wb, b)), ("fp32", (x, wt, b)))}
+        for dname, v in ms.items():
+            per_forward[dname] += n * np.array(v)
+        log(f"winograd: ({BATCH}, {h}, {w}, {cin}) -> {cout}, {n} site(s) a forward: fp32 max_abs "
+            f"{err32:.3e} ({err32 / scale:.2e} of max|y| {scale:.3f}, limit {WINOGRAD_F32_RTOL}); "
+            f"bf16 max_abs {err_w:.3e} vs the conv3x3 kernel's {err_k:.3e} (limit "
+            f"{WINOGRAD_BF16_FACTOR}x); ms a call (median of {WINOGRAD_READINGS}) Winograd / "
+            f"conv3x3 / cuDNN: bf16 " + " / ".join(f"{v:.4f}" for v in ms["bf16"]) + ", fp32 "
+            + " / ".join(f"{v:.4f}" for v in ms["fp32"]))
+        if not (err32 <= WINOGRAD_F32_RTOL * scale
+                and err_w <= WINOGRAD_BF16_FACTOR * max(err_k, WINOGRAD_BF16_FLOOR)):
+            fail(f"winograd: the conv at ({h}, {w}, {cin}) -> {cout} is outside its tolerance")
+        del x, wt, xb, wb, truth
+    log("winograd: ms a flagship forward (the shapes' ms times their sites, 30 convs) Winograd / "
+        "conv3x3 / cuDNN: " + ", ".join(f"{d} " + " / ".join(f"{v:.3f}" for v in t)
+                                       for d, t in per_forward.items()))
+    torch.cuda.empty_cache()
+
+    # (b) the flagship forward at batch 256: gate off, gate on, fp32 truth
+    net = UNet()
+    net.reset_parameters(torch.Generator().manual_seed(SEED))
+    net.to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    x = torch.randn((BATCH, 64, 64, 3), generator=g, device="cuda")
+    t = torch.rand((BATCH,), generator=g, device="cuda")
+    outs, counts = {}, {}
+    with torch.no_grad():
+        for on in (False, True):
+            with winograd_gate(on):
+                build.reset_launches()
+                W.reset_calls()
+                outs[on] = net(x, t, dtype=bf16).float()
+                torch.cuda.synchronize()
+                counts[on] = (dict(build.LAUNCHES), W.CALLS["winograd"])
+        with P.exact_fp32():
+            truth = net(x, t)
+    sites = EVAL_FORWARD_LAUNCHES["conv3x3"]
+    if counts[False] != (all_counts(build, **EVAL_FORWARD_LAUNCHES), 0):
+        fail(f"winograd: the gate-off forward launched {counts[False]}")
+    if counts[True] != (all_counts(build, **dict(EVAL_FORWARD_LAUNCHES, conv3x3=0)), sites):
+        fail(f"winograd: the gate-on forward launched {counts[True]}, not 0 conv3x3 and "
+             f"{sites} Winograd calls")
+    err_on = float((outs[True] - truth).abs().max())
+    err_off = float((outs[False] - truth).abs().max())
+    log(f"winograd: flagship forward, batch {BATCH}, bf16: gate on {counts[True][1]} Winograd "
+        f"calls, conv3x3 launches {counts[True][0]['conv3x3']} (gate off "
+        f"{counts[False][0]['conv3x3']}, {counts[False][1]} Winograd calls); max |error| against "
+        f"the fp32 forward {err_on:.4e} gate on, {err_off:.4e} gate off (limit "
+        f"{WINOGRAD_BF16_FACTOR}x), max|y| {float(truth.abs().max()):.3f}")
+    if not (torch.isfinite(outs[True]).all() and err_on <= WINOGRAD_BF16_FACTOR * max(
+            err_off, WINOGRAD_BF16_FLOOR)):
+        fail("winograd: the gate-on flagship forward is outside the bf16 contract")
+    del net, outs, truth, x, t
+    torch.cuda.empty_cache()
+
+    # one bf16 train step (loss and gradients, dropout 0.1), gate off and on
+    model = BaseFlowModel(image_size=64, seed=SEED, dropout=DROP_RATE, compute_dtype="bfloat16",
+                          device="cuda")
+    sites_w = conv_sites(model)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    x1 = torch.tanh(torch.randn((BATCH, 64, 64, 3), generator=g, device="cuda"))
+    x0 = torch.randn((BATCH, 64, 64, 3), generator=g, device="cuda")
+    t = torch.rand((BATCH,), generator=g, device="cuda")
+    seeds = torch.randint(2**31 - 1, (model.velocity_net.num_dropout_seeds,), generator=g,
+                          device="cuda", dtype=torch.int32)
+    steps = {}
+    for on in (False, True):
+        with winograd_gate(on):
+            model.zero_grad(set_to_none=True)
+            build.reset_launches()
+            W.reset_calls()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = model.loss_fn(x1, x0=x0, t=t, seeds=seeds)
+            loss.backward()
+            torch.cuda.synchronize()
+            steps[on] = dict(loss=float(loss.detach()), s=time.perf_counter() - t0,
+                             launches=dict(build.LAUNCHES), calls=W.CALLS["winograd"],
+                             peak=torch.cuda.max_memory_allocated() / 2**30,
+                             norms={k: float(p.grad.norm()) for k, p in sites_w.items()})
+    if steps[True]["launches"] != all_counts(build, **dict(TRAIN_STEP_LAUNCHES, conv3x3=0)) or (
+            steps[True]["calls"] != sites):
+        fail(f"winograd: the gate-on train step launched {steps[True]['launches']}, "
+             f"{steps[True]['calls']} Winograd calls")
+    if steps[False]["launches"] != all_counts(build, **TRAIN_STEP_LAUNCHES):
+        fail(f"winograd: the gate-off train step launched {steps[False]['launches']}")
+    rel = {k: abs(steps[True]["norms"][k] - v) / v for k, v in steps[False]["norms"].items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(steps[True]["loss"] - steps[False]["loss"]) / abs(steps[False]["loss"])
+    log(f"winograd: bf16 train step, batch {BATCH}, dropout {DROP_RATE}: loss gate on "
+        f"{steps[True]['loss']!r} vs off {steps[False]['loss']!r} (rel {loss_rel:.2e}, limit "
+        f"{WINOGRAD_LOSS_RTOL}); conv sites' gradient norms: worst {worst} rel {rel[worst]:.2e} "
+        f"(limit {WINOGRAD_GRAD_RTOL}); host s (first call, not a timing) on "
+        f"{steps[True]['s']:.3f} / off {steps[False]['s']:.3f}; peak GiB on "
+        f"{steps[True]['peak']:.2f} / off {steps[False]['peak']:.2f}")
+    if not (math.isfinite(steps[True]["loss"]) and loss_rel <= WINOGRAD_LOSS_RTOL
+            and rel[worst] <= WINOGRAD_GRAD_RTOL):
+        fail("winograd: the gate-on train step disagrees with the gate-off step")
+    del model, x1, x0, t, sites_w
+    torch.cuda.empty_cache()
+
+    # throughput(4) at batch 256, bf16, in turns: off, on, on, off
+    svc = SamplerService(BaseFlowModel(image_size=64, seed=SEED, sample_dtype="bfloat16",
+                                       device="cuda"),
+                         step_counts=(4,), batch_size=BATCH, seed=SEED, warmup=False)
+    rates = {False: [], True: []}
+    for on in (False, True, True, False):
+        with winograd_gate(on):
+            rates[on].append(svc.throughput(4))
+    log(f"winograd: SamplerService.throughput(4), batch {BATCH}, bf16, in turns off / on / on / "
+        f"off: gate on {[round(v, 2) for v in rates[True]]} img/s (median "
+        f"{float(np.median(rates[True])):.2f}), off {[round(v, 2) for v in rates[False]]} "
+        f"(median {float(np.median(rates[False])):.2f}); card {card_line()}")
+    del svc
+    torch.cuda.empty_cache()
 
 
 def make_corpus(n: int) -> np.ndarray:
@@ -2609,7 +2832,10 @@ PAR_SEQ_FWD, PAR_SEQ_GRAD, PAR_PIPE = 1e-4, 1e-5, 2e-4
 GLOO_CUDA_P2P = r"gloo/transport/tcp/pair\.cc:\d+\] (?:writev|readv|read|write) \S+: Bad address"
 PAR_UNET_CASES = {"dp2": dict(dp=2, tp=1, fsdp=False, dropout=0.0),
                   "tp2": dict(dp=1, tp=2, fsdp=False, dropout=0.1),
-                  "fsdp2": dict(dp=2, tp=1, fsdp=True, dropout=0.0)}
+                  "fsdp2": dict(dp=2, tp=1, fsdp=True, dropout=0.0),
+                  # the winograd phase's tensor-parallel step: each rank's
+                  # slices of the 30 conv sites on the Winograd conv
+                  "tp2_winograd": dict(dp=1, tp=2, fsdp=False, dropout=0.1, winograd=True)}
 
 
 def _free_port() -> int:
@@ -2651,7 +2877,8 @@ def _unet_step(torch, case, mesh, x0, x1, t):
     opt = BF.make_optimizer(model, TRAIN["lr"], 1, 1, mesh=mesh)
     step = BF.make_train_step(model, opt, coupled=True, mesh=mesh)
     rows = [M.shard_batch(mesh, torch.as_tensor(a, device="cuda")) for a in (x0, x1)]
-    with mock.patch.object(BF, "sample_times", lambda *a, **k: torch.as_tensor(t, device="cuda")):
+    with mock.patch.object(BF, "sample_times", lambda *a, **k: torch.as_tensor(t, device="cuda")), \
+            winograd_gate(case.get("winograd", False)):
         loss = float(step(tuple(rows), torch.Generator(device="cuda").manual_seed(SEED)))
     return loss, {k: v.detach().cpu().numpy() for k, v in
                   (M.full_state_dict(model) if mesh is not None else model.state_dict()).items()}
@@ -2731,6 +2958,7 @@ def _parallel_rank(part, rank, world, store, out_dir, inputs):
 
     sys.path.insert(0, str(ROOT))
     from rectified_flow_vision_tpu_torch.ops import build
+    from rectified_flow_vision_tpu_torch.ops import winograd
     from rectified_flow_vision_tpu_torch.parallel import collectives
     from rectified_flow_vision_tpu_torch.parallel import mesh as M
 
@@ -2755,8 +2983,10 @@ def _parallel_rank(part, rank, world, store, out_dir, inputs):
     def attempt(name, fn):
         print(f"parallel (b): rank {rank}: {name}", flush=True)
         build.reset_launches()
+        winograd.reset_calls()
         results[name] = run(lambda: (fn(), torch.cuda.synchronize())[0])
         results[name]["launches"] = dict(build.LAUNCHES)
+        results[name]["winograd"] = winograd.CALLS["winograd"]
         save()
         dist.barrier()
 
@@ -3066,13 +3296,19 @@ def parallel_two_ranks(torch, build) -> Counter:
         log(f"parallel (b): {name} train step (flagship UNet, fp32, batch "
             f"{PARALLEL['batch']} global, dropout {case['dropout']}): loss {loss!r} vs one rank "
             f"{loss1!r}; weights max |diff| {diff:.3e}; launches on each rank "
-            f"{nonzero(results[name]['launches'])}")
+            f"{nonzero(results[name]['launches'])}, Winograd calls {results[name]['winograd']}")
         if abs(loss - loss1) > PAR_LOSS_RTOL * abs(loss1) or not _within(
                 weights, w1, PAR_W_RTOL, PAR_W_ATOL):
             fail(f"parallel (b): {name} disagrees with one rank")
-        # every site on its kernel, the tensor-parallel ranks' channel slices too
-        check_launches(name, **(TRAIN_STEP_LAUNCHES if case["dropout"] else
-                                dict(EVAL_FORWARD_LAUNCHES, gn_silu_backward=29)))
+        # every site on its kernel, the tensor-parallel ranks' channel slices
+        # too; under the Winograd gate every conv site on the Winograd conv
+        launches = (TRAIN_STEP_LAUNCHES if case["dropout"] else
+                    dict(EVAL_FORWARD_LAUNCHES, gn_silu_backward=29))
+        sites = EVAL_FORWARD_LAUNCHES["conv3x3"] if case.get("winograd") else 0
+        check_launches(name, **(dict(launches, conv3x3=0) if sites else launches))
+        wcalls = [res[name]["winograd"] for res in ranks]
+        if wcalls != [sites, sites]:
+            fail(f"parallel (b): {name}: Winograd calls on the ranks {wcalls}, not {sites}")
         passed(name)
 
     # ppermute: right on CPU tensors on both ranks, and on CUDA tensors right
@@ -3210,6 +3446,8 @@ def main() -> None:
     del svc
     torch.cuda.empty_cache()
     gradient_phase(torch, build)
+    phase("winograd")
+    winograd_phase(torch, build, shape_calls)
     phase("UNet train")
     train_launches, trained, data = train_phase(torch, build)
     train_timing_phase(torch, build, trained, data)

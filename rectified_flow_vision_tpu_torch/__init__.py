@@ -25,7 +25,9 @@ the HTTP front end (``serving_http``), the LPIPS and InceptionV3 networks,
 SynthNet training, the generation-speed helpers, ``.pt`` export and the
 profiling hooks, and parallelism (``parallel``: data, tensor and fully
 sharded parallel training, mesh serving, ring attention, the GPipe
-pipeline). The Winograd conv is not ported yet.
+pipeline), and the Winograd F(2x2, 3x3) conv (``ops.winograd``), which the
+UNet's 3x3 conv sites take when ``RFV_CONV_WINOGRAD`` is set, as in the JAX
+package: with it the port does everything the JAX package does.
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
 

@@ -1,14 +1,22 @@
 """Dispatch between the port's CUDA kernels and their plain versions.
 
-Counterpart of the JAX package's ``ops/fused.py``. The only switch is the
-tensor's device: a CPU tensor takes the plain PyTorch version under ordinary
-autograd, a CUDA tensor takes the kernel, and any other device raises. There
-is no size cap (the JAX side's VMEM slab cap is a TPU limit) and no fallback
-when a build or a launch fails. The one exception is the conv's contract: a
-conv outside ``conv3x3.supports`` (not 3x3/stride 1, or channels not
-multiples of 64) is the plain conv on every device, as in the JAX package.
-A tensor-parallel rank's slice of a conv is judged by the whole conv: a
-site's slice takes the kernel or raises.
+Counterpart of the JAX package's ``ops/fused.py``. Between a kernel and its
+plain version the only switch is the tensor's device: a CPU tensor takes the
+plain PyTorch version under ordinary autograd, a CUDA tensor takes the
+kernel, and any other device raises. There is no size cap (the JAX side's
+VMEM slab cap is a TPU limit) and no fallback when a build or a launch fails.
+The conv has its contract besides: a conv outside ``conv3x3.supports`` (not
+3x3/stride 1, or channels not multiples of 64) is the plain conv on every
+device, as in the JAX package. A tensor-parallel rank's slice of a conv is
+judged by the whole conv: a site's slice takes the kernel or raises.
+
+One switch is the user's, by name, as in the JAX package:
+``RFV_CONV_WINOGRAD`` set (to anything but the empty string, read at each
+call) sends every stride-1 3x3 conv of even height and width at this module's
+conv site, whatever its channels, to the Winograd F(2x2, 3x3) conv of
+``ops/winograd.py`` (plain PyTorch, its tap products on cuBLAS) on every
+device, tensor-parallel slices included: an A/B path, not a fallback. Such a
+conv launches neither the conv3x3 kernel nor cuDNN.
 
 On a CUDA tensor each kernel runs inside a ``torch.autograd.Function``.
 The GroupNorm kernels, flash attention and the standalone dropout have
@@ -28,6 +36,7 @@ device, as there.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -39,6 +48,7 @@ from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
 from rectified_flow_vision_tpu_torch.ops import gn_silu as G
 from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as D
 from rectified_flow_vision_tpu_torch.ops import primitives as P
+from rectified_flow_vision_tpu_torch.ops import winograd as W
 
 Tensor = torch.Tensor
 
@@ -202,8 +212,13 @@ def conv2d_fused(
     the plain conv outside it. ``shards`` = (in, out): the weight is a
     tensor-parallel rank's slice, 1 / in of the whole conv's input channels
     and 1 / out of its output channels; the whole conv decides the site, and
-    on a CUDA tensor the kernel raises if the slice is outside what it takes."""
+    on a CUDA tensor the kernel raises if the slice is outside what it takes.
+    With ``RFV_CONV_WINOGRAD`` set, a stride-1 3x3 conv of even H and W is
+    the Winograd conv instead, on every device (the JAX gate, tested first)."""
     cout, kh, kw, cin = w_ohwi.shape
+    if (os.environ.get("RFV_CONV_WINOGRAD") and stride == 1 and (kh, kw) == (3, 3)
+            and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
+        return W.conv2d_winograd(x, w_ohwi, b)
     whole = (cout * shards[1], kh, kw, cin * shards[0])
     if C.supports((*x.shape[:-1], whole[3]), whole, stride):
         if _on_cpu(x):

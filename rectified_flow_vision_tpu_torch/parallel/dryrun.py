@@ -12,8 +12,9 @@ prints one line on rank 0 and fails on a non-finite loss or a mismatch.
     torchrun --nproc_per_node=4 -m rectified_flow_vision_tpu_torch.parallel.dryrun
     python -m rectified_flow_vision_tpu_torch.parallel.dryrun --ranks 4   # gloo on the CPU
 
-Under ``torchrun`` each rank runs on its card (NCCL); without it ``--ranks``
-gloo processes are spawned on the CPU (``dryrun_multichip``).
+Under ``torchrun`` each rank runs on its card (NCCL), and without a visible
+card the run raises; without ``torchrun``, ``--ranks`` gloo processes are
+spawned on the CPU (``dryrun_multichip``), the only way it runs there.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ def _finite(name: str, value: float) -> float:
     return value
 
 
-def dryrun(device: str = "cpu") -> None:
+def dryrun(device: str = "cuda") -> None:
     """Run every path over the process group's ranks (see the module
     docstring); every rank calls it."""
     from torch.distributed.device_mesh import DeviceMesh
@@ -170,9 +171,13 @@ def main() -> None:
     parser.add_argument("--ranks", type=int, default=4,
                         help="gloo ranks to spawn on the CPU when not under torchrun")
     args = parser.parse_args()
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ and not torch.cuda.is_available():
+        raise RuntimeError(
+            "dryrun under torchrun runs each rank on its cuda card, and no CUDA device is "
+            "visible; for gloo ranks on the CPU run it without torchrun (--ranks N)")
     if maybe_init_distributed():
         try:
-            dryrun("cuda" if torch.cuda.is_available() else "cpu")
+            dryrun("cuda")
         finally:
             dist.destroy_process_group()
     else:

@@ -109,8 +109,9 @@ def test_unported_trainer_options_raise_and_name_their_roadmap_item(
     each on a process group of this process alone (gloo, on the CPU) and a
     one-rank mesh, matching the result without them. The item is recorded as
     ported in ROADMAP.md section A, found by its bold label (the list's
-    numbering changes whenever the roadmap is re-ordered), and the items
-    still open remain there."""
+    numbering changes whenever the roadmap is re-ordered), and so is A10, the
+    last module to port: the open list holds no module to port, only A11,
+    the port's benchmark."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -167,21 +168,25 @@ def test_unported_trainer_options_raise_and_name_their_roadmap_item(
     section_a = roadmap.split("\n### A.", 1)[1].split("\n### B.", 1)[0]
     ported, still_open = section_a.split("\n1. ", 1)
     assert re.search(rf"\*\*{item}\b", ported), item
-    assert re.search(r"\*\*A10\b", still_open)
+    assert re.search(r"\*\*A10\b", ported)
+    assert re.findall(r"\*\*(A\d+)\b", still_open) == ["A11"]
 
 
 @pytest.mark.parametrize("site", ["gn_silu_dropout_channels", "attention_heads", "row_conv",
                                   "row_conv_slice_of_32", "col_conv_slice_of_32",
                                   "conv_slice_of_8"])
-def test_tensor_parallel_sites_take_the_kernel_or_raise(site):
+def test_tensor_parallel_sites_take_the_kernel_or_raise(site, monkeypatch):
     """The tensor-parallel forms of the kernel sites (a rank's channel slice
     of the dropout mask, a rank's heads without the residual, a row-parallel
     conv without its bias, a rank's 32 of a site's 64 input or output
     channels) never take a plain version or a library call off the CPU: on a
     device without the kernels (``meta``) they raise for want of CUDA, and a
     slice narrower than the conv kernel takes (8 of 64 channels) raises for
-    its shape."""
+    its shape. (Without ``RFV_CONV_WINOGRAD``: with it the convs take the
+    Winograd conv, below.)"""
     from rectified_flow_vision_tpu_torch.ops import fused
+
+    monkeypatch.delenv("RFV_CONV_WINOGRAD", raising=False)
 
     def meta(*shape):
         return torch.empty(shape, device="meta")
@@ -201,6 +206,66 @@ def test_tensor_parallel_sites_take_the_kernel_or_raise(site):
             fused.conv2d_fused(x, meta(32, 3, 3, 64), meta(32), shards=(1, 2))
         else:
             fused.conv2d_fused(meta(1, 8, 8, 8), meta(64, 3, 3, 8), s, shards=(8, 1))
+
+
+# conv2d_fused calls: (x shape, OHWI weight shape, stride, shards), and
+# whether the JAX gate's conditions hold (stride 1, 3x3, even H and W; any
+# channels)
+GATED_CONVS = {
+    "conv": ((1, 8, 8, 64), (64, 3, 3, 64), 1, (1, 1), True),
+    "row_conv_slice_of_32": ((1, 8, 8, 32), (64, 3, 3, 32), 1, (2, 1), True),
+    "col_conv_slice_of_32": ((1, 8, 8, 64), (32, 3, 3, 64), 1, (1, 2), True),
+    "conv_slice_of_8": ((1, 8, 8, 8), (64, 3, 3, 8), 1, (8, 1), True),
+    "conv_outside_the_kernel": ((1, 6, 10, 3), (24, 3, 3, 3), 1, (1, 1), True),
+    "stride_2": ((1, 8, 8, 64), (64, 3, 3, 64), 2, (1, 1), False),
+    "one_by_one": ((1, 8, 8, 64), (64, 1, 1, 64), 1, (1, 1), False),
+}
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("site", list(GATED_CONVS))
+def test_winograd_gate_takes_every_qualifying_conv(site, device, monkeypatch):
+    """With ``RFV_CONV_WINOGRAD`` set, a conv that meets the JAX gate's
+    conditions reaches ``winograd_conv3x3`` on every device, a tensor-parallel
+    slice included, whatever its channels; any other conv does not."""
+    from rectified_flow_vision_tpu_torch.ops import fused
+    from rectified_flow_vision_tpu_torch.ops import winograd as W
+
+    x_shape, w_shape, stride, shards, gated = GATED_CONVS[site]
+    calls = []
+    real = W.winograd_conv3x3
+    monkeypatch.setattr(W, "winograd_conv3x3",
+                        lambda x, w, b: calls.append(x.device.type) or real(x, w, b))
+    monkeypatch.setenv("RFV_CONV_WINOGRAD", "1")
+    x, w, b = (torch.zeros(shape, device=device) for shape in (x_shape, w_shape, w_shape[:1]))
+    out = fused.conv2d_fused(x, w, b, stride=stride, shards=shards)
+    assert calls == ([device] if gated else [])
+    assert out.shape[-1] == w_shape[0] and out.device.type == device
+    if gated:
+        assert tuple(out.shape) == x_shape[:3] + w_shape[:1]
+
+
+def test_dryrun_under_torchrun_without_a_card_raises(monkeypatch):
+    """Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set) the dry run is the
+    cards': without one it raises before it joins a group, and it never runs
+    on the CPU by itself; ``dryrun`` defaults to the card."""
+    from rectified_flow_vision_tpu_torch.parallel import dryrun as DR
+    from rectified_flow_vision_tpu_torch.parallel import mesh as M
+
+    def never(*args, **kwargs):
+        raise AssertionError("the dry run went on without a card")
+
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["dryrun"])
+    for module, name in ((DR, "dryrun"), (DR, "dryrun_multichip"),
+                         (M, "maybe_init_distributed")):
+        monkeypatch.setattr(module, name, never)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DR.main()
+    monkeypatch.undo()
+    assert inspect.signature(DR.dryrun).parameters["device"].default == "cuda"
 
 
 def _native_corpus(tmp_path):

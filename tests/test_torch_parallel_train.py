@@ -30,6 +30,7 @@ from rectified_flow_vision_tpu.models import BaseFlowModel as JBase
 from rectified_flow_vision_tpu.models import RectifiedFlowModel as JRect
 from rectified_flow_vision_tpu.models import base_flow as JBF
 from rectified_flow_vision_tpu.models import rectified_flow as JRF
+from rectified_flow_vision_tpu.ops import winograd as JW
 from rectified_flow_vision_tpu.parallel import mesh as JM
 from rectified_flow_vision_tpu_torch.models import BaseFlowModel, DiT
 from rectified_flow_vision_tpu_torch.models import base_flow as TBF
@@ -40,6 +41,9 @@ TINY = dict(image_size=8, model_channels=16, channel_mult=[1, 2], num_res_blocks
 DIT = dict(image_size=8, in_channels=4, backbone="dit", patch_size=2, hidden_size=32, depth=2,
            num_heads=4, sample_dtype="float32")
 LR = 1e-3
+WINOGRAD = "RFV_CONV_WINOGRAD"
+# conv2d_fused sites of TINY: conv1 and conv2 of its 6 res-blocks, 1 upsample
+TINY_CONV_SITES = 13
 CASES = {
     "dp4": dict(dp=4, tp=1, fsdp=False),
     "fsdp4": dict(dp=4, tp=1, fsdp=True),
@@ -74,6 +78,17 @@ def step_run(tmp_path_factory):
     new, _, loss = jstep(start, tx.init(start), (jnp.asarray(x0), jnp.asarray(x1)), key)
     cases = {k: dict(v, cfg=TINY) for k, v in CASES.items()}
     cases["tp4_dropout"] = dict(dp=1, tp=4, fsdp=False, cfg={**TINY, "dropout": 0.1})
+    # the same JAX step under the Winograd gate: freshly jitted (the JAX
+    # package reads the variable when it traces), a spy counting its convs
+    wcalls = []
+    real = JW.conv2d_winograd
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(WINOGRAD, "1")
+        mp.setattr(JW, "conv2d_winograd", lambda x, p: wcalls.append(x.shape) or real(x, p))
+        wstep = JBF.make_train_step(jm, tx, coupled=True)
+        wstart = jax.tree_util.tree_map(jnp.asarray, _copy(params))
+        wnew, _, wloss = wstep(wstart, tx.init(wstart), (jnp.asarray(x0), jnp.asarray(x1)), key)
+    cases["tp4_winograd"] = dict(dp=1, tp=4, fsdp=False, cfg=TINY, winograd=True)
     # the DiT: its heads and MLP columns over 2 ranks, data over 2
     jd = JBase(seed=4, **DIT)
     dparams = jax.tree_util.tree_map(
@@ -91,7 +106,8 @@ def step_run(tmp_path_factory):
                   cases=cases, save_dir=str(tmp))[0]
     return dict(jax_loss=float(loss), jax_params=W._leaves(_copy(new)), out=out, dir=tmp,
                 params=params, x0=x0, x1=x1, t=t, dit_loss=float(dloss),
-                dit_params=W._leaves(_copy(dnew)))
+                dit_params=W._leaves(_copy(dnew)), wino_loss=float(wloss),
+                wino_params=W._leaves(_copy(wnew)), wino_convs=len(wcalls))
 
 
 def _assert_params(got, want, rtol=5e-3, atol=1e-4):
@@ -148,6 +164,19 @@ def test_dit_tensor_parallel_step_matches_the_jax_step(step_run):
     assert got["loss"] == pytest.approx(step_run["dit_loss"], rel=1e-5)
     _assert_params(got["params"], step_run["dit_params"])
     assert got["stored"] < 0.8  # qkv, proj and the MLP halved; adaLN whole
+
+
+def test_tensor_parallel_step_under_the_winograd_gate_matches_the_jax_step(step_run):
+    """With ``RFV_CONV_WINOGRAD`` set, tensor parallelism over 4 ranks (each
+    rank's quarter of a conv's output channels at a column site, of its
+    input channels at a row site, the partial sums added over the group) against
+    one JAX step under the same variable; every conv site on both sides took
+    the Winograd conv."""
+    got = step_run["out"]["tp4_winograd"]
+    assert step_run["wino_convs"] == TINY_CONV_SITES
+    assert got["winograd_calls"] == TINY_CONV_SITES
+    assert got["loss"] == pytest.approx(step_run["wino_loss"], rel=1e-5)
+    _assert_params(got["params"], step_run["wino_params"])
 
 
 def test_the_clip_acts_on_the_global_gradient(step_run, monkeypatch):

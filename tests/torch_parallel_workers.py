@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import faulthandler
 import multiprocessing as mp
+import os
 import time
 import traceback
 from pathlib import Path
@@ -89,17 +90,25 @@ def _fixed_times(monkey_module, times):
 def train_step_cases(rank, world, params, x0, x1, t, lr, cases, save_dir=None):
     """One coupled train step of a fresh model per case ``name: dict(cfg=,
     dp=, tp=, fsdp=)``, on this rank's rows of (x0, x1) with the global times
-    ``t`` (a case may bring its own ``params``, ``x0``, ``x1``, ``t``); rank 0
-    returns each case's global loss, the whole updated weights and the share
-    of the parameters this rank stored. With ``save_dir`` each case's model
-    is saved there as ``<name>.npz`` (rank 0 writes)."""
+    ``t``; a case may bring its own ``params``, ``x0``, ``x1``, ``t``, and
+    ``winograd=True`` runs it with ``RFV_CONV_WINOGRAD`` set); rank 0
+    returns each case's global loss, the whole updated weights, the share
+    of the parameters this rank stored and its Winograd conv calls. With
+    ``save_dir`` each case's model is saved there as ``<name>.npz`` (rank 0
+    writes)."""
     from rectified_flow_vision_tpu_torch.models import BaseFlowModel
     from rectified_flow_vision_tpu_torch.models import base_flow as TBF
+    from rectified_flow_vision_tpu_torch.ops import winograd
     from rectified_flow_vision_tpu_torch.parallel import mesh as M
 
     out = {}
     for name, case in cases.items():
         case = {"params": params, "x0": x0, "x1": x1, "t": t, **case}
+        if case.get("winograd"):
+            os.environ["RFV_CONV_WINOGRAD"] = "1"
+        else:
+            os.environ.pop("RFV_CONV_WINOGRAD", None)
+        winograd.reset_calls()
         _fixed_times(TBF, [case["t"]])
         mesh = M.create_mesh(data_axis=case["dp"], model_axis=case["tp"], device="cpu")
         model = BaseFlowModel(device="cpu", params=case["params"], **case["cfg"])
@@ -113,7 +122,8 @@ def train_step_cases(rank, world, params, x0, x1, t, lr, cases, save_dir=None):
         weights = model.params
         if save_dir is not None:
             model.save(str(Path(save_dir) / f"{name}.npz"))
-        out[name] = dict(loss=loss, params=_leaves(weights), stored=stored / total)
+        out[name] = dict(loss=loss, params=_leaves(weights), stored=stored / total,
+                         winograd_calls=winograd.CALLS["winograd"])
     return out if rank == 0 else None
 
 
