@@ -1,0 +1,6 @@
+"""The run's peak of device memory held by PyTorch's allocator
+(``torch.cuda.max_memory_allocated``), in GiB."""
+
+
+def read(run):
+    return run.peak_bytes / 2**30 if run.peak_bytes else None
