@@ -14,6 +14,10 @@ Counterpart of the JAX package's ``models/base_flow.py``:
   the reverse ODE (``invert``). Model compute runs in ``sample_dtype``
   (bf16 by default) while the integration state stays fp32, as in the JAX
   sampler; a Python loop takes the place of ``lax.scan``;
+* spans (``utils.profiling.annotate``, free while no profiler records):
+  ``rfv.sampler.step`` around each ODE step; ``rfv.train.gather`` around a
+  step's batch gather; ``rfv.train.step`` around a step, holding
+  ``rfv.train.loss``, ``.backward``, ``.optimizer`` and ``.ema``;
 * checkpoints: the same ``.npz`` (param tree + ``__config__``) as the JAX
   package, and reference ``.pt`` files.
 
@@ -57,6 +61,7 @@ from rectified_flow_vision_tpu_torch.parallel import mesh as mesh_lib
 from rectified_flow_vision_tpu_torch.utils import checkpoint as ckpt_io
 from rectified_flow_vision_tpu_torch.utils import pt_import
 from rectified_flow_vision_tpu_torch.utils.logging_config import get_logger
+from rectified_flow_vision_tpu_torch.utils.profiling import annotate
 
 log = get_logger("flow_vision.models")
 
@@ -338,16 +343,17 @@ class BaseFlowModel(nn.Module):
             x = noise.float()
             traj: List[Tensor] = []
             for i in range(num_steps):
-                t0 = start + f32(i) * dt
-                v = vel(x, t0)
-                if method == "euler":
-                    x = x + v * float(dt)
-                elif method == "midpoint":
-                    x_mid = x + v * float(dt / f32(2))
-                    x = x + vel(x_mid, t0 + dt / f32(2)) * float(dt)
-                else:  # heun
-                    v2 = vel(x + v * float(dt), t0 + dt)
-                    x = x + (v + v2) * float(dt / f32(2))
+                with annotate("rfv.sampler.step"):
+                    t0 = start + f32(i) * dt
+                    v = vel(x, t0)
+                    if method == "euler":
+                        x = x + v * float(dt)
+                    elif method == "midpoint":
+                        x_mid = x + v * float(dt / f32(2))
+                        x = x + vel(x_mid, t0 + dt / f32(2)) * float(dt)
+                    else:  # heun
+                        v2 = vel(x + v * float(dt), t0 + dt)
+                        x = x + (v + v2) * float(dt / f32(2))
                 if return_trajectory:
                     traj.append(x)
             return (x, traj) if return_trajectory else x
@@ -646,18 +652,23 @@ def make_train_step(
 
     def train_step(batch, generator: torch.Generator) -> Tensor:
         x0, x1 = batch if coupled else (None, batch)
-        opt.zero_grad()
-        loss = model.loss_fn(x1, generator, x0=x0, train=True, time_sampling=time_sampling,
-                             mesh=mesh)
-        loss.backward()
-        if average:
-            mesh_lib.average_grads(mesh, opt.params)
-        opt.step()
-        if ema is not None:
-            torch._foreach_mul_(ema_list, d)
-            torch._foreach_add_(ema_list, live, alpha=1.0 - d)
-        loss = loss.detach()
-        return loss if mesh is None else mesh_lib.data_mean(mesh, loss)
+        with annotate("rfv.train.step"):
+            opt.zero_grad()
+            with annotate("rfv.train.loss"):
+                loss = model.loss_fn(x1, generator, x0=x0, train=True,
+                                     time_sampling=time_sampling, mesh=mesh)
+            with annotate("rfv.train.backward"):
+                loss.backward()
+                if average:
+                    mesh_lib.average_grads(mesh, opt.params)
+            with annotate("rfv.train.optimizer"):
+                opt.step()
+            if ema is not None:
+                with annotate("rfv.train.ema"):
+                    torch._foreach_mul_(ema_list, d)
+                    torch._foreach_add_(ema_list, live, alpha=1.0 - d)
+            loss = loss.detach()
+            return loss if mesh is None else mesh_lib.data_mean(mesh, loss)
 
     return train_step
 
@@ -690,12 +701,13 @@ def make_train_epoch(
     def train_epoch(corpus, perm: Tensor, generator: torch.Generator) -> Tensor:
         losses = []
         for idx in perm:
-            if mesh is not None:
-                idx = mesh_lib.shard_batch(mesh, idx)
-            if coupled:
-                batch = (corpus[0].index_select(0, idx), corpus[1].index_select(0, idx))
-            else:
-                batch = corpus.index_select(0, idx)
+            with annotate("rfv.train.gather"):
+                if mesh is not None:
+                    idx = mesh_lib.shard_batch(mesh, idx)
+                if coupled:
+                    batch = (corpus[0].index_select(0, idx), corpus[1].index_select(0, idx))
+                else:
+                    batch = corpus.index_select(0, idx)
             losses.append(step(batch, generator))
         return torch.stack(losses)
 

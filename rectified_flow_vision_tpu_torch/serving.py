@@ -15,7 +15,18 @@ Counterpart of the JAX package's ``serving.py``:
   service alike and calls it alike) the parameters are tensor-parallel over
   ``model``, each data rank samples its rows of every batch and the rows are
   gathered, so ``generate`` returns the whole batch on every rank, the same
-  images as without a mesh.
+  images as without a mesh;
+* ``stats`` counts, for every ``generate`` call (``generate_calls``), the
+  seconds spent issuing its work on the host (``enqueue_sum_s``: from the
+  call's start to the stream synchronise; where the launch queue fills, as
+  in a DiT call, that includes device time), waiting for the device in that
+  synchronise (``device_wait_sum_s``) and copying the images to the host
+  (``to_host_sum_s``), and the rows computed and not returned
+  (``padded_images``: a call pays whole batches). ``serving_http.Batcher``
+  copies them into its own ``stats`` after each call. Spans
+  (``utils.profiling.annotate``): ``rfv.generate`` around the call,
+  ``rfv.generate.noise`` per batch's noise, ``rfv.decode`` per decode,
+  ``rfv.generate.device_wait`` and ``rfv.generate.to_host``.
 
 Example:
     svc = SamplerService.from_checkpoint("checkpoints/rectified_flow_k1_final.npz",
@@ -34,6 +45,7 @@ import torch
 from rectified_flow_vision_tpu_torch.models.base_flow import BaseFlowModel, _from_nhwc
 from rectified_flow_vision_tpu_torch.parallel import mesh as mesh_lib
 from rectified_flow_vision_tpu_torch.utils.logging_config import get_logger
+from rectified_flow_vision_tpu_torch.utils.profiling import annotate
 
 log = get_logger("flow_vision.serving")
 
@@ -70,6 +82,8 @@ class SamplerService:
         self.method = method
         self.step_counts = tuple(step_counts)
         self.device = model.device
+        self.stats = {"generate_calls": 0, "enqueue_sum_s": 0.0, "device_wait_sum_s": 0.0,
+                      "to_host_sum_s": 0.0, "padded_images": 0}
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._noise_shape = (batch_size, model.image_size, model.image_size, model.in_channels)
         # latent pipeline: the flow model samples latents, and the ConvVAE
@@ -119,7 +133,9 @@ class SamplerService:
         """One batch: the sampler, then the decode of a latent service; on a
         mesh, of this rank's rows, then gathered."""
         out = sampler(mesh_lib.shard_batch(self.mesh, noise))
-        out = out if self._decode is None else self._decode(out)
+        if self._decode is not None:
+            with annotate("rfv.decode"):
+                out = self._decode(out)
         return out if self.mesh is None else mesh_lib.gather_batch(self.mesh, out)
 
     def _gathered(self, sampler):
@@ -127,10 +143,11 @@ class SamplerService:
         return lambda x: mesh_lib.gather_batch(self.mesh, sampler(mesh_lib.shard_batch(self.mesh, x)))
 
     def _noise(self) -> torch.Tensor:
-        return torch.randn(
-            self._noise_shape, generator=self._generator, dtype=torch.float32,
-            device=self.device,
-        )
+        with annotate("rfv.generate.noise"):
+            return torch.randn(
+                self._noise_shape, generator=self._generator, dtype=torch.float32,
+                device=self.device,
+            )
 
     # ---- serving -------------------------------------------------------------
 
@@ -144,13 +161,32 @@ class SamplerService:
                 f"num_steps={num_steps} not precompiled; configured: {self.step_counts}"
             )
         sampler = self._samplers[num_steps]
-        outs = []
-        remaining = n
-        while remaining > 0:
-            outs.append(self._run(sampler, self._noise()))
-            remaining -= self.batch_size
-        result = torch.clamp(torch.cat(outs)[:n], -1.0, 1.0)
-        return _from_nhwc(result, data_format).cpu().numpy()
+        t0 = time.perf_counter()
+        with annotate("rfv.generate"):
+            outs = []
+            remaining = n
+            while remaining > 0:
+                outs.append(self._run(sampler, self._noise()))
+                remaining -= self.batch_size
+            result = _from_nhwc(torch.clamp(torch.cat(outs)[:n], -1.0, 1.0), data_format)
+            t1 = time.perf_counter()
+            # the copy below waits for the stream too: waiting first times it alone
+            with annotate("rfv.generate.device_wait"):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+            t2 = time.perf_counter()
+            with annotate("rfv.generate.to_host"):
+                images = result.cpu().numpy()
+            t3 = time.perf_counter()
+        s = self.stats
+        # one update: a copy of the dict taken on another thread sees each sum
+        # with its count
+        s.update(generate_calls=s["generate_calls"] + 1,
+                 enqueue_sum_s=s["enqueue_sum_s"] + (t1 - t0),
+                 device_wait_sum_s=s["device_wait_sum_s"] + (t2 - t1),
+                 to_host_sum_s=s["to_host_sum_s"] + (t3 - t2),
+                 padded_images=s["padded_images"] + len(outs) * self.batch_size - n)
+        return images
 
     def throughput(self, num_steps: int, iters: int = 8) -> float:
         """Steady-state images/sec, each batch fed the previous batch's output

@@ -15,6 +15,21 @@ window) into one ``SamplerService.generate`` call at the service's fixed
 batch shape, then slices the images back per request; step counts are
 served first come, first served, and a failed call raises in every waiter.
 
+``Batcher.stats`` counts, always on, every key present from construction:
+``requests``, ``images``, ``batches``, ``latency_sum_s``, ``latency_max_s``
+(served calls and their seconds, as ``/metrics`` reports them);
+``queued_requests`` and ``queue_wait_sum_s`` (from ``submit``'s enqueue to
+the take of the request's group: the coalescing sleep and the wait behind a
+running call); ``woken_requests`` and ``wake_sum_s`` (from a request's
+``done.set()`` to its sender running again). After each served call the
+service's own ``stats``, where it keeps them (``SamplerService``: its calls'
+host, device-wait and copy seconds and padded rows), are copied in, so one
+copy of ``Batcher.stats`` holds both layers' counters. Each sum moves with
+its count in one update under the batcher's lock, so a copy of the dict
+sees both or neither; ``snapshot()`` takes one under the lock. The span
+``rfv.batcher.call`` (``utils.profiling.annotate``) covers one group's call,
+its slicing and its wake-ups.
+
 Threads: the HTTP handlers run one thread per connection and only queue
 requests; the batcher thread is the only caller of the service after
 ``make_server``. It owns the service's seeded noise generator (which
@@ -41,12 +56,13 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 
 from rectified_flow_vision_tpu_torch.utils.logging_config import get_logger
+from rectified_flow_vision_tpu_torch.utils.profiling import annotate
 
 log = get_logger("flow_vision.serving.http")
 
 
 class _Request:
-    __slots__ = ("n", "num_steps", "done", "result", "error")
+    __slots__ = ("n", "num_steps", "done", "result", "error", "queued_at", "done_at")
 
     def __init__(self, n: int, num_steps: int):
         self.n = n
@@ -54,6 +70,18 @@ class _Request:
         self.done = threading.Event()
         self.result: Optional[np.ndarray] = None
         self.error: Optional[Exception] = None
+        self.queued_at = 0.0  # perf_counter at the enqueue, and at done.set()
+        self.done_at = 0.0
+
+    def finish(self) -> None:
+        self.done_at = time.perf_counter()
+        self.done.set()
+
+
+_COUNTERS = {
+    "requests": 0, "images": 0, "batches": 0, "latency_sum_s": 0.0, "latency_max_s": 0.0,
+    "queued_requests": 0, "queue_wait_sum_s": 0.0, "woken_requests": 0, "wake_sum_s": 0.0,
+}
 
 
 class Batcher:
@@ -73,10 +101,8 @@ class Batcher:
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = False
-        self.stats = {
-            "requests": 0, "images": 0, "batches": 0,
-            "latency_sum_s": 0.0, "latency_max_s": 0.0,
-        }
+        self._service_stats = getattr(service, "stats", {})
+        self.stats = {**_COUNTERS, **self._service_stats}
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
@@ -90,10 +116,12 @@ class Batcher:
             raise ValueError("n must be >= 1")
         req = _Request(n, num_steps)
         with self._lock:
+            req.queued_at = time.perf_counter()
             self._queues[num_steps].append(req)
         self._wake.set()
         if not req.done.wait(timeout):
             raise TimeoutError("generation timed out")
+        self._count(woken_requests=1, wake_sum_s=time.perf_counter() - req.done_at)
         if req.error is not None:
             raise req.error
         return req.result
@@ -102,6 +130,20 @@ class Batcher:
         self._stop = True
         self._wake.set()
         self._thread.join(timeout=5)
+
+    def snapshot(self) -> Dict[str, float]:
+        """A copy of ``stats`` taken under the lock."""
+        with self._lock:
+            return dict(self.stats)
+
+    def _count(self, **deltas) -> None:
+        """Add ``deltas`` to the counters in one dict update, under the lock."""
+        with self._lock:
+            self._add(deltas)
+
+    def _add(self, deltas) -> None:
+        s = self.stats
+        s.update({k: s[k] + v for k, v in deltas.items()})
 
     # ---- batcher loop ------------------------------------------------------
 
@@ -112,6 +154,9 @@ class Batcher:
                 if q:
                     group = list(q)
                     q.clear()
+                    now = time.perf_counter()
+                    self._add({"queued_requests": len(group),
+                               "queue_wait_sum_s": sum(now - r.queued_at for r in group)})
                     return group
         return []
 
@@ -126,7 +171,8 @@ class Batcher:
                 group = self._take_group()
                 if not group:
                     break
-                self._serve(group)
+                with annotate("rfv.batcher.call"):
+                    self._serve(group)
 
     def _serve(self, group: List[_Request]):
         t0 = time.perf_counter()
@@ -137,20 +183,19 @@ class Batcher:
         except Exception as e:  # surface to every waiter
             for r in group:
                 r.error = e
-                r.done.set()
+                r.finish()
             return
         dt = time.perf_counter() - t0
         off = 0
         for r in group:
             r.result = images[off:off + r.n]
             off += r.n
-            r.done.set()
-        s = self.stats
-        s["requests"] += len(group)
-        s["images"] += total
-        s["batches"] += 1
-        s["latency_sum_s"] += dt
-        s["latency_max_s"] = max(s["latency_max_s"], dt)
+            r.finish()
+        with self._lock:
+            self._add({"requests": len(group), "images": total, "batches": 1,
+                       "latency_sum_s": dt})
+            self.stats.update(self._service_stats,
+                              latency_max_s=max(self.stats["latency_max_s"], dt))
 
 
 def _encode_png_list(images: np.ndarray) -> List[str]:
@@ -198,7 +243,7 @@ def make_server(
                     "latent": service._decode is not None,
                 })
             elif self.path == "/metrics":
-                s = batcher.stats
+                s = batcher.snapshot()
                 lines = [
                     f"rfv_requests_total {s['requests']}",
                     f"rfv_images_total {s['images']}",

@@ -7,7 +7,23 @@ Counterpart of the JAX package's ``utils/profiling.py``:
   Perfetto load it). ``experiments/benchmark.py`` wraps a run in it when
   ``RFV_PROFILE`` names a directory;
 * ``annotate(name)``: a named span (``torch.profiler.record_function``) that
-  appears under that name in the trace;
+  appears under that name in the trace. While no profiler records, it is a
+  shared no-op context: the check costs well under a microsecond, where an
+  idle ``record_function`` costs about 10 us on the host, so the spans stay
+  on the hot paths. The port's spans, all named ``rfv.*``:
+
+  - ``rfv.batcher.call``: ``serving_http.Batcher``, one group's call, its
+    slicing and its wake-ups;
+  - ``rfv.generate``: ``serving.SamplerService.generate``, the whole call;
+    inside it ``rfv.generate.noise`` (a batch's noise draw), ``rfv.decode``
+    (the ConvVAE decode of a latent service), ``rfv.generate.device_wait``
+    (the stream synchronise after the clamp) and ``rfv.generate.to_host``
+    (the copy of the images to the host);
+  - ``rfv.sampler.step``: ``models.base_flow`` ``_get_sampler``, one ODE
+    step as the host issues it;
+  - ``rfv.train.gather``: ``make_train_epoch``, a step's batch gather;
+  - ``rfv.train.step``: ``make_train_step``, one step, holding
+    ``rfv.train.loss``, ``.backward``, ``.optimizer`` and ``.ema``;
 * ``nan_check(enable)``: raises ``FloatingPointError`` where an op produces
   a NaN, as ``jax_debug_nans`` does; restores the previous state on exit;
 * ``device_memory_stats()``: bytes in use and their peak per CUDA device.
@@ -39,8 +55,14 @@ def trace(logdir: str = "logs/torch_trace") -> Iterator[None]:
     prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named span shown inside profiler traces."""
+    """Named span shown inside profiler traces; a no-op context while no
+    profiler records on this thread."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 
