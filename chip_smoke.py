@@ -21,7 +21,9 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    kernels, above 128 on the *_wide fp32 kernels; 512 in bf16 only), and at
    the shapes of the DiTs with 6
    heads of 192 and 3 heads of 384 of phase 11 (batch 2, 1024 tokens),
-   and the standalone dropout at three sizes, in bf16 and fp32,
+   the standalone dropout at three sizes, and the DiT glue kernels
+   (ln_modulate, bias_act with and without GELU, gated_residual) at 64 x
+   1024 token rows of 384, 1152 and 1536 channels, in bf16 and fp32,
    against its plain PyTorch version on the same inputs within a stated
    tolerance, with the kernel's, the plain version's and one PyTorch library
    call's times, and the card's least time (bound: fp32 flash up to D = 128
@@ -243,6 +245,19 @@ TOLERANCES = {
     # gradient entry (SCALED_ATOL), since gradients have no natural scale.
     ("flash_attention_backward", "float32"): (1e-4, 1e-4),
     ("flash_attention_backward", "bfloat16"): (2e-2, 2e-2),
+    # the DiT glue: the LayerNorm's fp32 sums in another order, within one
+    # bf16 ulp (2^-7 of |x| covers it; 1e-6 next to zero, where the sums'
+    # order sets the last bits) or 1e-5 in fp32; the dense epilogue and the
+    # gated residual round where the eager composition does: bit-equal;
+    # GELU's tanh and products contract differently: one bf16 ulp, 1e-6 fp32
+    ("ln_modulate", "float32"): (1e-5, 1e-5),
+    ("ln_modulate", "bfloat16"): (2.0 ** -7, 1e-6),
+    ("bias_act", "float32"): (0.0, 0.0),
+    ("bias_act", "bfloat16"): (0.0, 0.0),
+    ("bias_act_gelu", "float32"): (1e-6, 1e-6),
+    ("bias_act_gelu", "bfloat16"): (2.0 ** -7, 0.0),
+    ("gated_residual", "float32"): (0.0, 0.0),
+    ("gated_residual", "bfloat16"): (0.0, 0.0),
 }
 SCALED_ATOL = {"flash_attention_backward", "gn_silu_backward"}
 # the GroupNorm forwards' second output, the saved fp32 (mean, 1/sigma),
@@ -326,6 +341,12 @@ DIT_WIDE_384_SHAPE = (2, DIT_TOKENS, 3, DIT_WIDE["hidden_size"] // 3)
 # tests' small bf16 DiTs)
 WIDE_BF16_LOSS_RTOL, WIDE_BF16_GRAD_RTOL = 3e-2, 6e-2
 DROPOUT_SHAPES = ((1024, 1024), (64, 1024, 384), (256, 64, 64, 64))
+# the DiT glue kernels at the latent serve shape (a call's 64 rows of 1024
+# tokens) and DiT-S/2's widths: hidden 384, qkv 1152, MLP 1536; the calls of
+# one DiT-S/2 forward at each (kernel, C), 0 where it makes none
+GLUE_ROWS, GLUE_WIDTHS = (LATENT["batch"], DIT_TOKENS), (384, 1152, 1536)
+GLUE_CALLS = {("ln_modulate", 384): 2 * DIT_DEPTH + 1, ("bias_act", 1152): DIT_DEPTH,
+              ("bias_act_gelu", 1536): DIT_DEPTH, ("gated_residual", 384): 2 * DIT_DEPTH}
 # The CLI phase: the port's main(argv) on configs/config.yaml with every width
 # and recipe setting its own, every path under build/cli_smoke/, and these cuts
 # of scale (config values in the comments). quality_samples stays at or above
@@ -387,6 +408,14 @@ WINOGRAD_READINGS = 10  # CUDA-event readings a time, their median kept
 def all_counts(build, **counts):
     """Expected launch counts by kernel: ``counts``, and 0 for every other."""
     return {name: counts.get(name, 0) for name in build.LAUNCHES}
+
+
+def dit_glue(blocks: int, heads: int) -> dict:
+    """The DiT glue kernels' launches for ``blocks`` DiT block forwards and
+    ``heads`` head forwards, under autograd or not (a block: two LayerNorms,
+    two epilogues, two gated residuals; the head: its LayerNorm; the
+    backward launches none)."""
+    return dict(ln_modulate=2 * blocks + heads, bias_act=2 * blocks, gated_residual=2 * blocks)
 
 
 def nonzero(counts):
@@ -608,7 +637,8 @@ def kernel_cases(torch, shape_calls, train_calls):
         cases.append(("attention_block", (BATCH, h, w, c), n, make,
                       lambda es, c=c, nt=nt: (2 * BATCH * nt * c + 4 * c * c) * es + 6 * c * 4,
                       flops))
-    return cases + flash_cases(torch, randn) + dropout_cases(torch, randn, seed)
+    return (cases + flash_cases(torch, randn) + dropout_cases(torch, randn, seed)
+            + glue_cases(torch, randn))
 
 
 def flash_fwd_cost(shape):
@@ -843,6 +873,52 @@ def dropout_cases(torch, randn, seed):
             )
         elems = math.prod(shape)
         cases.append(("dropout", shape, 1, make, lambda es, e=elems: 2 * e * es + 4, 20 * elems))
+    return cases
+
+
+def glue_cases(torch, randn):
+    """The DiT glue kernels at GLUE_ROWS x GLUE_WIDTHS against their plain
+    versions (the eager composition) on the same inputs; shift, scale and
+    gate are strided views of one [B, 6C] projection, as ``DiTBlock`` reads
+    them. ln_modulate's shift and scale are zero there, so that the
+    comparison holds the LayerNorm itself to one bf16 ulp (the modulation's
+    bit-equality is a card test's). Library: one PyTorch call of the same
+    bytes (``F.layer_norm``, an add, ``F.gelu``, ``torch.addcmul``)."""
+    import torch.nn.functional as F
+
+    from rectified_flow_vision_tpu_torch.ops import dit_glue as DG
+
+    cases = []
+    b, t = GLUE_ROWS
+    for c in GLUE_WIDTHS:
+        def make(dt, c=c, kind=None):
+            x = randn(b, t, c, dtype=dt, scale=1.7, shift=0.4)
+            y = randn(b, t, c, dtype=dt, scale=2.0)
+            mod = randn(b, 6 * c, dtype=dt, scale=0.6)
+            bias = randn(c, dtype=dt).float()
+            zero = torch.zeros_like(mod).chunk(6, dim=-1)
+            gate, bl = mod.chunk(6, dim=-1)[2], bias.to(dt)
+            if kind == "ln_modulate":
+                return (lambda: DG.ln_modulate_cuda(x, zero[0], zero[1]),
+                        lambda: DG.ln_modulate_plain(x, zero[0], zero[1]),
+                        lambda: F.layer_norm(x, (c,), eps=DG.LN_EPS))
+            if kind == "gated_residual":
+                return (lambda: DG.gated_residual_cuda(x, y, bias, gate),
+                        lambda: DG.gated_residual_plain(x, y, bias, gate),
+                        lambda: torch.addcmul(x, gate[:, None, :], y))
+            act = "gelu_tanh" if kind == "bias_act_gelu" else None
+            return (lambda: DG.bias_act_cuda(y, bias, act),
+                    lambda: DG.bias_act_plain(y, bias, act),
+                    (lambda: F.gelu(y, approximate="tanh")) if act else (lambda: y + bl))
+        elems = b * t * c
+        for kind, nbytes, flops in (
+                ("ln_modulate", lambda es, e=elems, c=c: 2 * e * es + 2 * b * c * es, 8 * elems),
+                ("bias_act", lambda es, e=elems, c=c: 2 * e * es + 4 * c, elems),
+                ("bias_act_gelu", lambda es, e=elems, c=c: 2 * e * es + 4 * c, 10 * elems),
+                ("gated_residual", lambda es, e=elems, c=c: 3 * e * es + b * c * es + 4 * c,
+                 3 * elems)):
+            cases.append((kind, (b, t, c), GLUE_CALLS.get((kind, c), 0),
+                          lambda dt, make=make, kind=kind: make(dt, kind=kind), nbytes, flops))
     return cases
 
 
@@ -1572,7 +1648,7 @@ def dit_model_phase(torch, build) -> None:
     with torch.no_grad():
         want = cpu.velocity_net(x0, t)
         got = gpu.velocity_net(x0.cuda(), t.cuda()).cpu()
-    expect = all_counts(build, flash_attention=DIT_DEPTH)
+    expect = all_counts(build, flash_attention=DIT_DEPTH, **dit_glue(DIT_DEPTH, 1))
     if dict(build.LAUNCHES) != expect:
         fail(f"DiT forward launches {dict(build.LAUNCHES)}, expected {expect}")
     if tuple(got.shape) != (4, 64, 64, 4) or not torch.isfinite(got).all():
@@ -1590,7 +1666,8 @@ def dit_model_phase(torch, build) -> None:
     loss = gpu.loss_fn(x1.cuda(), x0=x0.cuda(), t=t.cuda())
     loss.backward()
     torch.cuda.synchronize()
-    expect = all_counts(build, flash_attention=2 * DIT_DEPTH, flash_attention_backward=DIT_DEPTH)
+    expect = all_counts(build, flash_attention=2 * DIT_DEPTH, flash_attention_backward=DIT_DEPTH,
+                        **dit_glue(2 * DIT_DEPTH, 1))
     if dict(build.LAUNCHES) != expect:
         fail(f"DiT loss + backward launched {dict(build.LAUNCHES)}, expected {expect}")
     loss_err = abs(float(loss.detach()) - float(ref.detach()))
@@ -1628,7 +1705,8 @@ def dit_xl_phase(torch, build) -> None:
         with torch.no_grad():
             want = cpu.velocity_net(x0, t, dtype=dt).float()
             got = gpu.velocity_net(x0.cuda(), t.cuda(), dtype=dt).float().cpu()
-        if dict(build.LAUNCHES) != all_counts(build, flash_attention=depth):
+        if dict(build.LAUNCHES) != all_counts(build, flash_attention=depth,
+                                              **dit_glue(depth, 1)):
             fail(f"DiT-XL widths {dname} forward launched {dict(build.LAUNCHES)}")
         if not torch.isfinite(got).all():
             fail(f"DiT-XL widths {dname} forward: non-finite output")
@@ -1645,7 +1723,8 @@ def dit_xl_phase(torch, build) -> None:
     loss = gpu.loss_fn(x1.cuda(), x0=x0.cuda(), t=t.cuda())
     loss.backward()
     torch.cuda.synchronize()
-    expect = all_counts(build, flash_attention=2 * depth, flash_attention_backward=depth)
+    expect = all_counts(build, flash_attention=2 * depth, flash_attention_backward=depth,
+                        **dit_glue(2 * depth, 1))
     if dict(build.LAUNCHES) != expect:
         fail(f"DiT-XL widths loss + backward launched {dict(build.LAUNCHES)}, expected {expect}")
     loss_err = abs(float(loss.detach()) - float(ref.detach()))
@@ -1695,7 +1774,8 @@ def dit_wide_phase(torch, build, cfg, shape, routes):
         torch.cuda.synchronize()
         counts = dict(build.LAUNCHES)
         expect = all_counts(build, flash_attention=DIT_WIDE_FWD_CALLS,
-                            flash_attention_backward=DIT_WIDE_BWD_CALLS)
+                            flash_attention_backward=DIT_WIDE_BWD_CALLS,
+                            **dit_glue(DIT_WIDE_FWD_CALLS, 2))
         if counts != expect:
             fail(f"{what} {dname} forward, loss and backward launched {counts}, "
                  f"expected {expect}")
@@ -1766,7 +1846,8 @@ def latent_serve_phase(torch, build):
         lat[f"{n}x{steps}"] = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     forwards = (1 + 2 + 4) + 1 * 1 + 1 * 2 + 2 * 4  # warmup + requests (300 -> 2 batches)
-    expect = all_counts(build, flash_attention=DIT_DEPTH * forwards)
+    expect = all_counts(build, flash_attention=DIT_DEPTH * forwards,
+                        **dit_glue(DIT_DEPTH * forwards, forwards))
     log(f"latent serve: warmup {warm_s:.2f} s, requests {lat}, launches {nonzero(launches)}")
     if launches != expect:
         fail(f"latent serve launches {launches}, expected {expect}")
@@ -1910,7 +1991,8 @@ def latent_train_phase(torch, build):
                 + cfg["straight_points"] + 4)
     expect = all_counts(
         build, flash_attention=DIT_DEPTH * (2 * train_steps + forwards),
-        flash_attention_backward=DIT_DEPTH * train_steps)
+        flash_attention_backward=DIT_DEPTH * train_steps,
+        **dit_glue(DIT_DEPTH * (2 * train_steps + forwards), train_steps + forwards))
     log(f"latent train: DiT-S/2 base {cfg['base_epochs']} epochs x {steps_per_epoch} steps of "
         f"{cfg['batch']} (lr {cfg['lr']}, warm-up {cfg['warmup_epochs']} epoch, EMA {cfg['ema']}, "
         f"remat) in {base_s:.1f} s, losses {[round(v, 4) for v in base_losses]}")
@@ -1958,7 +2040,7 @@ def dit_train_timing_phase(torch, build, model, data, dname="bfloat16"):
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     per_step = all_counts(build, flash_attention=2 * DIT_DEPTH,
-                          flash_attention_backward=DIT_DEPTH)
+                          flash_attention_backward=DIT_DEPTH, **dit_glue(2 * DIT_DEPTH, 1))
     if launches != per_step:
         fail(f"one {dname} DiT train step launched {launches}, expected {per_step}")
     torch.cuda.reset_peak_memory_stats()
@@ -3353,7 +3435,9 @@ def parallel_two_ranks(torch, build) -> Counter:
             f"{gdiff:.3e}")
         if fwd > PAR_SEQ_FWD or abs(loss - loss1) > PAR_SEQ_GRAD or gdiff > PAR_SEQ_GRAD:
             fail("parallel (b): the sequence-parallel DiT disagrees with one rank")
-        check_launches("dit_seq")  # the ring's block product is plain, as in JAX
+        # the ring's block product is plain, as in JAX; the glue kernels on
+        # each rank's 512 tokens, once in its one forward (no remat)
+        check_launches("dit_seq", **dit_glue(PARALLEL["dit_depth"], 1))
         passed("dit_seq")
         check_ran("dit_pipe")
         fwd, loss, grads = results["dit_pipe"]["value"]
@@ -3369,9 +3453,11 @@ def parallel_two_ranks(torch, build) -> Counter:
         if fdiff > PAR_PIPE or abs(loss - one[1]) > PAR_PIPE or gdiff > PAR_PIPE:
             fail("parallel (b): the pipeline disagrees with one rank")
         # each stage's blocks at every one of the M + S - 1 ticks: the
-        # forward, then the loss's forward and backward
+        # forward, then the loss's forward and backward; the head on every
+        # stage, once in each
         calls = PARALLEL["dit_depth"] // 2 * (PARALLEL["microbatches"] + 1)
-        check_launches("dit_pipe", flash_attention=2 * calls, flash_attention_backward=calls)
+        check_launches("dit_pipe", flash_attention=2 * calls, flash_attention_backward=calls,
+                       **dit_glue(2 * calls, 2))
         passed("dit_pipe")
     log(f"parallel (b): ran at two ranks on the card: {ran}; not run at two ranks on the card "
         f"(their multi-rank arithmetic rests on the CPU tests): {not_run or 'none'}")
@@ -3500,6 +3586,12 @@ def main() -> None:
     unet_forward = "one UNet eval forward at batch 256: sum over its calls"
     unet_step = "one UNet train step at batch 256: sum over its calls"
     dit_attention = "rectified_flow_vision_tpu/models/dit.py:127"
+    # no TPU kernel: XLA fuses the JAX block's glue into the ops around it
+    glue_replaces = "none (XLA fusion); rectified_flow_vision_tpu/models/dit.py"
+    dit_serve = f"one DiT-S/2 forward at batch {GLUE_ROWS[0]}, {DIT_TOKENS} tokens"
+
+    def on_dit_path(r):  # the kernel phase's glue rows at DiT-S/2's sites
+        return r["calls"] > 0
     def model_run(dname, heads, hd):
         return (f"one {dname} forward, then loss and gradients, of the DiT with {heads} heads of "
                 f"{hd} (depth {DIT_WIDE['depth']}, batch {DIT_WIDE_SHAPE[0]}, {DIT_TOKENS} tokens)")
@@ -3580,6 +3672,18 @@ def main() -> None:
             "one call at each of the three sizes; no model of either package calls it: its "
             "launches are those of ops.primitives.dropout driven directly",
             len(DROPOUT_SHAPES), None),
+        "ln_modulate": (
+            csrc + "dit_glue.cu", glue_replaces + ":183 (_modulate(_layer_norm(...)))",
+            f"{dit_serve}: its {2 * DIT_DEPTH + 1} calls (two a block, the head's)",
+            2 * DIT_DEPTH + 1, on_dit_path),
+        "bias_act": (
+            csrc + "dit_glue.cu", glue_replaces + ":184, :198-199 (dense bias, GELU)",
+            f"{dit_serve}: its {DIT_DEPTH} qkv epilogues (C 1152) and {DIT_DEPTH} mlp1 "
+            "epilogues with GELU (C 1536)", 2 * DIT_DEPTH, on_dit_path),
+        "gated_residual": (
+            csrc + "dit_glue.cu", glue_replaces + ":194-195, :200-201 (bias, gate, residual)",
+            f"{dit_serve}: its {2 * DIT_DEPTH} calls (proj and mlp2, C 384)", 2 * DIT_DEPTH,
+            on_dit_path),
     }
     by_path = {"unet_serve": serve_launches, "unet_train": train_launches,
                "dropout_direct": dropout_launches, "latent_serve": latent_serve_launches,
@@ -3589,14 +3693,15 @@ def main() -> None:
                "http": http_launches, "profiling": profiling_launches,
                "parallel": parallel_launches}
     # the wrapper whose kernel-phase rows an entry reads, where it is not the entry's own name
-    row_names = {f"flash_attention_{route}{part}": f"flash_attention{part}"
+    row_names = {f"flash_attention_{route}{part}": (f"flash_attention{part}",)
                  for route in ("wide", "streamed", "f32", "f32_wide")
                  for part in ("", "_backward")}
+    row_names["bias_act"] = ("bias_act", "bias_act_gelu")
     kernels = []
     for name, (src, replaces, per, calls, keep, *dtype) in sources.items():
         dtype = dtype[0] if dtype else "bfloat16"
         mine = [r for r in rows
-                if r["name"] == row_names.get(name, name) and (keep is None or keep(r))]
+                if r["name"] in row_names.get(name, (name,)) and (keep is None or keep(r))]
         bf = [r for r in mine if r["dtype"] == dtype]
 
         def total(key):  # sum over the calls at their shapes

@@ -16,6 +16,17 @@ Every block's LayerNorms are affine-free and modulated by (shift, scale,
 gate) regressed from the time embedding through zero-initialised projections,
 so a fresh network is the zero function.
 
+The passes between a block's GEMMs are ``ops.fused``'s ``ln_modulate``
+(every LayerNorm + modulate, the head's too), ``bias_act`` (the qkv and mlp1
+epilogues, GELU in mlp1's) and ``gated_residual`` (the proj and mlp2
+epilogues with their gate and the residual add); the GEMMs stay
+``torch.matmul``. On a CUDA tensor the hand-written kernels
+(``ops/dit_glue.py``) run in every forward, the loss's and the one ``remat``
+reruns included; the backward differentiates the eager composition of
+``ops/primitives.py``, since the kernels have no backward yet. Under tensor
+parallelism the proj and mlp2 sites stay the eager composition, their
+row-parallel bias added after the psum.
+
 Attention is ``ops.fused.flash_attention``: the hand-written flash kernels
 (forward, and dq / dkv in the backward) for sequences of at least 1024 tokens
 that are a multiple of 128, the plain attention below that, as the JAX
@@ -88,6 +99,24 @@ DIT_SIZES = {
 }
 
 
+def _matmul(x: Tensor, w: Tensor) -> Tensor:
+    """A dense layer's GEMM alone: ``P.dense`` without its bias."""
+    return torch.matmul(x, w.to(x.dtype).t())
+
+
+def _dense(v: _View, x: Tensor, m: nn.Linear, act: Optional[str] = None) -> Tensor:
+    """A column-parallel dense layer, then ``act``."""
+    return fused.bias_act(_matmul(x, v(m.weight)), v(m.bias, "f32"), act)
+
+
+def _gated_row_dense(v: _View, tokens: Tensor, x: Tensor, m: nn.Linear, gate: Tensor) -> Tensor:
+    """tokens + gate * (a row-parallel dense layer of x); under tensor
+    parallelism the eager composition, the bias added after the psum."""
+    if v.tp is not None:
+        return tokens + gate[:, None, :] * v.row_dense(x, m)
+    return fused.gated_residual(tokens, _matmul(x, v(m.weight)), v(m.bias, "f32"), gate)
+
+
 class DiTBlock(nn.Module):
     """One adaLN-Zero DiT block: tokens [B, T, C], c_emb [B, C] -> [B, T, C]
     (the JAX package's ``block_apply``). With ``seq_group`` the tokens are
@@ -114,21 +143,20 @@ class DiTBlock(nn.Module):
         mod = v.dense(P.silu(c_emb), self.ada)  # [B, 6C]
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
         # attention branch: q, k, v are views of the one projection
-        hmod = v.to_tp(P.modulate(P.layer_norm(tokens), shift_msa, scale_msa))
-        q, k, val = v.dense(hmod, self.qkv).reshape(b, t, 3, num_heads, hd).unbind(2)
+        hmod = v.to_tp(fused.ln_modulate(tokens, shift_msa, scale_msa))
+        q, k, val = _dense(v, hmod, self.qkv).reshape(b, t, 3, num_heads, hd).unbind(2)
         if seq_group is not None:
             from rectified_flow_vision_tpu_torch.parallel.ring_attention import ring_attention
 
             att = ring_attention(q, k, val, seq_group)
         else:
             att = fused.flash_attention(q, k, val)
-        att = v.row_dense(att.reshape(b, t, num_heads * hd), self.proj)
-        tokens = tokens + gate_msa[:, None, :] * att
+        tokens = _gated_row_dense(v, tokens, att.reshape(b, t, num_heads * hd), self.proj,
+                                  gate_msa)
         # MLP branch
-        hmod = v.to_tp(P.modulate(P.layer_norm(tokens), shift_mlp, scale_mlp))
-        hmod = P.gelu_tanh(v.dense(hmod, self.mlp1))
-        hmod = v.row_dense(hmod, self.mlp2)
-        return tokens + gate_mlp[:, None, :] * hmod
+        hmod = v.to_tp(fused.ln_modulate(tokens, shift_mlp, scale_mlp))
+        hmod = _dense(v, hmod, self.mlp1, act="gelu_tanh")
+        return _gated_row_dense(v, tokens, hmod, self.mlp2, gate_mlp)
 
 
 class _TimeEmbed(nn.Module):
@@ -273,7 +301,7 @@ class DiT(nn.Module):
     def _head(self, tokens: Tensor, c_emb: Tensor, v: _View) -> Tensor:
         """Final adaLN and the linear head: [B, T, p * p * C]."""
         shift, scale = v.dense(P.silu(c_emb), self.final.ada).chunk(2, dim=-1)
-        tokens = P.modulate(P.layer_norm(tokens), shift, scale)
+        tokens = fused.ln_modulate(tokens, shift, scale)
         return v.dense(tokens, self.final.linear)
 
     def _unpatchify(self, out: Tensor, shape) -> Tensor:

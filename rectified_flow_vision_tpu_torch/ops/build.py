@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = (
     "gn_silu.cu", "gn_silu_dropout.cu", "conv3x3.cu", "attention.cu", "flash_attention.cu",
     "flash_attention_streamed.cu", "flash_attention_f32.cu", "flash_attention_f32_bwd.cu",
-    "dropout.cu", "runtime.cu",
+    "dropout.cu", "dit_glue.cu", "runtime.cu",
 )
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -52,6 +52,9 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention": 0,
     "flash_attention_backward": 0,
     "dropout": 0,
+    "ln_modulate": 0,
+    "bias_act": 0,
+    "gated_residual": 0,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,6 +82,9 @@ _SIGNATURES = {
         _P,
     ],
     "rfv_dropout": [_P, _P, _P, _L, _L, _U, _F, _I, _P],
+    "rfv_ln_modulate": [_P, _P, _P, _P, _L, _I, _L, _L, _F, _I, _P],
+    "rfv_bias_act": [_P, _P, _P, _L, _I, _I, _I, _P],
+    "rfv_gated_residual": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _I, _P],
 }
 
 _lock = threading.Lock()

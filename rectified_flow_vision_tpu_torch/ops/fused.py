@@ -32,6 +32,13 @@ VJPs, save their inputs and differentiate the plain version in the backward.
 Flash attention has the JAX package's rule on shape besides
 (``FA.use_flash``): short sequences take the plain attention on every
 device, as there.
+
+The DiT block's glue between its GEMMs (``ln_modulate``, ``bias_act``,
+``gated_residual``; ``ops/dit_glue.py``) takes the kernel on a CUDA tensor in
+every forward, sampling and training alike; a width the kernels do not take
+(C not a multiple of 8) raises there. Its kernels have no backward yet: the
+backward differentiates the plain version (the eager composition) from the
+saved inputs, as the conv's does.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import torch
 
 from rectified_flow_vision_tpu_torch.ops import attention as A
 from rectified_flow_vision_tpu_torch.ops import conv3x3 as C
+from rectified_flow_vision_tpu_torch.ops import dit_glue as DG
 from rectified_flow_vision_tpu_torch.ops import dropout as DR
 from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
 from rectified_flow_vision_tpu_torch.ops import gn_silu as G
@@ -174,6 +182,42 @@ class _Dropout(torch.autograd.Function):
         return DR.dropout_cuda(g.contiguous(), seed, ctx.rate), None, None
 
 
+class _LnModulate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shift, scale):
+        ctx.save_for_backward(x, shift, scale)
+        return DG.ln_modulate_cuda(x, shift, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _plain_grads(DG.ln_modulate_plain, ctx.saved_tensors, ctx.needs_input_grad, g)
+
+
+class _BiasAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, b, act):
+        ctx.save_for_backward(y, b)
+        ctx.act = act
+        return DG.bias_act_cuda(y, b, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _plain_grads(lambda y, b: DG.bias_act_plain(y, b, ctx.act), ctx.saved_tensors,
+                             ctx.needs_input_grad[:2], g)
+        return (*grads, None)
+
+
+class _GatedResidual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tokens, y, b, gate):
+        ctx.save_for_backward(tokens, y, b, gate)
+        return DG.gated_residual_cuda(tokens, y, b, gate)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _plain_grads(DG.gated_residual_plain, ctx.saved_tensors, ctx.needs_input_grad, g)
+
+
 def gn_silu(x: Tensor, scale: Tensor, bias: Tensor, *, num_groups: int = 8) -> Tensor:
     """Fused GroupNorm(num_groups) + SiLU over an NHWC tensor."""
     if _on_cpu(x):
@@ -272,3 +316,27 @@ def dropout(x: Tensor, rate: float, seed: Optional[D.Seed], *, train: bool) -> T
     if _on_cpu(x):
         return DR.dropout_plain(x, seed, rate)
     return _Dropout.apply(x.contiguous(), D.seed_tensor(seed, x.device), float(rate))
+
+
+def ln_modulate(x: Tensor, shift: Tensor, scale: Tensor) -> Tensor:
+    """Affine-free LayerNorm of tokens [B, T, C], then ``* (1 + scale) + shift``
+    with [B, C] rows (adaLN)."""
+    if _on_cpu(x):
+        return DG.ln_modulate_plain(x, shift, scale)
+    return _LnModulate.apply(x.contiguous(), shift, scale)
+
+
+def bias_act(y: Tensor, b: Tensor, act: Optional[str] = None) -> Tensor:
+    """A dense layer's epilogue on its GEMM output [B, T, C]: the fp32 bias,
+    then ``act`` (None or ``"gelu_tanh"``)."""
+    if _on_cpu(y):
+        return DG.bias_act_plain(y, b, act)
+    return _BiasAct.apply(y.contiguous(), b, act)
+
+
+def gated_residual(tokens: Tensor, y: Tensor, b: Tensor, gate: Tensor) -> Tensor:
+    """tokens + gate * (y + b): a dense layer's epilogue, gated by [B, C] rows
+    and added to the residual stream."""
+    if _on_cpu(tokens):
+        return DG.gated_residual_plain(tokens, y, b, gate)
+    return _GatedResidual.apply(tokens.contiguous(), y.contiguous(), b, gate)

@@ -253,6 +253,180 @@ class TestLoss:
         assert all(p.grad.dtype == torch.float32 for p in tm.parameters())
 
 
+GLUE = ("ln_modulate", "bias_act", "gated_residual")
+
+
+def _glue_sites(depth):
+    """The glue entries a forward calls, in order: a block's LayerNorm,
+    qkv epilogue, proj + gate + residual, LayerNorm, mlp1 epilogue, mlp2 +
+    gate + residual; then the head's LayerNorm."""
+    block = ["ln_modulate", "bias_act", "gated_residual"] * 2
+    return block * depth + ["ln_modulate"]
+
+
+def _record_glue(monkeypatch, card=True):
+    """Record the calls of ``ops.fused``'s glue entries and of the kernels
+    they launch. The kernels are stood in for by their plain versions, and
+    with ``card`` the dispatch sees a CUDA tensor, so that it decides as on
+    a card (the tiny DiT's 16 tokens keep attention on the plain route)."""
+    entries, kernels = [], []
+    for name in GLUE:
+        entry, plain = getattr(TF, name), getattr(TF.DG, f"{name}_plain")
+        monkeypatch.setattr(TF, name, lambda *a, _f=entry, _n=name: entries.append(_n) or _f(*a))
+        monkeypatch.setattr(TF.DG, f"{name}_cuda",
+                            lambda *a, _f=plain, _n=name: kernels.append(_n) or _f(*a))
+    if card:
+        monkeypatch.setattr(TF, "_on_cpu", lambda x: False)
+    return entries, kernels
+
+
+class TestGlueDispatch:
+    """The DiT block's glue between its GEMMs goes through ``ops.fused``'s
+    ``ln_modulate`` / ``bias_act`` / ``gated_residual``; on a CUDA tensor the
+    kernels run in every forward and the backward differentiates the eager
+    composition, on the CPU the eager composition runs."""
+
+    def _net(self, **kw):
+        _, tm = _pair(seed=11, **kw)
+        return tm.velocity_net
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_sampling_forward_takes_a_kernel_at_every_site(self, monkeypatch, dtype):
+        net = self._net()
+        x, t = (torch.from_numpy(a) for a in _inputs(TINY, 2, seed=12))
+        with torch.no_grad():
+            want = net(x, t, dtype=dtype)
+        entries, kernels = _record_glue(monkeypatch)
+        with torch.no_grad():
+            got = net(x, t, dtype=dtype)
+        assert entries == kernels == _glue_sites(2)
+        assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+    def test_a_forward_under_autograd_takes_the_eager_composition(self, monkeypatch, remat):
+        """Under autograd the kernels run in the forward (with ``remat``, in
+        its rerun of the blocks too) and the gradients are the eager
+        composition's: with the kernels stood in for by their plain
+        versions, the output equals the CPU path's and every gradient is
+        its own, its fp32 sums accumulated in another order."""
+        net = self._net(remat=remat)
+        x, t = (torch.from_numpy(a) for a in _inputs(TINY, 2, seed=13))
+        want = net(x, t, masters=True)
+        want.square().mean().backward()
+        want_grads = [p.grad.clone() for p in net.parameters()]
+        net.zero_grad()
+        entries, kernels = _record_glue(monkeypatch)
+        got = net(x, t, masters=True)
+        got.square().mean().backward()
+        recomputed = _glue_sites(2)[:-1] if remat else []  # the blocks again, not the head
+        assert kernels == entries == _glue_sites(2) + recomputed
+        assert torch.equal(got, want)
+        for a, b in zip(want_grads, (p.grad for p in net.parameters())):  # summed in other orders
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-8)
+
+    def test_grad_mode_with_no_input_requiring_grad_takes_the_kernels(self, monkeypatch):
+        net = self._net()
+        x, t = (torch.from_numpy(a) for a in _inputs(TINY, 2, seed=14))
+        entries, kernels = _record_glue(monkeypatch)
+        assert torch.is_grad_enabled()
+        net(x, t)  # the cached, detached parameters of a sampling view
+        assert kernels == _glue_sites(2)
+
+    def test_a_tensor_parallel_view_takes_the_eager_composition(self, monkeypatch):
+        """A block under a tensor-parallel view (a group of one, so that the
+        shards are the whole weights) gives the block's output; its
+        row-parallel proj and mlp2 take the eager composition (the bias
+        added after the psum), its LayerNorms and column-parallel epilogues
+        the kernels."""
+        from rectified_flow_vision_tpu_torch.models.unet import _View
+        from rectified_flow_vision_tpu_torch.parallel import collectives
+        from rectified_flow_vision_tpu_torch.parallel.mesh import TensorParallel
+
+        net = self._net()
+        blk, hidden = net.blocks[0], net.cfg.hidden_size
+        g = torch.Generator().manual_seed(15)
+        tokens = torch.randn((2, 16, hidden), generator=g)
+        c_emb = torch.randn((2, hidden), generator=g)
+        with torch.no_grad():
+            want = blk(tokens, c_emb, _View(net._params, torch.float32), net.cfg.num_heads)
+        monkeypatch.setattr(collectives, "group_size", lambda group: 1)
+        entries, kernels = _record_glue(monkeypatch)
+        tp = _View(net._params, torch.float32, tp=TensorParallel(group=None, size=1, rank=0))
+        with torch.no_grad():
+            got = blk(tokens, c_emb, tp, net.cfg.num_heads)
+        assert entries == kernels == ["ln_modulate", "bias_act"] * 2
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+    def test_the_cpu_launches_no_kernel(self, monkeypatch):
+        net = self._net()
+        x, t = (torch.from_numpy(a) for a in _inputs(TINY, 2, seed=16))
+        entries, kernels = _record_glue(monkeypatch, card=False)
+        build.reset_launches()
+        with torch.no_grad():
+            net(x, t)
+        assert entries == _glue_sites(2) and kernels == []
+        assert sum(build.LAUNCHES.values()) == 0
+
+    @pytest.mark.parametrize("name", GLUE)
+    def test_a_width_the_kernels_do_not_take_stays_plain(self, monkeypatch, name):
+        """C not a multiple of 8 stays plain on the CPU only: on a CUDA
+        tensor the dispatch has no plain route, it calls the kernel's
+        wrapper, which refuses the width (a card test)."""
+        g = torch.Generator().manual_seed(17)
+        x, y = torch.randn((2, 3, 12), generator=g), torch.randn((2, 3, 12), generator=g)
+        row, b = torch.randn((2, 12), generator=g), torch.randn(12, generator=g)
+        args = {"ln_modulate": (x, row, row), "bias_act": (y, b), "gated_residual": (x, y, b, row)}
+        for card in (False, True):
+            _, kernels = _record_glue(monkeypatch, card=card)
+            with torch.no_grad():
+                got = getattr(TF, name)(*args[name])
+            assert kernels == ([name] if card else [])
+            assert torch.equal(got, getattr(TF.DG, f"{name}_plain")(*args[name]))
+            monkeypatch.undo()
+        assert not TF.DG.supports(12) and TF.DG.supports(384)
+
+    @pytest.mark.parametrize("name", GLUE)
+    def test_launch_counter_and_c_entry_point(self, name):
+        """Each kernel has its ``LAUNCHES`` key, its source in the build and a
+        ctypes signature that matches the C entry point's parameters."""
+        import re
+
+        assert name in build.LAUNCHES
+        assert "dit_glue.cu" in build.SOURCES
+        src = (build.CSRC / "dit_glue.cu").read_text()
+        m = re.search(r'extern "C" int rfv_' + name + r"\(([^)]*)\)", src)
+        assert m, name
+        kinds = {"void*": build._P, "long long": build._L, "int": build._I, "float": build._F}
+        params = [" ".join(p.replace("const", "").split()[:-1]) for p in m.group(1).split(",")]
+        assert [kinds[p] for p in params] == build._SIGNATURES[f"rfv_{name}"]
+
+    def test_plain_versions_are_the_eager_composition(self):
+        from rectified_flow_vision_tpu_torch.ops import primitives as P
+
+        g = torch.Generator().manual_seed(18)
+        x = torch.randn((2, 5, 16), generator=g).to(torch.bfloat16)
+        y = torch.randn((2, 5, 16), generator=g).to(torch.bfloat16)
+        shift, scale, gate = torch.randn((2, 48), generator=g).to(torch.bfloat16).chunk(3, -1)
+        b = torch.randn(16, generator=g)
+        assert torch.equal(TF.ln_modulate(x, shift, scale),
+                           P.modulate(P.layer_norm(x), shift, scale))
+        w = torch.randn((16, 16), generator=g).to(torch.bfloat16)
+        h = torch.matmul(x, w.t())
+        assert torch.equal(TF.bias_act(h, b), P.dense(x, w, b))
+        assert torch.equal(TF.bias_act(h, b, "gelu_tanh"), P.gelu_tanh(P.dense(x, w, b)))
+        assert torch.equal(TF.gated_residual(x, y, b, gate),
+                           x + gate[:, None, :] * (y.float() + b).to(y.dtype))
+        with pytest.raises(ValueError, match="activation"):
+            TF.bias_act(h, b, "relu")
+
+    @pytest.mark.parametrize("name", GLUE)
+    def test_kernel_wrappers_refuse_a_cpu_tensor(self, name):
+        x, row, b = torch.zeros((1, 2, 8)), torch.zeros((1, 8)), torch.zeros(8)
+        args = {"ln_modulate": (x, row, row), "bias_act": (x, b), "gated_residual": (x, x, b, row)}
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            getattr(TF.DG, f"{name}_cuda")(*args[name])
+
+
 def _compare_params(got_tree, want_tree, atol, lr, steps, hidden):
     """Parameters after ``steps`` AdamW steps. Adam's update is
     lr * m / (sqrt(v) + eps): a gradient at the level of fp32 rounding noise is

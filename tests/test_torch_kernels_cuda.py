@@ -17,8 +17,12 @@ their streamed layouts; every fp32 width above 128 on the *_wide fp32
 kernels; the fp32 3xTF32 kernels at 8 to 128 against the plain versions and
 against float64, where their error is held to 4 times the plain fp32
 version's), every
-GroupNorm slab of the flagship, and group widths that take gn_silu's
-narrower vectors (2 and 3 channels a group). Tolerances as in chip_smoke.py: fp32 1e-4 (gn_silu) / 1e-3 (conv3x3,
+GroupNorm slab of the flagship, group widths that take gn_silu's
+narrower vectors (2 and 3 channels a group), and the DiT glue kernels at
+DiT-S/2's and DiT-XL/2's widths (8 to 4608 channels, 111 rows, the adaLN
+rows as strided views), bit-equal to the eager composition but for the
+LayerNorm's sums and GELU's tanh (one bf16 ulp). Tolerances as in
+chip_smoke.py: fp32 1e-4 (gn_silu) / 1e-3 (conv3x3,
 attention; reordered sums, cuDNN's algorithm choice), bf16 one rounding
 against two or three (2e-2 rtol, 3e-2 atol, 6e-2 for attention); the
 backward kernels against their plain versions' formulas at fp32 1e-4 and
@@ -393,7 +397,8 @@ def test_train_forward_and_backward_launch_counts(dev):
     # conv1, conv2 and one upsample conv; one mid attention
     assert build.LAUNCHES == {"gn_silu": 7, "gn_silu_dropout": 6, "gn_silu_backward": 13,
                               "dropout_mask_apply": 0, "conv3x3": 13, "attention_block": 1,
-                              "flash_attention": 0, "flash_attention_backward": 0, "dropout": 0}
+                              "flash_attention": 0, "flash_attention_backward": 0, "dropout": 0,
+                              "ln_modulate": 0, "bias_act": 0, "gated_residual": 0}
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
     cpu = BaseFlowModel(image_size=16, model_channels=64, channel_mult=[1, 2],
                         num_res_blocks=1, dropout=0.1, device="cpu", params=model.params)
@@ -450,7 +455,8 @@ def test_small_unet_on_the_card_matches_the_cpu(dev, dtype):
     # 4 residual blocks x 2 + the head; 16 channels are outside conv3x3's contract
     assert build.LAUNCHES == {"gn_silu": 9, "conv3x3": 0, "attention_block": 1,
                               "gn_silu_dropout": 0, "gn_silu_backward": 0, "dropout_mask_apply": 0,
-                              "flash_attention": 0, "flash_attention_backward": 0, "dropout": 0}
+                              "flash_attention": 0, "flash_attention_backward": 0, "dropout": 0,
+                              "ln_modulate": 0, "bias_act": 0, "gated_residual": 0}
     tol = 1e-3 if dtype == "float32" else 0.03 * float(want.abs().max())
     assert float((got - want).abs().max()) <= tol
 
@@ -810,3 +816,186 @@ def test_dit_remat_on_the_card_reruns_the_forward_kernel(dev):
         assert torch.equal(a, b)
     assert out[0][2]["flash_attention"] == 2 and out[1][2]["flash_attention"] == 4
     assert out[0][2]["flash_attention_backward"] == out[1][2]["flash_attention_backward"] == 2
+
+
+# ---- the DiT block's glue: ln_modulate, bias_act, gated_residual ----------------
+
+# DiT-S/2 and DiT-XL/2's widths (hidden 384 / 1152, qkv 1152 / 3456, MLP 1536 /
+# 4608) and the narrowest the kernels take; 3 x 37 = 111 rows, ragged against
+# every row group
+GLUE_WIDTHS = [8, 384, 1152, 1536, 3456, 4608]
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |x| (8 significant bits), the least normal's below it."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _glue_args(dev, dtype, c, b=3, t=37, seed=21):
+    """Tokens [B, T, C] and the six [B, C] rows as strided views of one [B, 6C]
+    projection (row stride 6C), as ``DiTBlock`` chunks its adaLN output."""
+    g = _gen(dev, seed)
+    x = (torch.randn((b, t, c), generator=g, device=dev) * 1.7 + 0.4).to(dtype)
+    mod = (torch.randn((b, 6 * c), generator=g, device=dev) * 0.6).to(dtype)
+    y = (torch.randn((b, t, c), generator=g, device=dev) * 2.0).to(dtype)
+    bias = torch.randn(c, generator=g, device=dev).to(dtype).float()
+    return x, mod.chunk(6, dim=-1), y, bias
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", GLUE_WIDTHS)
+def test_ln_modulate(dev, dtype, c):
+    """The LayerNorm within one bf16 ulp (fp32: 1e-5) of the plain version's,
+    or 1e-6 where it is that close to zero: the fp32 sums' order differs, and
+    near zero (x within ~1e-6 sigma of the mean) that order, not the bf16
+    rounding, sets the last bits (DiT-S/2's serve shape differs in 81 of 25M
+    values, one beyond an ulp, by 3e-9). The modulation on the kernel's own
+    LayerNorm bit-equal to the eager composition, with shift and scale read in
+    place as strided views. A row wider than four warps hold in registers
+    (fp32 above 4096 channels) is refused."""
+    from rectified_flow_vision_tpu_torch.ops import dit_glue as DG
+    from rectified_flow_vision_tpu_torch.ops import primitives as P
+
+    x, (shift, scale, *_), _, _ = _glue_args(dev, dtype, c)
+    assert shift.stride() == (6 * c, 1)
+    if c * x.element_size() > 16 * DG.LN_MAX_VECTORS:
+        with pytest.raises(ValueError, match="registers"):
+            DG.ln_modulate_cuda(x, shift, scale)
+        assert dtype == torch.float32 and c == 4608
+        return
+    zero = torch.zeros_like(shift)
+    ln = DG.ln_modulate_cuda(x, zero, zero)
+    want = P.layer_norm(x)
+    if dtype == torch.float32:
+        torch.testing.assert_close(ln, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert bool(((ln.float() - want.float()).abs() <= _bf16_ulp(want).clamp_min(1e-6)).all())
+    before = build.LAUNCHES["ln_modulate"]
+    out = DG.ln_modulate_cuda(x, shift, scale)
+    assert build.LAUNCHES["ln_modulate"] == before + 1
+    assert torch.equal(out, P.modulate(ln, shift, scale))
+
+
+@pytest.mark.parametrize("act", [None, "gelu_tanh"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", GLUE_WIDTHS)
+def test_bias_act(dev, dtype, c, act):
+    """The dense epilogue bit-equal to the eager ``(float(y) + b).to(dtype)``;
+    with GELU within one bf16 ulp (fp32: 1e-6), the tanh and the products
+    contracting differently from PyTorch's kernel."""
+    from rectified_flow_vision_tpu_torch.ops import dit_glue as DG
+
+    _, _, y, bias = _glue_args(dev, dtype, c)
+    before = build.LAUNCHES["bias_act"]
+    out = DG.bias_act_cuda(y, bias, act)
+    assert build.LAUNCHES["bias_act"] == before + 1
+    want = DG.bias_act_plain(y, bias, act)
+    assert out.dtype == want.dtype and out.shape == want.shape
+    if act is None:
+        assert torch.equal(out, want)
+    elif dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+    else:
+        assert bool(((out.float() - want.float()).abs() <= _bf16_ulp(want)).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", GLUE_WIDTHS)
+def test_gated_residual(dev, dtype, c):
+    """tokens + gate * (y + b) bit-equal to the eager composition, the gate a
+    strided view of the adaLN projection."""
+    from rectified_flow_vision_tpu_torch.ops import dit_glue as DG
+
+    x, (*_, gate), y, bias = _glue_args(dev, dtype, c)
+    before = build.LAUNCHES["gated_residual"]
+    out = DG.gated_residual_cuda(x, y, bias, gate)
+    assert build.LAUNCHES["gated_residual"] == before + 1
+    assert torch.equal(out, DG.gated_residual_plain(x, y, bias, gate))
+
+
+def test_glue_kernels_refuse_what_they_do_not_take(dev):
+    from rectified_flow_vision_tpu_torch.ops import dit_glue as DG
+
+    x, (shift, scale, *_), y, bias = _glue_args(dev, torch.bfloat16, 12)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        DG.ln_modulate_cuda(x, shift, scale)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        DG.bias_act_cuda(y, bias)
+    with pytest.raises(ValueError, match="multiple of 8"):  # the dispatch has no plain route
+        fused.gated_residual(x, y, bias, shift)
+    x, (shift, scale, *_), y, bias = _glue_args(dev, torch.bfloat16, 64)
+    with pytest.raises(ValueError, match="activation"):
+        DG.bias_act_cuda(y, bias, "relu")
+    with pytest.raises(ValueError, match="float32"):
+        DG.bias_act_cuda(y, bias.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="shift"):
+        DG.ln_modulate_cuda(x, shift.float(), scale)
+    for dtype, c in ((torch.bfloat16, 8192), (torch.float32, 4096)):  # the widest rows
+        for width in (c, c + 8):
+            wide = torch.ones((1, 2, width), device=dev, dtype=dtype)
+            row = torch.zeros((1, width), device=dev, dtype=dtype)
+            if width == c:
+                assert not bool(DG.ln_modulate_cuda(wide, row, row).any())
+                continue
+            with pytest.raises(ValueError, match="registers"):
+                DG.ln_modulate_cuda(wide, row, row)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dit_s2_forward_takes_the_glue_kernels_once_a_site(dev, monkeypatch, dtype):
+    """A whole DiT-S/2 forward without grad at batch 4 (1024 tokens), all
+    parameters random: the glue kernels against the eager composition on the
+    card, at the file's tolerance for a whole model's forward (fp32 1e-3, bf16
+    3% of the output's largest entry), and in bf16 no further from the eager
+    fp32 forward than the eager bf16 one (root mean square, within 10%); one
+    launch a site (two LayerNorms, two epilogues and two gated residuals a
+    block, the head's LayerNorm). Under autograd the same launches, and
+    every gradient within the file's whole-model tolerance of the eager
+    composition's (fp32 2e-3, bf16 6e-2 of its largest entry)."""
+    from rectified_flow_vision_tpu_torch.models import dit as TDIT
+    from rectified_flow_vision_tpu_torch.ops import dit_glue as DG
+
+    net = TDIT.DiT(input_size=64, size="S").to(dev)
+    g = _gen(dev, 31)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.05)
+    x = torch.randn((4, 64, 64, 4), generator=g, device=dev)
+    t = torch.rand((4,), generator=g, device=dev)
+    depth = net.cfg.depth
+    sites = (2 * depth + 1, 2 * depth, 2 * depth)
+
+    def launches():
+        return tuple(build.LAUNCHES[k] for k in ("ln_modulate", "bias_act", "gated_residual"))
+
+    def grads():
+        net.zero_grad()
+        net(x, t, dtype=dtype, masters=True).float().square().mean().backward()
+        return [p.grad.clone() for p in net.parameters()]
+
+    build.reset_launches()
+    with torch.no_grad():
+        got = net(x, t, dtype=dtype)
+    assert launches() == sites
+    build.reset_launches()
+    got_grads = grads()
+    assert launches() == sites and build.LAUNCHES["flash_attention"] == depth
+    for name in ("ln_modulate", "bias_act", "gated_residual"):  # the eager composition
+        monkeypatch.setattr(fused, name, getattr(DG, f"{name}_plain"))
+    build.reset_launches()
+    with torch.no_grad():
+        want = net(x, t, dtype=dtype)
+    want_grads = grads()
+    assert launches() == (0, 0, 0)
+    got, want = got.float(), want.float()
+    tol = 1e-3 if dtype == torch.float32 else 0.03 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    if dtype == torch.bfloat16:
+        with torch.no_grad():
+            ref = net(x, t, dtype=torch.float32)
+        rms = [float((a - ref).square().mean().sqrt()) for a in (got, want)]
+        assert rms[0] <= 1.1 * rms[1], rms
+    rel = 2e-3 if dtype == torch.float32 else 6e-2
+    for (name, _), a, b in zip(net.named_parameters(), got_grads, want_grads):
+        assert float((a - b).abs().max()) <= rel * max(float(b.abs().max()), 1e-6), name
