@@ -21,9 +21,14 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    kernels, above 128 on the *_wide fp32 kernels; 512 in bf16 only), and at
    the shapes of the DiTs with 6
    heads of 192 and 3 heads of 384 of phase 11 (batch 2, 1024 tokens),
-   the standalone dropout at three sizes, and the DiT glue kernels
+   the standalone dropout at three sizes, the DiT glue kernels
    (ln_modulate, bias_act with and without GELU, gated_residual) at 64 x
-   1024 token rows of 384, 1152 and 1536 channels, in bf16 and fp32,
+   1024 token rows of 384, 1152 and 1536 channels, FLUX's qk_norm_rope at
+   its three streams at 1024 px (a double block's 256 text rows and 4096
+   image rows into one 4352-row joint buffer, a single block's 4352 rows;
+   24 heads of 128; against ``qk_norm_rope.joint_plain``, v bit for bit)
+   and the flash-attention forward at FLUX's joint (1, 4352, 24, 128), in
+   bf16 and fp32,
    against its plain PyTorch version on the same inputs within a stated
    tolerance, with the kernel's, the plain version's and one PyTorch library
    call's times, and the card's least time (bound: fp32 flash up to D = 128
@@ -170,6 +175,22 @@ card, outside a checkout, or when any phase fails. Phases, in order:
     (NCCL refuses two ranks on one card; more than one card is unproven
     here).
 
+16. FLUX (``FLUX``): FLUX.1 [schnell] at its published widths (hidden 3072,
+    24 heads of 128, 256 text tokens of 4096, pooled 768, RoPE axes (16,
+    56, 56)), 4 double + 8 single blocks, 1024 px (128x128x16 latents, 4352
+    tokens), QK-RMSNorm scales 1 + 0.3 z: one fp32 forward on the card
+    (kernels: fp32 qk_norm_rope, flash and glue) against the plain float32
+    FLUX of ``tests/flux_reference.py`` on the card (TF32 off, the same
+    parameter tensors), the bf16 forward against it too, and the reference
+    with RoPE left out, which must fail the fp32 gate; then
+    ``SamplerService`` (batch 1, 4 Euler steps, bf16, the ConvVAE decode to
+    1024x1024x3) behind a ``Batcher`` answering three prompted requests
+    (seeded N(0, 1) encoder outputs): images finite, in [-1, 1] and not
+    constant, same seed and prompt the same image, the same noise with
+    another prompt another image, exact launch counts (every qk_norm_rope,
+    flash and glue launch of every forward), ms an image, peak memory and
+    one image under ``torch.profiler``.
+
 Every number is printed; the last two lines of standard output are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``. The profiler
 traces are kept in ``build/*_trace.json`` (chrome trace format); checkpoints
@@ -258,6 +279,12 @@ TOLERANCES = {
     ("bias_act_gelu", "bfloat16"): (2.0 ** -7, 0.0),
     ("gated_residual", "float32"): (0.0, 0.0),
     ("gated_residual", "bfloat16"): (0.0, 0.0),
+    # qk_norm_rope: the same fp32 arithmetic with the sum of squares in
+    # another order and rsqrtf, then one rounding on both sides: q and k
+    # within one bf16 rounding (or 2e-6 in fp32); v is copied (bit for bit,
+    # checked apart)
+    ("qk_norm_rope", "float32"): (2e-6, 2e-6),
+    ("qk_norm_rope", "bfloat16"): (8e-3, 8e-3),
 }
 SCALED_ATOL = {"flash_attention_backward", "gn_silu_backward"}
 # the GroupNorm forwards' second output, the saved fp32 (mean, 1/sigma),
@@ -347,6 +374,28 @@ DROPOUT_SHAPES = ((1024, 1024), (64, 1024, 384), (256, 64, 64, 64))
 GLUE_ROWS, GLUE_WIDTHS = (LATENT["batch"], DIT_TOKENS), (384, 1152, 1536)
 GLUE_CALLS = {("ln_modulate", 384): 2 * DIT_DEPTH + 1, ("bias_act", 1152): DIT_DEPTH,
               ("bias_act_gelu", 1536): DIT_DEPTH, ("gated_residual", 384): 2 * DIT_DEPTH}
+# FLUX.1 [schnell] at its published widths and 1024 px, cut in depth to the
+# benchmark's flux1-schnell-4d8s (4 double + 8 single blocks): 256 text and
+# 4096 image tokens, 24 heads of 128; the ConvVAE decode to 1024x1024x3
+FLUX = dict(backbone="flux", image_size=128, in_channels=16, patch_size=2, hidden_size=3072,
+            num_heads=24, mlp_ratio=4.0, depth=4, depth_single_blocks=8, context_in_dim=4096,
+            context_tokens=256, vec_in_dim=768, axes_dim=(16, 56, 56), theta=10000,
+            qkv_bias=True)
+FLUX_VAE = dict(image_size=1024, in_channels=3, latent_channels=16, base_channels=64,
+                downsample=8)
+FLUX_TXT, FLUX_IMG = FLUX["context_tokens"], (FLUX["image_size"] // FLUX["patch_size"]) ** 2
+FLUX_HEAD_DIM = FLUX["hidden_size"] // FLUX["num_heads"]
+FLUX_FLASH_SHAPE = (1, FLUX_TXT + FLUX_IMG, FLUX["num_heads"], FLUX_HEAD_DIM)
+# qk_norm_rope's streams at batch 1: (rows, first row in the joint buffer,
+# launches in one forward): a double block's text and image, a single block's
+FLUX_QKR_STREAMS = ((FLUX_TXT, 0, FLUX["depth"]), (FLUX_IMG, FLUX_TXT, FLUX["depth"]),
+                    (FLUX_TXT + FLUX_IMG, 0, FLUX["depth_single_blocks"]))
+# the fp32 forward on the card against the plain float32 FLUX on the card:
+# within this share of the output's largest entry (fp32 sums in other orders
+# through 12 blocks, flash in 3xTF32: 2.1e-6 on an H100; the reference with
+# RoPE left out reads 6.8e-3 and must fail it); the bf16 forward within the
+# rms share (8.3e-3 on an H100: one rounding a pass)
+FLUX_F32_ATOL, FLUX_BF16_RMS = 1e-4, 5e-2
 # The CLI phase: the port's main(argv) on configs/config.yaml with every width
 # and recipe setting its own, every path under build/cli_smoke/, and these cuts
 # of scale (config values in the comments). quality_samples stays at or above
@@ -638,7 +687,7 @@ def kernel_cases(torch, shape_calls, train_calls):
                       lambda es, c=c, nt=nt: (2 * BATCH * nt * c + 4 * c * c) * es + 6 * c * 4,
                       flops))
     return (cases + flash_cases(torch, randn) + dropout_cases(torch, randn, seed)
-            + glue_cases(torch, randn))
+            + glue_cases(torch, randn) + qk_norm_rope_cases(torch, randn))
 
 
 def flash_fwd_cost(shape):
@@ -659,7 +708,8 @@ def flash_cases(torch, randn):
     """Flash attention forward at the DiT-S/2 latent shapes (12 calls per DiT
     forward at batch 256; 24 per ``remat`` train step at batch 64), at 16384
     tokens, at DiT-XL/2's widths, at the odd head widths and at the shapes of
-    the DiTs with 6 heads of 192 and 3 heads of 384 (6 calls in each run),
+    the DiTs with 6 heads of 192 and 3 heads of 384 (6 calls in each run)
+    and at FLUX's joint attention (12 calls a forward of 4 + 8 blocks),
     and its backward at batch 64 (12 calls per train step), at the same
     widths and at those DiTs' shapes (2 calls each). q, k, v are the three views of
     one [B, T, 3, H, D] tensor, as DiT hands them over. Bound: forward
@@ -674,10 +724,11 @@ def flash_cases(torch, randn):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
 
     fwd_calls = {FLASH_FWD_SHAPES[0]: DIT_DEPTH, FLASH_FWD_SHAPES[1]: 2 * DIT_DEPTH,
-                 DIT_WIDE_SHAPE: DIT_WIDE_FWD_CALLS, DIT_WIDE_384_SHAPE: DIT_WIDE_FWD_CALLS}
+                 DIT_WIDE_SHAPE: DIT_WIDE_FWD_CALLS, DIT_WIDE_384_SHAPE: DIT_WIDE_FWD_CALLS,
+                 FLUX_FLASH_SHAPE: FLUX["depth"] + FLUX["depth_single_blocks"]}
     cases = []
     for shape in (FLASH_FWD_SHAPES + (FLASH_XL_SHAPE,) + FLASH_ODD_SHAPES
-                  + (DIT_WIDE_SHAPE, DIT_WIDE_384_SHAPE)):
+                  + (DIT_WIDE_SHAPE, DIT_WIDE_384_SHAPE, FLUX_FLASH_SHAPE)):
         b, t, h, d = shape
 
         def make(dt, shape=shape):
@@ -922,6 +973,43 @@ def glue_cases(torch, randn):
     return cases
 
 
+def qk_norm_rope_cases(torch, randn):
+    """FLUX's qk_norm_rope at its three streams (FLUX_QKR_STREAMS), each
+    launch writing its rows of one joint [1, 4352, 3, 24, 128] buffer, the
+    QK-norm scales 1 + 0.3 z and the tables of the 1024 px positions, against
+    ``joint_plain`` on the same stream and the tables from its first row.
+    Bound by bytes: qkv read and q, k, v written once, the fp32 cos and sin
+    rows of its tokens and the two scales read. Library: ``F.rms_norm`` of q
+    and k (two thirds of the bytes, no rotation)."""
+    import torch.nn.functional as F
+
+    from rectified_flow_vision_tpu_torch.models import flux as TFX
+    from rectified_flow_vision_tpu_torch.ops import qk_norm_rope as QR
+
+    heads, d = FLUX["num_heads"], FLUX_HEAD_DIM
+    c, total = heads * d, FLUX_TXT + FLUX_IMG
+    grid = FLUX["image_size"] // FLUX["patch_size"]
+    cos, sin = TFX.rope_tables(TFX.positions(FLUX_TXT, grid, grid, "cuda"), FLUX["axes_dim"],
+                               FLUX["theta"])
+    cases = []
+    for rows, off, calls in FLUX_QKR_STREAMS:
+        def make(dt, rows=rows, off=off):
+            qkv = randn(1, rows, 3 * c, dtype=dt)
+            qs, ks = randn(d, scale=0.3, shift=1.0), randn(d, scale=0.3, shift=1.0)
+            out = torch.empty((1, total, 3, heads, d), device="cuda", dtype=dt)
+            qk = qkv.view(1, rows, 3, heads, d)[:, :, :2]
+
+            def kernel():
+                QR.qk_norm_rope_cuda(qkv, qs, ks, cos, sin, out, off)
+                return out[:, off:off + rows]
+            return (kernel,
+                    lambda: QR.joint_plain([(qkv, qs, ks)], cos[off:], sin[off:], heads),
+                    lambda: F.rms_norm(qk, (d,), eps=QR.EPS))
+        cases.append(("qk_norm_rope", (1, rows, heads, d), calls, make,
+                      lambda es, t=rows: 6 * t * c * es + 4 * (t * d + 2 * d), 16 * rows * c))
+    return cases
+
+
 def as_tuple(out):
     """A kernel's outputs as a tuple (a GroupNorm forward gives two, a
     backward three)."""
@@ -978,6 +1066,11 @@ def kernel_phase(torch, shape_calls, train_calls):
             note = ""
             if name in ("gn_silu_dropout", "dropout_mask_apply", "dropout"):
                 note = " | " + dropout_checks(torch, name, dname, shape, kernel, gots[0], wants[0])
+            if name == "qk_norm_rope":  # v is copied
+                if not torch.equal(gots[0][:, :, 2], wants[0][:, :, 2]):
+                    fail(f"qk_norm_rope {dname} {shape}: v is not the plain version's bit for bit")
+                note = " | v bit for bit"
+
             rtol, atol = TOLERANCES[(name, dname)]
             ok, max_abs, max_rel = True, 0.0, 0.0
             for i, (got, want) in enumerate(zip(gots, wants)):  # each against its own scale
@@ -1111,6 +1204,10 @@ KERNEL_GROUPS = (
     ("gn_silu_fwd", "gn_silu"),
     ("gn_norm", "attention_block"),
     ("attn_", "attention_block"),
+    ("qk_norm_rope", "qk_norm_rope"),
+    ("ln_modulate", "ln_modulate"),
+    ("bias_act", "bias_act"),
+    ("gated_residual", "gated_residual"),
     ("adam", "optimizer"),
     ("multi_tensor", "optimizer"),
     ("cudnn", "cuDNN / cuBLAS (plain convs, backward)"),
@@ -1871,6 +1968,152 @@ def latent_serve_phase(torch, build):
     sampler, noise = svc._samplers[4], svc._noise()
     profile_device(torch, lambda: svc._run(sampler, noise), "latent_serve_trace.json",
                    f"one 4-step latent batch of {BATCH} with its decode")
+    return launches
+
+
+def flux_counts(build, forwards: int) -> dict:
+    """Every kernel's launches in ``forwards`` FLUX forwards (FLUX's depths):
+    a double block: two qk_norm_rope streams, one flash, per stream two
+    LayerNorms, two epilogues (qkv, GELU MLP) and two gated residuals; a
+    single block: one stream, one flash, one LayerNorm, two epilogues, one
+    gated residual; around them the image and text embeddings' epilogues,
+    and the final LayerNorm and head epilogue."""
+    d, s = FLUX["depth"], FLUX["depth_single_blocks"]
+    return all_counts(build, qk_norm_rope=(2 * d + s) * forwards,
+                      flash_attention=(d + s) * forwards, ln_modulate=(4 * d + s + 1) * forwards,
+                      bias_act=(4 * d + 2 * s + 3) * forwards,
+                      gated_residual=(4 * d + s) * forwards)
+
+
+def flux_phase(torch, build):
+    """FLUX.1 [schnell] at its published widths (FLUX), 1024 px: the model
+    on the card against the plain float32 FLUX on the card, then served
+    with prompts through ``SamplerService`` and ``Batcher``."""
+    import functools
+
+    from rectified_flow_vision_tpu_torch.models import BaseFlowModel, ConvVAE, LatentFlowPipeline
+    from rectified_flow_vision_tpu_torch.models import flux as TFX
+    from rectified_flow_vision_tpu_torch.serving import SamplerService
+    from rectified_flow_vision_tpu_torch.serving_http import Batcher
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import flux_reference as R
+
+    torch.cuda.reset_peak_memory_stats()
+    model = BaseFlowModel(seed=SEED, sample_dtype="bfloat16", device="cuda", **FLUX)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    with torch.no_grad():
+        for name, prm in model.velocity_net.named_parameters():
+            if name.endswith("norm.scale"):  # 1 everywhere would hide the scales
+                prm.copy_(1 + 0.3 * torch.randn(prm.shape, generator=g, device="cuda"))
+    n_params = sum(prm.numel() for prm in model.velocity_net.parameters())
+
+    def prompt(k):  # one prompt's encoder outputs on the host, seeded
+        gen = torch.Generator().manual_seed(SEED + 100 + k)
+        return {"txt": torch.randn((FLUX_TXT, FLUX["context_in_dim"]), generator=gen),
+                "vec": torch.randn((FLUX["vec_in_dim"],), generator=gen)}
+
+    # the forward against the plain float32 FLUX, sharing the parameter tensors
+    with torch.device("meta"):
+        ref = R.Flux(in_channels=FLUX["in_channels"] * FLUX["patch_size"] ** 2,
+                     vec_in_dim=FLUX["vec_in_dim"], context_in_dim=FLUX["context_in_dim"],
+                     hidden_size=FLUX["hidden_size"], mlp_ratio=FLUX["mlp_ratio"],
+                     num_heads=FLUX["num_heads"], depth=FLUX["depth"],
+                     depth_single_blocks=FLUX["depth_single_blocks"], axes_dim=FLUX["axes_dim"],
+                     theta=FLUX["theta"], qkv_bias=FLUX["qkv_bias"])
+    ref.load_state_dict(model.velocity_net.state_dict(), strict=True, assign=True)
+    x = torch.randn((1, FLUX["image_size"], FLUX["image_size"], FLUX["in_channels"]),
+                    generator=g, device="cuda")
+    t = torch.tensor([0.3], device="cuda")
+    cond = {k: c[None].cuda() for k, c in prompt(0).items()}
+    with torch.no_grad(), torch.device("cuda"):
+        img, img_ids = R.pack(x)
+        txt_ids = torch.zeros((1, FLUX_TXT, 3))
+        want = R.unpack(ref.velocity(img, img_ids, cond["txt"], txt_ids, t, cond["vec"]), x.shape)
+        bare = R.unpack(ref.velocity(img, img_ids, cond["txt"], txt_ids, t, cond["vec"],
+                                     rope=False), x.shape)
+    del ref
+    build.reset_launches()
+    with torch.no_grad():
+        got32 = model.velocity_net(x, t, dtype=torch.float32, cond=cond).float()
+        got16 = model.velocity_net(x, t, dtype=torch.bfloat16, cond=cond).float()
+    launches = dict(build.LAUNCHES)
+    if launches != flux_counts(build, 2):
+        fail(f"FLUX forwards: launches {nonzero(launches)}, expected "
+             f"{nonzero(flux_counts(build, 2))}")
+    scale = float(want.abs().max())
+    err32 = float((got32 - want).abs().max()) / scale
+    rms16 = float((got16 - want).norm() / want.norm())
+    err_bare = float((bare - want).abs().max()) / scale
+    log(f"FLUX forward ({n_params:,} parameters, {FLUX_TXT} + {FLUX_IMG} tokens, batch 1) "
+        f"against the plain float32 FLUX on the card: fp32 max |error| {err32:.3e} of the "
+        f"largest entry {scale:.4f} (gate {FLUX_F32_ATOL}), bf16 rms {rms16:.3e} (gate "
+        f"{FLUX_BF16_RMS}); the reference without RoPE {err_bare:.3e} (must fail the fp32 gate)")
+    if not err32 <= FLUX_F32_ATOL:
+        fail(f"FLUX fp32 forward {err32:.3e} of the output's scale from the plain reference")
+    if not rms16 <= FLUX_BF16_RMS:
+        fail(f"FLUX bf16 forward rms {rms16:.3e} from the plain reference")
+    if not err_bare > FLUX_F32_ATOL:
+        fail(f"FLUX: the reference without RoPE is within the gate ({err_bare:.3e})")
+    del want, bare, got32, got16
+    torch.cuda.empty_cache()
+
+    # served: a 4-step bf16 sampler and the ConvVAE decode, batch 1, prompts
+    vae = ConvVAE(seed=SEED, device="cuda", **FLUX_VAE)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    svc = SamplerService(model, step_counts=(4,), batch_size=1, seed=SEED, vae=vae)
+    warm_s = time.perf_counter() - t0
+    batcher = Batcher(svc, max_wait_ms=5.0)
+    prompts = [prompt(k) for k in range(3)]
+    try:
+        served = [batcher.submit(1, 4, cond=pr) for pr in prompts]
+    finally:
+        batcher.shutdown()
+    noise = torch.randn((1, FLUX["image_size"], FLUX["image_size"], FLUX["in_channels"]),
+                        generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    rows = [{k: c[None].cuda() for k, c in pr.items()} for pr in prompts[:2]]
+    pipe = LatentFlowPipeline(model, vae)
+    first = pipe.sample(noise=noise, num_steps=4, cond=rows[0],
+                        data_format="NHWC").permute(0, 3, 1, 2).cpu().numpy()
+    other = pipe.sample(noise=noise, num_steps=4, cond=rows[1],
+                        data_format="NHWC").permute(0, 3, 1, 2).cpu().numpy()
+    launches = dict(build.LAUNCHES)
+    forwards = 4 + 3 * 4 + 2 * 4  # warm-up, three requests, two pipeline samples
+    if launches != flux_counts(build, forwards):
+        fail(f"FLUX serve launches {nonzero(launches)}, expected "
+             f"{nonzero(flux_counts(build, forwards))}")
+    for k, im in enumerate(served):
+        if im.shape != (1, 3, FLUX_VAE["image_size"], FLUX_VAE["image_size"]):
+            fail(f"FLUX request {k}: shape {im.shape}")
+        if not np.isfinite(im).all() or im.min() < -1.0 or im.max() > 1.0:
+            fail(f"FLUX request {k}: non-finite or outside [-1, 1]")
+        if float(im.std()) < 1e-3:
+            fail(f"FLUX request {k}: a constant image")
+    if not np.array_equal(first, served[0]):
+        fail("FLUX: LatentFlowPipeline.sample from the service's first noise and prompt gave "
+             f"another image (max |diff| {float(np.abs(first - served[0]).max()):.3e})")
+    moved = float(np.abs(other - first).mean())
+    if not moved > 1e-3:
+        fail(f"FLUX: the same noise with another prompt gave the same image ({moved:.3e})")
+    ms = []
+    for k in range(5):
+        t0 = time.perf_counter()
+        svc.generate(1, 4, cond={k2: c[None] for k2, c in prompts[k % 3].items()})
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stats = dict(svc.stats)
+    log(f"FLUX serve: warm-up {warm_s:.2f} s; three prompted requests through the batcher; "
+        f"the pipeline from the same noise and prompt gives the served image bit for bit, "
+        f"another prompt moves it by {moved:.4f} (mean |diff|); launches {nonzero(launches)}; "
+        f"ms an image (4 steps + decode, batch 1, host clock) {[round(m, 2) for m in ms]}; "
+        f"cond_rows {stats['cond_rows']}, cond_sum_s {stats['cond_sum_s']:.4f}; "
+        f"peak device memory {peak:.2f} GiB")
+    sampler = functools.partial(svc._samplers[4], cond=rows[0])
+    profile_device(torch, lambda: svc._run(sampler, noise), "flux_serve_trace.json",
+                   "one 4-step 1024 px FLUX image (4 + 8 blocks) with its decode")
+    del svc, pipe, model, vae
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3574,6 +3817,8 @@ def main() -> None:
                         "flash_attention_f32_backward": step_f32["flash_attention_backward"]}
     del dit_f32, latents
     torch.cuda.empty_cache()
+    phase("FLUX")
+    flux_launches = flux_phase(torch, build)
     phase("CLI")
     cli_launches = cli_phase(torch, build, serve_img_s)
     phase("parallel")
@@ -3589,6 +3834,9 @@ def main() -> None:
     # no TPU kernel: XLA fuses the JAX block's glue into the ops around it
     glue_replaces = "none (XLA fusion); rectified_flow_vision_tpu/models/dit.py"
     dit_serve = f"one DiT-S/2 forward at batch {GLUE_ROWS[0]}, {DIT_TOKENS} tokens"
+    flux_forward = (f"one FLUX.1 [schnell] forward at 1024 px, batch 1 ({FLUX['depth']} double "
+                    f"+ {FLUX['depth_single_blocks']} single blocks, {FLUX_TXT} + {FLUX_IMG} "
+                    "tokens, 24 heads of 128)")
 
     def on_dit_path(r):  # the kernel phase's glue rows at DiT-S/2's sites
         return r["calls"] > 0
@@ -3684,6 +3932,16 @@ def main() -> None:
             csrc + "dit_glue.cu", glue_replaces + ":194-195, :200-201 (bias, gate, residual)",
             f"{dit_serve}: its {2 * DIT_DEPTH} calls (proj and mlp2, C 384)", 2 * DIT_DEPTH,
             on_dit_path),
+        "qk_norm_rope": (
+            csrc + "qk_norm_rope.cu", "none (no text-conditioned model in the JAX package)",
+            f"{flux_forward}: its {sum(n for _, _, n in FLUX_QKR_STREAMS)} calls (a double "
+            "block's text and image streams, a single block's joint one)",
+            sum(n for _, _, n in FLUX_QKR_STREAMS), None),
+        "flash_attention_joint": (
+            csrc + "flash_attention.cu", dit_attention + " (FLUX's joint text-image attention)",
+            f"{flux_forward}: its {FLUX['depth'] + FLUX['depth_single_blocks']} calls",
+            FLUX["depth"] + FLUX["depth_single_blocks"],
+            lambda r: tuple(r["shape"]) == FLUX_FLASH_SHAPE),
     }
     by_path = {"unet_serve": serve_launches, "unet_train": train_launches,
                "dropout_direct": dropout_launches, "latent_serve": latent_serve_launches,
@@ -3691,12 +3949,15 @@ def main() -> None:
                "dit_head_192": dit_wide_launches, "dit_head_384": dit_384_launches,
                "dit_train_f32": dit_f32_launches, "unet_resume": resume_launches,
                "http": http_launches, "profiling": profiling_launches,
-               "parallel": parallel_launches}
+               "parallel": parallel_launches,
+               # the joint attention's launches, under their entry's name too
+               "flux": {**flux_launches, "flash_attention_joint": flux_launches["flash_attention"]}}
     # the wrapper whose kernel-phase rows an entry reads, where it is not the entry's own name
     row_names = {f"flash_attention_{route}{part}": (f"flash_attention{part}",)
                  for route in ("wide", "streamed", "f32", "f32_wide")
                  for part in ("", "_backward")}
     row_names["bias_act"] = ("bias_act", "bias_act_gelu")
+    row_names["flash_attention_joint"] = ("flash_attention",)
     kernels = []
     for name, (src, replaces, per, calls, keep, *dtype) in sources.items():
         dtype = dtype[0] if dtype else "bfloat16"

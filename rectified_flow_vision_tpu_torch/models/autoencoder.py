@@ -388,15 +388,17 @@ class LatentFlowPipeline:
         num_steps: int = 4,
         batch_size: int = 4,
         data_format: str = "NCHW",
+        cond=None,
         **kw,
     ) -> Tensor:
         """Latent noise -> latent flow sampling -> decoded pixels in [-1, 1].
 
         ``noise``, when given, is latent-shaped ([B, latent, h, w] for NCHW).
+        ``cond``: a conditional flow model's rows by name, one per image.
         """
         z = self.flow.sample(
             noise=noise, num_steps=num_steps, batch_size=batch_size, data_format=data_format,
-            **kw,
+            cond=cond, **kw,
         )
         if data_format.upper() == "NCHW":
             z = z.permute(0, 2, 3, 1)

@@ -1,5 +1,5 @@
-"""Flow-matching base model: the velocity field (UNet or DiT), flow math,
-samplers and training.
+"""Flow-matching base model: the velocity field (UNet, DiT or FLUX), flow
+math, samplers and training.
 
 Counterpart of the JAX package's ``models/base_flow.py``:
 
@@ -13,7 +13,10 @@ Counterpart of the JAX package's ``models/base_flow.py``:
 * samplers: Euler (left-endpoint times t_i = i/N), midpoint and Heun, and
   the reverse ODE (``invert``). Model compute runs in ``sample_dtype``
   (bf16 by default) while the integration state stays fp32, as in the JAX
-  sampler; a Python loop takes the place of ``lax.scan``;
+  sampler; a Python loop takes the place of ``lax.scan``. A conditional
+  backbone (FLUX, ``cond_shapes``) takes its prompts' rows as ``cond``, a
+  dict of tensors by name with one row per image, passed to every step;
+  unconditional backbones take none;
 * spans (``utils.profiling.annotate``, free while no profiler records):
   ``rfv.sampler.step`` around each ODE step; ``rfv.train.gather`` around a
   step's batch gather; ``rfv.train.step`` around a step, holding
@@ -56,6 +59,7 @@ import torch.distributed as dist
 from torch import nn
 
 from rectified_flow_vision_tpu_torch.models.dit import DiT
+from rectified_flow_vision_tpu_torch.models.flux import Flux
 from rectified_flow_vision_tpu_torch.models.unet import UNet, count_parameters
 from rectified_flow_vision_tpu_torch.parallel import mesh as mesh_lib
 from rectified_flow_vision_tpu_torch.utils import checkpoint as ckpt_io
@@ -97,7 +101,12 @@ def _from_nhwc(x: Tensor, data_format: str) -> Tensor:
 
 
 class BaseFlowModel(nn.Module):
-    """Flow-matching model: a UNet or DiT velocity field + flow math + sampler."""
+    """Flow-matching model: a UNet, DiT or FLUX velocity field + flow math +
+    sampler. FLUX (``backbone="flux"``) samples only: its prompts' encoder
+    outputs come as ``cond``; it has no training path and no param tree.
+    ``weights`` (the velocity network's state dict) are taken as they are,
+    assigned and not copied where they are on ``device``: no initial weights
+    are drawn, and a model of billions of parameters is never held twice."""
 
     def __init__(
         self,
@@ -117,15 +126,23 @@ class BaseFlowModel(nn.Module):
         mlp_ratio: float = 4.0,
         dit_size: Optional[str] = None,
         remat: bool = False,
+        depth_single_blocks: int = 38,
+        context_in_dim: int = 4096,
+        context_tokens: int = 256,
+        vec_in_dim: int = 768,
+        axes_dim: Sequence[int] = (16, 56, 56),
+        theta: int = 10000,
+        qkv_bias: bool = True,
         seed: int = 0,
         params: Optional[Params] = None,
+        weights: Optional[Dict[str, Tensor]] = None,
         compute_dtype: str = "float32",
         sample_dtype: str = "bfloat16",
         device: str | torch.device = "cuda",
     ) -> None:
         super().__init__()
-        if backbone not in ("unet", "dit"):
-            raise ValueError(f"unknown backbone {backbone!r} (unet|dit)")
+        if backbone not in ("unet", "dit", "flux"):
+            raise ValueError(f"unknown backbone {backbone!r} (unet|dit|flux)")
         self.remat = bool(remat)
         self.image_size = image_size
         self.in_channels = in_channels
@@ -145,6 +162,14 @@ class BaseFlowModel(nn.Module):
                 size=dit_size,
                 remat=remat,
             )
+        elif backbone == "flux":
+            self._net_args = dict(
+                input_size=image_size, in_channels=in_channels, patch_size=patch_size,
+                hidden_size=hidden_size, num_heads=num_heads, mlp_ratio=mlp_ratio, depth=depth,
+                depth_single_blocks=depth_single_blocks, context_in_dim=context_in_dim,
+                context_tokens=context_tokens, vec_in_dim=vec_in_dim, axes_dim=tuple(axes_dim),
+                theta=theta, qkv_bias=qkv_bias,
+            )
         else:
             self._net_args = dict(
                 in_channels=in_channels,
@@ -155,8 +180,19 @@ class BaseFlowModel(nn.Module):
                 attention_resolutions=attention_resolutions,
                 dropout=dropout,
             )
-        self.velocity_net = self.new_network()
-        self.velocity_net.reset_parameters(torch.Generator().manual_seed(seed))
+        if weights is not None:  # taken as they are: nothing drawn, no second copy
+            with torch.device("meta"):
+                self.velocity_net = self.new_network()
+            self.velocity_net.load_state_dict(weights, strict=True, assign=True)
+        elif backbone == "flux":  # billions of parameters: made and drawn on the device
+            with torch.device("meta"):
+                self.velocity_net = self.new_network()
+            self.velocity_net.to_empty(device=self.device)
+            self.velocity_net.reset_parameters(
+                torch.Generator(device=self.device).manual_seed(seed))
+        else:
+            self.velocity_net = self.new_network()
+            self.velocity_net.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         if params is not None:
@@ -184,6 +220,15 @@ class BaseFlowModel(nn.Module):
                 mlp_ratio=c.mlp_ratio,
                 remat=c.remat,
             )
+        elif self.backbone == "flux":
+            c = n.cfg
+            base.update(
+                patch_size=c.patch_size, hidden_size=c.hidden_size, num_heads=c.num_heads,
+                mlp_ratio=c.mlp_ratio, depth=c.depth, depth_single_blocks=c.depth_single_blocks,
+                context_in_dim=c.context_in_dim, context_tokens=c.context_tokens,
+                vec_in_dim=c.vec_in_dim, axes_dim=list(c.axes_dim), theta=c.theta,
+                qkv_bias=c.qkv_bias,
+            )
         else:
             base.update(
                 model_channels=n.model_channels,
@@ -198,21 +243,36 @@ class BaseFlowModel(nn.Module):
         return count_parameters(self)
 
     def new_network(self) -> nn.Module:
-        """A fresh velocity network of this model's architecture (on the CPU,
-        initial weights not drawn)."""
-        return (DiT if self.backbone == "dit" else UNet)(**self._net_args)
+        """A fresh velocity network of this model's architecture (on the
+        default device, the CPU unless a caller sets one; initial weights not
+        drawn)."""
+        return {"dit": DiT, "flux": Flux}.get(self.backbone, UNet)(**self._net_args)
+
+    @property
+    def cond_shapes(self) -> Optional[Dict[str, Tuple[int, ...]]]:
+        """One image's conditioning rows by name (a conditional backbone), or
+        None: the network samples without conditioning."""
+        return getattr(self.velocity_net, "cond_shapes", None)
+
+    def _no_flux(self, what: str) -> None:
+        if self.backbone == "flux":
+            raise NotImplementedError(
+                f"{what}: the flux backbone serves only; conditional training and Reflow of "
+                "it are not ported (ROADMAP), and it has no JAX param tree")
 
     @property
     def params(self) -> Params:
         """The weights as the JAX package's param tree (numpy, HWIO / (in, out)).
         While the network is placed on a mesh, every rank must read it: the
         whole weights are gathered."""
+        self._no_flux("params")
         sd = mesh_lib.full_state_dict(self) if mesh_lib.is_parallel(self) else self.state_dict()
         sd = {k: v.detach().cpu().numpy() for k, v in sd.items()}
         return pt_import.backbone_state_dict_to_params(sd, self.backbone)
 
     @params.setter
     def params(self, tree: Params) -> None:
+        self._no_flux("params")
         n = self.velocity_net
         if self.backbone == "dit":
             sd = pt_import.tree_to_state_dict(tree, "velocity_net.")
@@ -272,6 +332,7 @@ class BaseFlowModel(nn.Module):
         kept, and the drawn dropout seeds are folded by the data rank. The
         loss is the mean over this rank's rows.
         """
+        self._no_flux("loss_fn")
         gen = generator if generator is not None else self.generator
         net = self.velocity_net
         dp, rank = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS), 0
@@ -307,11 +368,14 @@ class BaseFlowModel(nn.Module):
     # ---- inference ----------------------------------------------------------
 
     @torch.no_grad()
-    def forward(self, x, t, data_format: str = "NCHW") -> Tensor:
-        """The velocity field v(x, t), computed in ``compute_dtype``."""
+    def forward(self, x, t, data_format: str = "NCHW", cond: Optional[Dict[str, Tensor]] = None
+                ) -> Tensor:
+        """The velocity field v(x, t), computed in ``compute_dtype``; a
+        conditional backbone takes ``cond``, one row per image."""
         x = _to_nhwc(x, data_format, self.device)
         t = torch.as_tensor(t, dtype=torch.float32, device=self.device).reshape(-1)
-        return _from_nhwc(self.velocity_net(x, t, dtype=self.compute_dtype), data_format)
+        extra = {} if cond is None else {"cond": cond}
+        return _from_nhwc(self.velocity_net(x, t, dtype=self.compute_dtype, **extra), data_format)
 
     def _get_sampler(
         self,
@@ -321,8 +385,10 @@ class BaseFlowModel(nn.Module):
         method: str = "euler",
         reverse: bool = False,
     ) -> Callable[[Tensor], Any]:
-        """``sampler(noise_nhwc) -> x`` (or ``(x, [x_1..x_N])``), cached per
-        (steps, trajectory, dtype, method, direction)."""
+        """``sampler(noise_nhwc, cond=None) -> x`` (or ``(x, [x_1..x_N])``),
+        cached per (steps, trajectory, dtype, method, direction); ``cond``
+        (a conditional backbone's rows, one per image) is cast to ``dtype``
+        once and passed to every velocity."""
         if method not in ("euler", "midpoint", "heun"):
             raise ValueError(f"unknown method {method!r}")
         key = (num_steps, bool(return_trajectory), dtype, method, bool(reverse))
@@ -334,25 +400,26 @@ class BaseFlowModel(nn.Module):
         dt = f32((-1.0 if reverse else 1.0) / num_steps)
         start = f32(1.0 if reverse else 0.0)
 
-        def vel(x: Tensor, t_scalar) -> Tensor:
+        def vel(x: Tensor, t_scalar, extra: dict) -> Tensor:
             t = torch.full((x.shape[0],), float(t_scalar), dtype=torch.float32, device=x.device)
-            return net(x.to(dtype), t, dtype=dtype).float()
+            return net(x.to(dtype), t, dtype=dtype, **extra).float()
 
         @torch.no_grad()
-        def sampler(noise: Tensor):
+        def sampler(noise: Tensor, cond: Optional[Dict[str, Tensor]] = None):
+            extra = {} if cond is None else {"cond": {k: c.to(dtype) for k, c in cond.items()}}
             x = noise.float()
             traj: List[Tensor] = []
             for i in range(num_steps):
                 with annotate("rfv.sampler.step"):
                     t0 = start + f32(i) * dt
-                    v = vel(x, t0)
+                    v = vel(x, t0, extra)
                     if method == "euler":
                         x = x + v * float(dt)
                     elif method == "midpoint":
                         x_mid = x + v * float(dt / f32(2))
-                        x = x + vel(x_mid, t0 + dt / f32(2)) * float(dt)
+                        x = x + vel(x_mid, t0 + dt / f32(2), extra) * float(dt)
                     else:  # heun
-                        v2 = vel(x + v * float(dt), t0 + dt)
+                        v2 = vel(x + v * float(dt), t0 + dt, extra)
                         x = x + (v + v2) * float(dt / f32(2))
                 if return_trajectory:
                     traj.append(x)
@@ -379,11 +446,13 @@ class BaseFlowModel(nn.Module):
         data_format: str = "NCHW",
         dtype: Optional[str] = None,
         method: str = "euler",
+        cond: Optional[Dict[str, Tensor]] = None,
     ):
         """Generate samples by ODE integration from ``noise`` (or from
         ``batch_size`` fresh noise images drawn from ``generator``, by
         default the model's seeded one). With ``return_trajectory`` the list
-        [noise, x_1, ..., x_N] is returned."""
+        [noise, x_1, ..., x_N] is returned. A conditional backbone takes
+        ``cond``: its rows by name, one per image, on the model's device."""
         sample_dtype = _DTYPES[dtype] if dtype is not None else self.sample_dtype
         if noise is None:
             noise_nhwc = self._noise(batch_size, generator)
@@ -391,9 +460,9 @@ class BaseFlowModel(nn.Module):
             noise_nhwc = _to_nhwc(noise, data_format, self.device).float()
         sampler = self._get_sampler(num_steps, return_trajectory, sample_dtype, method)
         if return_trajectory:
-            _, traj = sampler(noise_nhwc)
+            _, traj = sampler(noise_nhwc, cond)
             return [_from_nhwc(s, data_format) for s in [noise_nhwc] + traj]
-        return _from_nhwc(sampler(noise_nhwc), data_format)
+        return _from_nhwc(sampler(noise_nhwc, cond), data_format)
 
     def invert(
         self,
@@ -638,6 +707,7 @@ def make_train_step(
     it under FSDP) and the loss returned is the global batch's. A one-device
     mesh runs the same collectives, so their cost shows.
     """
+    model._no_flux("make_train_step")
     if (ema is None) != (ema_decay is None):
         raise ValueError("ema and ema_decay go together")
     if ema is not None:

@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = (
     "gn_silu.cu", "gn_silu_dropout.cu", "conv3x3.cu", "attention.cu", "flash_attention.cu",
     "flash_attention_streamed.cu", "flash_attention_f32.cu", "flash_attention_f32_bwd.cu",
-    "dropout.cu", "dit_glue.cu", "runtime.cu",
+    "dropout.cu", "dit_glue.cu", "qk_norm_rope.cu", "runtime.cu",
 )
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -55,6 +55,7 @@ LAUNCHES: Dict[str, int] = {
     "ln_modulate": 0,
     "bias_act": 0,
     "gated_residual": 0,
+    "qk_norm_rope": 0,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,6 +86,7 @@ _SIGNATURES = {
     "rfv_ln_modulate": [_P, _P, _P, _P, _L, _I, _L, _L, _F, _I, _P],
     "rfv_bias_act": [_P, _P, _P, _L, _I, _I, _I, _P],
     "rfv_gated_residual": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _I, _P],
+    "rfv_qk_norm_rope": [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -39,12 +39,17 @@ every forward, sampling and training alike; a width the kernels do not take
 (C not a multiple of 8) raises there. Its kernels have no backward yet: the
 backward differentiates the plain version (the eager composition) from the
 saved inputs, as the conv's does.
+
+FLUX's QK-RMSNorm + rotary embedding (``qk_norm_rope``;
+``ops/qk_norm_rope.py``) takes the kernel on a CUDA tensor in every forward,
+one launch a stream into the joint ``[B, T, 3, H, D]`` buffer that flash
+reads; its backward, too, differentiates the plain version.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,6 +61,7 @@ from rectified_flow_vision_tpu_torch.ops import flash_attention as FA
 from rectified_flow_vision_tpu_torch.ops import gn_silu as G
 from rectified_flow_vision_tpu_torch.ops import gn_silu_dropout as D
 from rectified_flow_vision_tpu_torch.ops import primitives as P
+from rectified_flow_vision_tpu_torch.ops import qk_norm_rope as QR
 from rectified_flow_vision_tpu_torch.ops import winograd as W
 
 Tensor = torch.Tensor
@@ -218,6 +224,28 @@ class _GatedResidual(torch.autograd.Function):
         return _plain_grads(DG.gated_residual_plain, ctx.saved_tensors, ctx.needs_input_grad, g)
 
 
+class _QkNormRope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cos, sin, heads, *flat):
+        ctx.save_for_backward(cos, sin, *flat)
+        ctx.heads = heads
+        return QR.joint_cuda(_streams(flat), cos, sin, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        cos, sin, *flat = ctx.saved_tensors
+
+        def plain(*leaves):
+            return QR.joint_plain(_streams(leaves), cos, sin, ctx.heads)
+
+        grads = _plain_grads(plain, flat, ctx.needs_input_grad[3:], g)
+        return (None, None, None, *grads)
+
+
+def _streams(flat: Sequence[Tensor]) -> List[Tuple[Tensor, Tensor, Tensor]]:
+    return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+
+
 def gn_silu(x: Tensor, scale: Tensor, bias: Tensor, *, num_groups: int = 8) -> Tensor:
     """Fused GroupNorm(num_groups) + SiLU over an NHWC tensor."""
     if _on_cpu(x):
@@ -340,3 +368,15 @@ def gated_residual(tokens: Tensor, y: Tensor, b: Tensor, gate: Tensor) -> Tensor
     if _on_cpu(tokens):
         return DG.gated_residual_plain(tokens, y, b, gate)
     return _GatedResidual.apply(tokens.contiguous(), y.contiguous(), b, gate)
+
+
+def qk_norm_rope(streams: Sequence[Tuple[Tensor, Tensor, Tensor]], cos: Tensor, sin: Tensor,
+                 heads: int) -> Tensor:
+    """The joint ``[B, T, 3, H, D]`` q, k, v of an attention over streams of
+    tokens, each ``(qkv [B, T_s, 3C], q_scale [D], k_scale [D])`` in token
+    order: q and k RMS-normalised, scaled and rotated by the rows of the fp32
+    ``[T, D / 2]`` tables ``cos`` / ``sin``, v as it is."""
+    if _on_cpu(streams[0][0]):
+        return QR.joint_plain(streams, cos, sin, heads)
+    flat = [x.contiguous() if i % 3 == 0 else x for s in streams for i, x in enumerate(s)]
+    return _QkNormRope.apply(cos, sin, heads, *flat)

@@ -14,6 +14,11 @@ every request waiting for the same ``num_steps`` (after a ``max_wait_ms``
 window) into one ``SamplerService.generate`` call at the service's fixed
 batch shape, then slices the images back per request; step counts are
 served first come, first served, and a failed call raises in every waiter.
+A conditional model's request carries its prompt's encoder outputs
+(``Batcher.submit(..., cond=)``: one row by name for its ``n`` images), and
+the call gets every request's rows, each repeated ``n`` times. The JSON
+front end carries no encoder outputs: a model that needs them answers
+``POST /generate`` with 400.
 
 ``Batcher.stats`` counts, always on, every key present from construction:
 ``requests``, ``images``, ``batches``, ``latency_sum_s``, ``latency_max_s``
@@ -62,11 +67,12 @@ log = get_logger("flow_vision.serving.http")
 
 
 class _Request:
-    __slots__ = ("n", "num_steps", "done", "result", "error", "queued_at", "done_at")
+    __slots__ = ("n", "num_steps", "cond", "done", "result", "error", "queued_at", "done_at")
 
-    def __init__(self, n: int, num_steps: int):
+    def __init__(self, n: int, num_steps: int, cond=None):
         self.n = n
         self.num_steps = num_steps
+        self.cond = cond
         self.done = threading.Event()
         self.result: Optional[np.ndarray] = None
         self.error: Optional[Exception] = None
@@ -106,7 +112,10 @@ class Batcher:
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
-    def submit(self, n: int, num_steps: int, timeout: float = 300.0):
+    def submit(self, n: int, num_steps: int, timeout: float = 300.0, *, cond=None):
+        """``n`` images at ``num_steps``; a conditional model's request
+        carries ``cond``, one prompt's rows by name (the model's
+        ``cond_shapes``), used for all ``n`` images."""
         if num_steps not in self.service.step_counts:
             raise ValueError(
                 f"num_steps={num_steps} not precompiled; configured: "
@@ -114,7 +123,11 @@ class Batcher:
             )
         if n < 1:
             raise ValueError("n must be >= 1")
-        req = _Request(n, num_steps)
+        from rectified_flow_vision_tpu_torch.serving import check_cond
+
+        check_cond(self.service.cond_shapes, 1,
+                   None if cond is None else {k: c[None] for k, c in cond.items()})
+        req = _Request(n, num_steps, cond)
         with self._lock:
             req.queued_at = time.perf_counter()
             self._queues[num_steps].append(req)
@@ -179,7 +192,7 @@ class Batcher:
         total = sum(r.n for r in group)
         steps = group[0].num_steps
         try:
-            images = self.service.generate(total, num_steps=steps)
+            images = self.service.generate(total, num_steps=steps, cond=_rows(group))
         except Exception as e:  # surface to every waiter
             for r in group:
                 r.error = e
@@ -196,6 +209,23 @@ class Batcher:
                        "latency_sum_s": dt})
             self.stats.update(self._service_stats,
                               latency_max_s=max(self.stats["latency_max_s"], dt))
+
+
+def _rows(group: List[_Request]) -> Optional[Dict[str, "torch.Tensor"]]:
+    """The group's conditioning, one row an image: each request's prompt
+    repeated for its ``n`` images, requests in order; None without prompts."""
+    import torch
+
+    if group[0].cond is None:
+        return None
+
+    def rows(r: _Request, k: str) -> "torch.Tensor":
+        c = torch.as_tensor(r.cond[k])
+        return c.expand(r.n, *c.shape)
+
+    if len(group) == 1:  # a view: the service copies only the rows it stages
+        return {k: rows(group[0], k) for k in group[0].cond}
+    return {k: torch.cat([rows(r, k) for r in group]) for k in group[0].cond}
 
 
 def _encode_png_list(images: np.ndarray) -> List[str]:

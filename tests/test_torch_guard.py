@@ -84,7 +84,7 @@ def test_kernel_sources_are_listed():
         "gn_silu", "conv3x3", "attention_block", "gn_silu_dropout", "gn_silu_backward",
         "dropout_mask_apply",
         "flash_attention", "flash_attention_backward", "dropout",
-        "ln_modulate", "bias_act", "gated_residual",
+        "ln_modulate", "bias_act", "gated_residual", "qk_norm_rope",
     }
     text = "".join((PORT / "ops" / "csrc" / name).read_text() for name in build.SOURCES)
     for entry in build._SIGNATURES:

@@ -31,7 +31,7 @@ TINY = dict(image_size=8, model_channels=16, channel_mult=[1], num_res_blocks=1,
 BATCHER_KEYS = {"requests", "images", "batches", "latency_sum_s", "latency_max_s",
                 "queued_requests", "queue_wait_sum_s", "woken_requests", "wake_sum_s"}
 SERVICE_KEYS = {"generate_calls", "enqueue_sum_s", "device_wait_sum_s", "to_host_sum_s",
-                "padded_images"}
+                "padded_images", "cond_rows", "cond_sum_s"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -217,8 +217,9 @@ def test_failed_requests_are_counted():
     nothing as served."""
     class Failing:
         step_counts = (1,)
+        cond_shapes = None
 
-        def generate(self, n, num_steps):
+        def generate(self, n, num_steps, cond=None):
             raise RuntimeError("sampler down")
 
     batcher = H.Batcher(Failing(), max_wait_ms=30.0)
@@ -248,12 +249,13 @@ def test_counts_survive_a_thread_stress():
     sum, the service's padding, copied in, whole batches less images)."""
     class Zeros:
         step_counts = (1,)
+        cond_shapes = None
 
         def __init__(self):
             self.calls = []
             self.stats = {"padded_images": 0}
 
-        def generate(self, n, num_steps):
+        def generate(self, n, num_steps, cond=None):
             self.calls.append(n)
             self.stats["padded_images"] += -(-n // 4) * 4 - n
             return np.zeros((n, 1), np.float32)

@@ -398,7 +398,8 @@ def test_train_forward_and_backward_launch_counts(dev):
     assert build.LAUNCHES == {"gn_silu": 7, "gn_silu_dropout": 6, "gn_silu_backward": 13,
                               "dropout_mask_apply": 0, "conv3x3": 13, "attention_block": 1,
                               "flash_attention": 0, "flash_attention_backward": 0, "dropout": 0,
-                              "ln_modulate": 0, "bias_act": 0, "gated_residual": 0}
+                              "ln_modulate": 0, "bias_act": 0, "gated_residual": 0,
+                              "qk_norm_rope": 0}
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
     cpu = BaseFlowModel(image_size=16, model_channels=64, channel_mult=[1, 2],
                         num_res_blocks=1, dropout=0.1, device="cpu", params=model.params)
@@ -456,7 +457,8 @@ def test_small_unet_on_the_card_matches_the_cpu(dev, dtype):
     assert build.LAUNCHES == {"gn_silu": 9, "conv3x3": 0, "attention_block": 1,
                               "gn_silu_dropout": 0, "gn_silu_backward": 0, "dropout_mask_apply": 0,
                               "flash_attention": 0, "flash_attention_backward": 0, "dropout": 0,
-                              "ln_modulate": 0, "bias_act": 0, "gated_residual": 0}
+                              "ln_modulate": 0, "bias_act": 0, "gated_residual": 0,
+                              "qk_norm_rope": 0}
     tol = 1e-3 if dtype == "float32" else 0.03 * float(want.abs().max())
     assert float((got - want).abs().max()) <= tol
 
@@ -999,3 +1001,126 @@ def test_dit_s2_forward_takes_the_glue_kernels_once_a_site(dev, monkeypatch, dty
     rel = 2e-3 if dtype == torch.float32 else 6e-2
     for (name, _), a, b in zip(net.named_parameters(), got_grads, want_grads):
         assert float((a - b).abs().max()) <= rel * max(float(b.abs().max()), 1e-6), name
+
+
+# ---- FLUX's QK-RMSNorm + RoPE: qk_norm_rope --------------------------------------
+
+
+def _qkr_streams(dev, dtype, heads, d, lengths=(37, 111), b=2, seed=41):
+    """Text and image streams of random qkv and QK-norm scales, and the
+    tables of their positions: text at 0, the image a 3-row grid."""
+    from rectified_flow_vision_tpu_torch.models import flux as TFX
+
+    g = _gen(dev, seed)
+    c = heads * d
+    streams = [(torch.randn((b, n, 3 * c), generator=g, device=dev).to(dtype),
+                1 + 0.3 * torch.randn((d,), generator=g, device=dev),
+                1 + 0.3 * torch.randn((d,), generator=g, device=dev)) for n in lengths]
+    axes = (d // 4, 3 * d // 8, 3 * d // 8) if d >= 16 else (d // 2, d // 4, d // 4)
+    ids = TFX.positions(lengths[0], 3, lengths[1] // 3, dev)
+    return streams, TFX.rope_tables(ids, axes, 10000)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("heads,d", [(24, 128), (6, 64), (4, 16), (3, 8)])
+def test_qk_norm_rope(dev, dtype, heads, d):
+    """The kernel against its plain version on the card, two streams into one
+    joint buffer: v copied bit for bit; q and k within one rounding of the
+    output dtype (bf16: both sides round once from fp32 values that differ
+    by the sum's order and rsqrtf) and fp32 within 2e-6; one launch a
+    stream."""
+    from rectified_flow_vision_tpu_torch.ops import qk_norm_rope as QR
+
+    if not QR.supports(heads * d, d, dtype):
+        pytest.skip(f"{heads} x {d} {dtype} is outside the kernel")
+    streams, (cos, sin) = _qkr_streams(dev, dtype, heads, d)
+    build.reset_launches()
+    got = fused.qk_norm_rope(streams, cos, sin, heads)
+    assert build.LAUNCHES["qk_norm_rope"] == 2
+    want = QR.joint_plain(streams, cos, sin, heads)
+    assert got.shape == want.shape == (2, 148, 3, heads, d) and got.is_contiguous()
+    assert torch.equal(got[:, :, 2], want[:, :, 2])
+    tol = dict(rtol=2e-6, atol=2e-6) if dtype == torch.float32 else dict(rtol=8e-3, atol=8e-3)
+    torch.testing.assert_close(got[:, :, :2].float(), want[:, :, :2].float(), **tol)
+    q, k, _ = got.float().unbind(2)  # flash reads the slices in place
+    assert q.stride() == k.stride() and q.stride(1) == 3 * heads * d
+
+
+def test_qk_norm_rope_at_flux_shapes_and_its_backward(dev):
+    """FLUX.1's joint sequence at 1024 px (256 text + 4096 image tokens, 24
+    heads of 128, bf16): within one bf16 rounding of the plain version; the
+    backward differentiates the plain version, so its gradients are the
+    plain version's own."""
+    from rectified_flow_vision_tpu_torch.models import flux as TFX
+    from rectified_flow_vision_tpu_torch.ops import qk_norm_rope as QR
+
+    g = _gen(dev, 43)
+    streams = [(torch.randn((1, n, 3 * 3072), generator=g, device=dev).bfloat16(),
+                1 + 0.3 * torch.randn((128,), generator=g, device=dev),
+                1 + 0.3 * torch.randn((128,), generator=g, device=dev)) for n in (256, 4096)]
+    cos, sin = TFX.rope_tables(TFX.positions(256, 64, 64, dev), (16, 56, 56), 10000)
+    got = fused.qk_norm_rope(streams, cos, sin, 24)
+    want = QR.joint_plain(streams, cos, sin, 24)
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3, atol=8e-3)
+    ulp = (got.float() - want.float()).abs() > 0
+    assert float(ulp.float().mean()) < 0.01  # a value in a hundred or fewer differ at all
+    leaves = [tuple(x.detach().float().requires_grad_(True) for x in s) for s in streams[:1]]
+    g = torch.randn((1, 256, 3, 24, 128), device=dev, generator=_gen(dev, 5))
+    text = cos[:256], sin[:256]
+    got_grads = torch.autograd.grad(fused.qk_norm_rope(leaves, *text, 24), leaves[0], g)
+    want_grads = torch.autograd.grad(QR.joint_plain(leaves, *text, 24), leaves[0], g)
+    for a, b in zip(got_grads, want_grads):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_qk_norm_rope_refuses_what_it_does_not_take(dev):
+    from rectified_flow_vision_tpu_torch.ops import qk_norm_rope as QR
+
+    streams, (cos, sin) = _qkr_streams(dev, torch.bfloat16, 4, 16)
+    out = torch.empty((2, 148, 3, 4, 16), device=dev, dtype=torch.bfloat16)
+    qkv, qs, ks = streams[0]
+    with pytest.raises(ValueError, match="rows"):
+        QR.qk_norm_rope_cuda(qkv, qs, ks, cos, sin, out, 120)
+    with pytest.raises(ValueError, match="float32"):
+        QR.qk_norm_rope_cuda(qkv, qs.double(), ks, cos, sin, out, 0)
+    wide = torch.zeros((1, 4, 3 * 96), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="power of two"):
+        QR.qk_norm_rope_cuda(wide, torch.ones(96, device=dev), torch.ones(96, device=dev),
+                             torch.zeros(4, 48, device=dev), torch.zeros(4, 48, device=dev),
+                             torch.empty((1, 4, 3, 1, 96), device=dev, dtype=torch.bfloat16), 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flux_forward_takes_its_kernels_on_the_card(dev, dtype):
+    """A small FLUX (hidden 64, 4 heads of 16, 1 double + 2 single blocks,
+    8 text tokens, 16 x 16 x 4 latents) on the card against the same network
+    on the CPU: fp32 within 1e-3 of the output's largest entry (reordered
+    sums, TF32 off), bf16 within 4% (one rounding a pass on the card); one
+    qk_norm_rope launch a stream of a block, the glue kernels at every site."""
+    from rectified_flow_vision_tpu_torch.models import flux as TFX
+
+    cfg = dict(input_size=16, in_channels=4, hidden_size=64, num_heads=4, depth=1,
+               depth_single_blocks=2, context_in_dim=32, context_tokens=8, vec_in_dim=24,
+               axes_dim=(4, 6, 6))
+    cpu = TFX.Flux(**cfg)
+    g = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            z = torch.randn(p.shape, generator=g)
+            p.copy_(1 + 0.3 * z if name.endswith("norm.scale") else
+                    (0.1 * z if p.ndim == 1 else z / p.shape[1] ** 0.5))
+    card = TFX.Flux(**cfg).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 16, 16, 4), generator=g)
+    t = torch.tensor([0.2, 0.7])
+    cond = {"txt": torch.randn((2, 8, 32), generator=g), "vec": torch.randn((2, 24), generator=g)}
+    build.reset_launches()
+    with torch.no_grad():
+        got = card(x.to(dev), t.to(dev), dtype=dtype,
+                   cond={k: c.to(dev) for k, c in cond.items()}).float().cpu()
+        want = cpu(x, t, dtype=torch.float32, cond=cond)
+    assert build.LAUNCHES["qk_norm_rope"] == 2 * 1 + 2
+    assert build.LAUNCHES["ln_modulate"] == 4 * 1 + 2 + 1
+    assert build.LAUNCHES["gated_residual"] == 4 * 1 + 2
+    tol = (1e-3 if dtype == torch.float32 else 0.04) * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol

@@ -149,8 +149,9 @@ class TestBatcher:
     def test_sampler_error_reaches_every_waiter(self):
         class Failing:
             step_counts = (1,)
+            cond_shapes = None
 
-            def generate(self, n, num_steps):
+            def generate(self, n, num_steps, cond=None):
                 raise RuntimeError("sampler down")
 
         batcher = H.Batcher(Failing(), max_wait_ms=30.0)
@@ -178,8 +179,9 @@ class TestBatcher:
 
         class Recording:
             step_counts = (1, 2)
+            cond_shapes = None
 
-            def generate(self, n, num_steps):
+            def generate(self, n, num_steps, cond=None):
                 calls.append((n, num_steps))
                 return np.zeros((n, 3, 8, 8), np.float32)
 
