@@ -27,8 +27,11 @@ card, outside a checkout, or when any phase fails. Phases, in order:
    its three streams at 1024 px (a double block's 256 text rows and 4096
    image rows into one 4352-row joint buffer, a single block's 4352 rows;
    24 heads of 128; against ``qk_norm_rope.joint_plain``, v bit for bit)
-   and the flash-attention forward at FLUX's joint (1, 4352, 24, 128), in
-   bf16 and fp32,
+   the flash-attention forward at FLUX's joint (1, 4352, 24, 128), and
+   gn_silu's streamed plan at the ConvVAE decode's slabs (``DECODE_GN``: the
+   DiT serve cell's batch 64 at 64^2 x 256, 128^2 x 128, 256^2 x 64; FLUX's
+   batch 1 at 128^2 x 256 up to 1024^2 x 64; the kernel's input cycled past
+   the L2), in bf16 and fp32,
    against its plain PyTorch version on the same inputs within a stated
    tolerance, with the kernel's, the plain version's and one PyTorch library
    call's times, and the card's least time (bound: fp32 flash up to D = 128
@@ -126,7 +129,8 @@ card, outside a checkout, or when any phase fails. Phases, in order:
     kernels, the *_wide fp32 kernels in two chunks);
 12. latent serve: ``SamplerService`` with a ConvVAE (256x256x3, base 64,
     downsample 4; seeded weights for both), batch 256, steps (1, 2, 4), bf16
-    flow and bf16 decode, three requests; exact flash launch counts, outputs
+    flow and bf16 decode, three requests; exact launch counts (flash, the
+    glue kernels, the decode's streamed GroupNorms and conv3x3 sites), outputs
     finite and in [-1, 1], same seed same images, pixel img/s, peak memory,
     and one 4-step batch under ``torch.profiler``;
 13. latent train: a seeded 256-image 256x256 corpus; ``train_vae``; encode;
@@ -231,12 +235,14 @@ TOLERANCES = {
     # pick a Winograd or FFT algorithm for the plain conv, which is still
     # fp32 with TF32 off but rounds differently).
     ("gn_silu", "float32"): (1e-4, 1e-4),
+    ("gn_silu_streamed", "float32"): (1e-4, 1e-4),
     ("conv3x3", "float32"): (1e-3, 1e-3),
     ("attention_block", "float32"): (1e-3, 1e-3),
     # bf16: the kernels round once where the plain versions round two or
     # three times (gn then silu; conv then bias add); one bf16 ulp is 2^-7
     # relative at worst, 0.03 absolute on values in [4, 8).
     ("gn_silu", "bfloat16"): (2e-2, 3e-2),
+    ("gn_silu_streamed", "bfloat16"): (2e-2, 3e-2),
     ("conv3x3", "bfloat16"): (2e-2, 3e-2),
     ("attention_block", "bfloat16"): (2e-2, 6e-2),
     # gn_silu_dropout: gn_silu's arithmetic times 1/keep on kept elements
@@ -289,7 +295,7 @@ TOLERANCES = {
 SCALED_ATOL = {"flash_attention_backward", "gn_silu_backward"}
 # the GroupNorm forwards' second output, the saved fp32 (mean, 1/sigma),
 # against gn_stats_plain: the same fp32 statistics summed in another order
-SAVES_STATS = {"gn_silu", "gn_silu_dropout"}
+SAVES_STATS = {"gn_silu", "gn_silu_streamed", "gn_silu_dropout"}
 STATS_TOL = (1e-5, 1e-5)
 DROP_RATE = 0.1  # the flagship config's dropout
 DROP_FRACTION_TOL = 0.002  # of >= 16.7M elements: 27 standard deviations at least
@@ -383,6 +389,17 @@ FLUX = dict(backbone="flux", image_size=128, in_channels=16, patch_size=2, hidde
             qkv_bias=True)
 FLUX_VAE = dict(image_size=1024, in_channels=3, latent_channels=16, base_channels=64,
                 downsample=8)
+# The ConvVAE decode's GroupNorm + SiLU slabs (H, W, C), every one past a
+# cluster's shared memory (gn_silu's streamed plan), at the decode's batch:
+# the DiT serve cell's 64 (rfbench's dit-s2-latent.serve.p12-s4) and FLUX's 1;
+# each decode also runs its conv3x3 sites (DiT: 256 -> 128 at 128^2 and 128 ->
+# 64 at 256^2; FLUX: 256 -> 128 at 256^2; wider images are outside the kernel)
+DECODE_GN = {"dit": (64, ((64, 64, 256), (128, 128, 128), (256, 256, 64))),
+             "flux": (1, ((128, 128, 256), (256, 256, 128), (512, 512, 64), (1024, 1024, 64)))}
+DECODE_CONV3X3 = {"dit": 2, "flux": 1}
+# inputs cycled through at least this many bytes when a streamed GroupNorm is
+# timed, so that no launch finds its input in the 50 MB L2
+L2_FLUSH_BYTES = 128 << 20
 FLUX_TXT, FLUX_IMG = FLUX["context_tokens"], (FLUX["image_size"] // FLUX["patch_size"]) ** 2
 FLUX_HEAD_DIM = FLUX["hidden_size"] // FLUX["num_heads"]
 FLUX_FLASH_SHAPE = (1, FLUX_TXT + FLUX_IMG, FLUX["num_heads"], FLUX_HEAD_DIM)
@@ -457,6 +474,40 @@ WINOGRAD_READINGS = 10  # CUDA-event readings a time, their median kept
 def all_counts(build, **counts):
     """Expected launch counts by kernel: ``counts``, and 0 for every other."""
     return {name: counts.get(name, 0) for name in build.LAUNCHES}
+
+
+def gn_streamed(h: int, w: int, c: int, es: int, groups: int = 8) -> bool:
+    """Whether gn_silu's forward takes the streamed plan at a slab (H, W, C)
+    of ``es``-byte elements: the cluster plan needs 16-byte vectors within a
+    group and an eighth of the slab in one block's shared memory
+    (``csrc/gn_silu.cuh`` ``plan``)."""
+    vec = 16 // es
+    while (c // groups) % vec:
+        vec //= 2
+    return vec * es != 16 or -(-h * w // 8) * c * es > 232448 - 8192
+
+
+# gn_silu sites of an fp32 flagship UNet forward on the streamed plan: its
+# (64, 64, 192) slab, 3 MB in fp32 (checked against the forward's shapes in
+# main); in bf16 every flagship slab takes the cluster plan
+UNET_F32_STREAMED = 1
+
+
+def fp32_unet(counts: dict, forwards: int = 1) -> dict:
+    """``counts`` (EVAL_FORWARD_LAUNCHES or TRAIN_STEP_LAUNCHES) for an fp32
+    flagship UNet: UNET_F32_STREAMED of its gn_silu calls a forward count as
+    gn_silu_streamed."""
+    n = UNET_F32_STREAMED * forwards
+    return dict(counts, gn_silu=counts["gn_silu"] - n, gn_silu_streamed=n)
+
+
+def vae_counts(decodes: int, which: str, **more) -> dict:
+    """The ConvVAE's launches in ``decodes`` decodes of the ``which`` path
+    (DECODE_GN, DECODE_CONV3X3), added to ``more``."""
+    out = dict(more)
+    out["gn_silu_streamed"] = out.get("gn_silu_streamed", 0) + decodes * len(DECODE_GN[which][1])
+    out["conv3x3"] = out.get("conv3x3", 0) + decodes * DECODE_CONV3X3[which]
+    return out
 
 
 def dit_glue(blocks: int, heads: int) -> dict:
@@ -579,6 +630,41 @@ def kernel_cases(torch, shape_calls, train_calls):
         elems = BATCH * h * w * c
         cases.append(("gn_silu", (BATCH, h, w, c), n, make,
                       lambda es, e=elems, c=c: 2 * e * es + 2 * c * 4, 10 * elems))
+    # the streamed plan at the ConvVAE decode's slabs: the kernel's input
+    # cycled past the L2 between timed launches; the eager composition's
+    # arithmetic is the plain version's (gn_silu_plain)
+    from rectified_flow_vision_tpu_torch.ops import build
+
+    for which, (batch, slabs) in DECODE_GN.items():
+        for h, w, c in slabs:
+            def make(dt, h=h, w=w, c=c, batch=batch):
+                xs = [randn(batch, h, w, c, dtype=dt, scale=2.0, shift=0.3)]
+                nbytes = xs[0].numel() * xs[0].element_size()
+                while len(xs) * nbytes < L2_FLUSH_BYTES:
+                    xs.append(xs[0].roll(len(xs), dims=1))
+                s = randn(c, scale=0.2, shift=1.0)
+                b = randn(c, scale=0.2)
+                sl, bl = s.to(dt), b.to(dt)
+                turn = [0]
+
+                def kernel():
+                    before = build.LAUNCHES["gn_silu_streamed"]
+                    out = G.gn_silu_cuda(xs[turn[0] % len(xs)], s, b)
+                    turn[0] += 1
+                    if build.LAUNCHES["gn_silu_streamed"] != before + 1:
+                        fail(f"gn_silu at {(batch, h, w, c)} {dt} did not take the streamed plan")
+                    return out
+                x = xs[0]
+                return (
+                    kernel,
+                    lambda: (G.gn_silu_plain(x, s, b), G.gn_stats_plain(x)),
+                    lambda: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 8, sl, bl)),
+                )
+            elems = batch * h * w * c
+            calls = 1 if which == "dit" else 0  # a DiT serve decode's
+            cases.append(("gn_silu_streamed", (batch, h, w, c), calls, make,
+                          lambda es, e=elems, c=c, n=batch: 2 * e * es + 2 * c * 4 + 8 * 8 * n,
+                          10 * elems))
     seed = torch.tensor([SEED + 17], dtype=torch.int32, device=dev)
     drop_calls = train_calls["gn_silu_dropout"]
     for (h, w, c), n in sorted(drop_calls.items()):
@@ -1129,8 +1215,9 @@ def model_phase(torch, UNet):
     with torch.no_grad():
         want = cpu(x, t)
         got = gpu(x.cuda(), t.cuda()).cpu()
-    if dict(build.LAUNCHES) != all_counts(build, **EVAL_FORWARD_LAUNCHES):
-        fail(f"model forward launches {dict(build.LAUNCHES)}, expected {EVAL_FORWARD_LAUNCHES}")
+    if dict(build.LAUNCHES) != all_counts(build, **fp32_unet(EVAL_FORWARD_LAUNCHES)):
+        fail(f"model forward launches {dict(build.LAUNCHES)}, expected "
+             f"{fp32_unet(EVAL_FORWARD_LAUNCHES)}")
     if tuple(got.shape) != (4, 64, 64, 3) or not torch.isfinite(got).all():
         fail("model forward: bad shape or non-finite output")
     err = float((got - want).abs().max())
@@ -1310,8 +1397,9 @@ def gradient_phase(torch, build) -> None:
     got = gpu.loss_fn(x1.cuda(), x0=x0.cuda(), t=t.cuda(), seeds=seeds.cuda())
     got.backward()
     torch.cuda.synchronize()
-    if dict(build.LAUNCHES) != all_counts(build, **TRAIN_STEP_LAUNCHES):
-        fail(f"loss + backward launched {dict(build.LAUNCHES)}, expected {TRAIN_STEP_LAUNCHES}")
+    if dict(build.LAUNCHES) != all_counts(build, **fp32_unet(TRAIN_STEP_LAUNCHES)):
+        fail(f"loss + backward launched {dict(build.LAUNCHES)}, expected "
+             f"{fp32_unet(TRAIN_STEP_LAUNCHES)}")
     loss_err = abs(float(got.detach()) - float(want.detach()))
     worst, worst_name = worst_gradient(torch, cpu, gpu, "")
     log(f"gradient fp32 batch 4, dropout {DROP_RATE}: loss {float(got.detach()):.6f} (CPU plain "
@@ -1943,8 +2031,10 @@ def latent_serve_phase(torch, build):
         lat[f"{n}x{steps}"] = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     forwards = (1 + 2 + 4) + 1 * 1 + 1 * 2 + 2 * 4  # warmup + requests (300 -> 2 batches)
-    expect = all_counts(build, flash_attention=DIT_DEPTH * forwards,
-                        **dit_glue(DIT_DEPTH * forwards, forwards))
+    decodes = 3 + 1 + 1 + 2  # one a sampler call
+    expect = all_counts(build, **vae_counts(
+        decodes, "dit", flash_attention=DIT_DEPTH * forwards,
+        **dit_glue(DIT_DEPTH * forwards, forwards)))
     log(f"latent serve: warmup {warm_s:.2f} s, requests {lat}, launches {nonzero(launches)}")
     if launches != expect:
         fail(f"latent serve launches {launches}, expected {expect}")
@@ -2080,9 +2170,9 @@ def flux_phase(torch, build):
                         data_format="NHWC").permute(0, 3, 1, 2).cpu().numpy()
     launches = dict(build.LAUNCHES)
     forwards = 4 + 3 * 4 + 2 * 4  # warm-up, three requests, two pipeline samples
-    if launches != flux_counts(build, forwards):
-        fail(f"FLUX serve launches {nonzero(launches)}, expected "
-             f"{nonzero(flux_counts(build, forwards))}")
+    expect = dict(flux_counts(build, forwards), **vae_counts(forwards // 4, "flux"))
+    if launches != expect:
+        fail(f"FLUX serve launches {nonzero(launches)}, expected {nonzero(expect)}")
     for k, im in enumerate(served):
         if im.shape != (1, 3, FLUX_VAE["image_size"], FLUX_VAE["image_size"]):
             fail(f"FLUX request {k}: shape {im.shape}")
@@ -2232,9 +2322,19 @@ def latent_train_phase(torch, build):
     train_steps = (cfg["base_epochs"] + cfg["reflow_epochs"]) * steps_per_epoch
     forwards = (-(-cfg["pairs"] // cfg["pair_batch"]) * cfg["teacher_steps"] * 2  # heun
                 + cfg["straight_points"] + 4)
+    # the ConvVAE: every GroupNorm on the streamed plan (fp32 256x256 images
+    # in training and encoding, the bf16 decode of the samples), its decode's
+    # two conv3x3 sites; the probe's and each train step's encode and decode,
+    # the backward's six GroupNorms a step; the calibration's and the
+    # corpus's encodes (three GroupNorms a batch); the samples' decode
+    vae_steps = cfg["vae_epochs"] * (cfg["images"] // cfg["vae_batch"])
+    encodes = 2 * -(-min(cfg["images"], 256) // cfg["vae_batch"])
+    vae_fwd = 1 + vae_steps  # encode + decode
     expect = all_counts(
         build, flash_attention=DIT_DEPTH * (2 * train_steps + forwards),
         flash_attention_backward=DIT_DEPTH * train_steps,
+        gn_silu_streamed=6 * vae_fwd + 3 * encodes + 3, gn_silu_backward=6 * vae_steps,
+        conv3x3=2 * vae_fwd + 2,
         **dit_glue(DIT_DEPTH * (2 * train_steps + forwards), train_steps + forwards))
     log(f"latent train: DiT-S/2 base {cfg['base_epochs']} epochs x {steps_per_epoch} steps of "
         f"{cfg['batch']} (lr {cfg['lr']}, warm-up {cfg['warmup_epochs']} epoch, EMA {cfg['ema']}, "
@@ -3473,7 +3573,7 @@ def parallel_one_rank(torch, build) -> Counter:
             build.reset_launches()  # this path's launches: one step
             loss = float(step(data, gen))
             launches = dict(build.LAUNCHES)
-            if launches != all_counts(build, **TRAIN_STEP_LAUNCHES):
+            if launches != all_counts(build, **fp32_unet(TRAIN_STEP_LAUNCHES)):
                 fail(f"parallel: one {kind} step launched {launches}")
             if m is not None:
                 total.update(launches)
@@ -3627,8 +3727,8 @@ def parallel_two_ranks(torch, build) -> Counter:
             fail(f"parallel (b): {name} disagrees with one rank")
         # every site on its kernel, the tensor-parallel ranks' channel slices
         # too; under the Winograd gate every conv site on the Winograd conv
-        launches = (TRAIN_STEP_LAUNCHES if case["dropout"] else
-                    dict(EVAL_FORWARD_LAUNCHES, gn_silu_backward=29))
+        launches = fp32_unet(TRAIN_STEP_LAUNCHES if case["dropout"] else
+                             dict(EVAL_FORWARD_LAUNCHES, gn_silu_backward=29))
         sites = EVAL_FORWARD_LAUNCHES["conv3x3"] if case.get("winograd") else 0
         check_launches(name, **(dict(launches, conv3x3=0) if sites else launches))
         wcalls = [res[name]["winograd"] for res in ranks]
@@ -3763,6 +3863,12 @@ def main() -> None:
         fail(f"flagship eval forward calls {per_forward}, expected {EVAL_FORWARD_LAUNCHES}")
     if per_train != TRAIN_STEP_LAUNCHES:
         fail(f"flagship train step calls {per_train}, expected {TRAIN_STEP_LAUNCHES}")
+    for calls in (shape_calls, train_calls):
+        streamed = {hwc: n for hwc, n in calls["gn_silu"].items() if gn_streamed(*hwc, es=4)}
+        if sum(streamed.values()) != UNET_F32_STREAMED or any(
+                gn_streamed(*hwc, es=2) for hwc in calls["gn_silu"]):
+            fail(f"flagship gn_silu slabs on the streamed plan: fp32 {streamed}, expected "
+                 f"{UNET_F32_STREAMED} call and none in bf16")
     phase("kernels")
     rows = kernel_phase(torch, shape_calls, train_calls)
     phase("flash breakdown, float64 gate")
@@ -3854,6 +3960,11 @@ def main() -> None:
     sources = {
         "gn_silu": (csrc + "gn_silu.cu", pallas + ":100", unet_forward, per_forward["gn_silu"],
                     None),
+        "gn_silu_streamed": (
+            csrc + "gn_silu.cu", pallas + ":100",
+            f"one ConvVAE decode at batch {DECODE_GN['dit'][0]} (the DiT serve cell's): its "
+            f"{len(DECODE_GN['dit'][1])} calls", len(DECODE_GN["dit"][1]),
+            lambda r: r["shape"][0] == DECODE_GN["dit"][0]),
         "conv3x3": (csrc + "conv3x3.cu", "rectified_flow_vision_tpu/ops/conv_pallas.py:378",
                     unet_forward, per_forward["conv3x3"], None),
         "attention_block": (csrc + "attention.cu", pallas + ":191", unet_forward,

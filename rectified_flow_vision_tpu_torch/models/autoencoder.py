@@ -10,10 +10,14 @@ the flow model sees about unit-variance data.
 ``ConvVAE`` is an ``nn.Module`` named after the JAX param tree
 (``enc.in``, ``enc.down{i}.{conv,norm}``, ``enc.out_norm``, ``enc.out`` and
 the same under ``dec`` with ``up{i}``), so a ``.npz`` written by either
-package loads into the other. Tensors are NHWC. Its convs and GroupNorms are
-the plain primitives, as the JAX package leaves them to XLA outside any
-kernel. Noise is explicit: a ``torch.Generator`` on the module's device, or a
-given ``eps``.
+package loads into the other. Tensors are NHWC. Every GroupNorm + SiLU goes
+through ``fused.gn_silu`` and every conv through ``fused.conv2d_fused``: on
+a CUDA tensor the port's kernels (the GroupNorm's slabs, larger than one
+cluster holds, on its streamed plan; the convs inside ``conv3x3.supports``
+on ``conv3x3``), the plain conv outside that contract, and on the CPU the
+plain versions, which round as the JAX package's primitives
+(``P.silu(P.group_norm(...))``, ``P.conv2d``). Noise is
+explicit: a ``torch.Generator`` on the module's device, or a given ``eps``.
 """
 
 from __future__ import annotations
@@ -48,10 +52,6 @@ class _Level(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1)
         self.norm = nn.GroupNorm(NUM_GROUPS, in_ch)
-
-
-def _gn_silu(h: Tensor, m: nn.GroupNorm, v: _View) -> Tensor:
-    return P.silu(P.group_norm(h, v(m.weight, "f32"), v(m.bias, "f32"), num_groups=m.num_groups))
 
 
 class ConvVAE(nn.Module):
@@ -165,12 +165,12 @@ class ConvVAE(nn.Module):
         """x: [B, H, W, C] in [-1, 1] -> (mu, logvar), each [B, h, w, latent]."""
         v = _View(self._params, x.dtype, masters=True)
         e = self.enc
-        h = v.conv(x, e["in"])
+        h = v.conv3x3(x, e["in"])
         for lv in range(self.num_levels):
-            h = _gn_silu(h, e[f"down{lv}"].norm, v)
-            h = v.conv(h, e[f"down{lv}"].conv)
-        h = _gn_silu(h, e["out_norm"], v)
-        mu, logvar = v.conv(h, e["out"]).chunk(2, dim=-1)
+            h = v.gn_silu(h, e[f"down{lv}"].norm)
+            h = v.conv3x3(h, e[f"down{lv}"].conv)
+        h = v.gn_silu(h, e["out_norm"])
+        mu, logvar = v.conv3x3(h, e["out"]).chunk(2, dim=-1)
         return mu, torch.clamp(logvar, -30.0, 20.0)
 
     def encode(
@@ -194,13 +194,13 @@ class ConvVAE(nn.Module):
         parameters are rounded through it first (the serving decode)."""
         v = _View(self._params, dtype or z.dtype, masters=dtype is None)
         d = self.dec
-        h = v.conv(z.to(v.dtype) / self.scaling_factor, d["in"])
+        h = v.conv3x3(z.to(v.dtype) / self.scaling_factor, d["in"])
         for lv in range(self.num_levels):
-            h = _gn_silu(h, d[f"up{lv}"].norm, v)
+            h = v.gn_silu(h, d[f"up{lv}"].norm)
             h = P.upsample_nearest_2x(h)
-            h = v.conv(h, d[f"up{lv}"].conv)
-        h = _gn_silu(h, d["out_norm"], v)
-        return v.conv(h, d["out"])
+            h = v.conv3x3(h, d[f"up{lv}"].conv)
+        h = v.gn_silu(h, d["out_norm"])
+        return v.conv3x3(h, d["out"])
 
     def apply(
         self, x: Tensor, generator: Optional[torch.Generator] = None, *, eps=None

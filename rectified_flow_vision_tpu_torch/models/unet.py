@@ -129,8 +129,10 @@ class _View:
         return P.conv2d(x, self(m.weight), self(m.bias, "f32"), stride=m.stride[0])
 
     def conv3x3(self, x: Tensor, m: nn.Conv2d) -> Tensor:
-        """A conv3x3 kernel site (``fused.conv2d_fused``)."""
-        return fused.conv2d_fused(x, self(m.weight, "ohwi"), self(m.bias, "f32"))
+        """A conv through ``fused.conv2d_fused``: the conv3x3 kernel inside its
+        contract, the plain conv outside it."""
+        return fused.conv2d_fused(x, self(m.weight, "ohwi"), self(m.bias, "f32"),
+                                  stride=m.stride[0])
 
     def col_conv3x3(self, x: Tensor, m: nn.Conv2d) -> Tensor:
         """A conv3x3 site that is column-parallel under tensor parallelism

@@ -11,7 +11,9 @@ There is no fallback: without ``nvcc`` the build raises, and a CUDA tensor
 never silently takes a kernel's plain PyTorch version.
 
 Each wrapper bumps its entry in ``LAUNCHES`` once per call that launches
-its kernel(s), so a run can show that the main path went through them.
+its kernel(s), so a run can show that the main path went through them;
+``gn_silu`` counts the calls that took the cluster plan, ``gn_silu_streamed``
+those that took the streamed plan (a slab larger than one cluster holds).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {
     "gn_silu": 0,
+    "gn_silu_streamed": 0,
     "conv3x3": 0,
     "attention_block": 0,
     "gn_silu_dropout": 0,
@@ -63,7 +66,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U, _L = ctypes.c_uint32, ctypes.c_longlong
 _SIGNATURES = {
-    "rfv_gn_silu": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "rfv_gn_silu": [_P, _P, _P, _P, _P, _P, _L, ctypes.POINTER(_L), _I, _I, _I, _I, _F, _I, _P],
     "rfv_gn_silu_backward": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _F, _I, _I, _I, _P,
     ],

@@ -29,12 +29,22 @@
 // the cluster (on the H100 a second exchange cost ~2.5 us of a 64 KB
 // block's ~20). The output is written over the run in place and leaves with
 // one bulk store, so a block that ends hands its SM to the next while its
-// writes drain. A run that does not fit (an fp32
-// slab above ~1.8 MB; 2 x the slab for the backward) stays in device memory,
-// read on every pass by 8 blocks an image. The sigmoid of bf16 data is one
-// tanh.approx, of fp32 data an exponential and a reciprocal: with the
-// memory traffic at its least, the special-function unit is what the
-// arithmetic waits on.
+// writes drain. A backward run that does not fit (2 x a slab above ~1.8 MB)
+// stays in device memory, read on every pass by 8 blocks an image.
+//
+// A forward slab above a cluster's ~1.8 MB (the ConvVAE decode's 2-8 MB a
+// bf16 image at batch 64, FLUX's decode up to 128 MB at batch 1) takes the
+// streamed plan instead: eight blocks an image would leave most of the 132
+// SMs idle at a small batch and read x three times. The image is spread
+// over as many blocks as fill the card (its runs resident in shared memory
+// where the card holds them all, else read twice from device memory), the
+// per-run sums cross blocks through device memory, and the image's last
+// block to arrive merges them in run order and releases the others: x is
+// read once (twice where the runs do not fit) and y written once.
+//
+// The sigmoid of bf16 data is one tanh.approx, of fp32 data an exponential
+// and a reciprocal: with the memory traffic at its least, the
+// special-function unit is what the arithmetic waits on.
 //
 // The forward writes each (image, group)'s mean and 1/sigma, which the
 // backward reads:
@@ -53,15 +63,17 @@
 #include "gn_silu.cuh"
 
 // x, y: [B, HW, C] contiguous, dtype per `dtype`; scale, bias: [C] float32;
-// stats: [B, G] float2 (mean, 1/sigma), written for the backward. Requires C % G == 0, G <= 32
-// and C / V <= 256, where V is the widest vector of at most 16 bytes whose
-// element count divides C / G.
+// stats: [B, G] float2 (mean, 1/sigma), written for the backward. *need: the
+// workspace the call takes, 0 where an image's slab is resident in one
+// cluster; the streamed plan launches only where work (16-byte aligned)
+// holds work_bytes >= *need, so a caller without one calls again with it.
+// Requires C % G == 0, G <= 32 and C / V <= 256, where V is the widest vector
+// of at most 16 bytes whose element count divides C / G.
 extern "C" int rfv_gn_silu(const void* x, const void* scale, const void* bias, void* stats,
-                           void* y, int B, int HW, int C, int G, float eps, int dtype,
-                           void* stream) {
-  return rfv_gn::forward_dtype<true, false>(x, scale, bias, stats, y, B, HW, C, G, eps,
-                                            rfv_gn::Dropout{}, dtype,
-                                            static_cast<cudaStream_t>(stream));
+                           void* y, void* work, long long work_bytes, long long* need, int B,
+                           int HW, int C, int G, float eps, int dtype, void* stream) {
+  return rfv_gn::gn_silu_dtype(x, scale, bias, stats, y, work, work_bytes, need, B, HW, C, G,
+                               eps, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // The backward of rfv_gn_silu, or of rfv_gn_silu_dropout when seed is not

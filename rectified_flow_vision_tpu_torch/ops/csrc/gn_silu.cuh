@@ -11,7 +11,9 @@
 // block reads its run from device memory on every pass. Per-group sums go
 // from each block's shared memory to every block of the cluster through
 // distributed shared memory, combined in rank order: each block forms the
-// same statistics, and results do not depend on the schedule.
+// same statistics, and results do not depend on the schedule. gn_silu's
+// forward takes the streamed plan (gn_silu_streamed_kernel) where a slab
+// is not resident in one cluster.
 //
 // The forward's apply pass optionally ends in dropout: kept values are scaled
 // by 1/keep in fp32 and dropped ones are zero, before the one rounding to the
@@ -22,6 +24,9 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "common.cuh"
 
@@ -36,6 +41,8 @@ constexpr int kSmemLimit = 232448 - 8192;  // dynamic bytes a block may take (st
 constexpr int kFwdThreads = 768, kBwdThreads = 512;  // the most threads of a block
 constexpr int kMaxChunks = 16;       // a resident run arrives in up to 16 pieces
 constexpr int kChunkBytes = 16384;
+constexpr int kUnroll = 4;           // loads a thread keeps in flight from device memory
+constexpr int kMerge = 8;            // partial sums a lane keeps in flight in the merge
 
 // Dropout: `seed` points at one int32 on the device, so the caller never has
 // to bring a seed drawn there to the host.
@@ -175,11 +182,12 @@ __device__ __forceinline__ float sigmoid(float z) {
 // ---- the layout of a block's work ----
 
 // Thread t owns the V-channel column vector j = t % (C / V) (one group:
-// V divides C / G) of rows r = t / (C / V), r + nrow, ... of its run.
+// V divides C / G) of rows r = t / (C / V), r + nrow, ... of its block's
+// run, pixels [run P, (run + 1) P) of the image.
 struct Tile {
   int C, cg, cv, nrow, j, r, grp, p0, np;
   bool active;
-  __device__ Tile(int HW, int C_, int G, int P, int V) {
+  __device__ Tile(int HW, int C_, int G, int P, int V, int run) {
     C = C_;
     cg = C / G;
     cv = C / V;
@@ -188,7 +196,7 @@ struct Tile {
     r = threadIdx.x / cv;
     active = r < nrow;
     grp = j * V / cg;
-    p0 = min(HW, (int)blockIdx.x * P);
+    p0 = min(HW, run * P);
     np = min(HW, p0 + P) - p0;
   }
 };
@@ -249,7 +257,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs<T>& a) {
   __shared__ float part[2][kMaxGroups], mean_s[kMaxGroups], rstd_s[kMaxGroups];
   __shared__ uint64_t bars[kMaxChunks];
   const int b = blockIdx.y;
-  const Tile t(a.HW, a.C, a.G, a.P, V);
+  const Tile t(a.HW, a.C, a.G, a.P, V, blockIdx.x);
   const size_t off = ((size_t)b * a.HW + t.p0) * a.C;
   const T* src = a.x + off;
   T* dst = a.y + off;
@@ -378,6 +386,250 @@ __global__ void __launch_bounds__(kFwdThreads) gn_norm_fwd_kernel(const FwdArgs<
   fwd_body<T, V, false, false, RES>(a);
 }
 
+// ---- forward across the grid: the streamed plan ----
+//
+// A slab too large for one cluster (above ~1.8 MB) is spread over S blocks
+// of the whole grid, S chosen by the host so that every image's blocks can
+// be resident on the card at once. A block takes a ticket as it starts and
+// owns run (ticket % S) of image (ticket / S): tickets go out in the order
+// blocks start, so a block that waits for its image waits only for blocks
+// that have started or that can start (at most one image is incomplete, and
+// it holds fewer than S of the card's slots). Each block publishes its run's
+// per-group (sum, sum of squares about the run's mean) to device memory and
+// counts itself in; the image's last block merges the S partials in run
+// order by Chan et al.'s update (the same bits whichever block is last),
+// writes the image's (mean, 1/sigma) to the saved statistics and raises its
+// flag; the others wait on the flag and read them there. Resident runs (RES: up to ~220 KB, bulk-copied into shared
+// memory as in the cluster plan) take exact two-pass statistics and are read
+// from device memory once; runs that do not fit are read twice (their sums
+// about the image's first value of each group, then the output, walked
+// backwards so that the rows read last, still in L2, are read first).
+struct Stream {
+  unsigned* ctr;  // [1 + 2B], zeroed: the ticket; each image's arrivals; its flag
+  float2* part;   // [B, S, G]: each run's (sum, sum of squares about its mean)
+  int S, B;
+};
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// Sum over the warp, the same tree for every lane.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T, int V, bool RES>
+__global__ void __launch_bounds__(kFwdThreads)
+    gn_silu_streamed_kernel(const FwdArgs<T> a, const Stream s) {
+  extern __shared__ __align__(128) unsigned char dyn[];
+  __shared__ float red[kFwdThreads];
+  __shared__ float part[2][kMaxGroups], mean_s[kMaxGroups], rstd_s[kMaxGroups];
+  __shared__ uint64_t bars[kMaxChunks];
+  __shared__ int ticket, last;
+  if (threadIdx.x == 0) ticket = (int)atomicAdd(s.ctr, 1u);
+  __syncthreads();
+  const int b = ticket / s.S, k = ticket % s.S;
+  const Tile t(a.HW, a.C, a.G, a.P, V, k);
+  const size_t img = (size_t)b * a.HW * a.C;
+  const size_t off = img + (size_t)t.p0 * a.C;
+  const T* src = a.x + off;
+  T* dst = a.y + off;
+  const int row_bytes = a.C * (int)sizeof(T);
+  const Arrival arr(t.np, row_bytes);
+  int waited = -1;
+  if constexpr (RES) {
+    if (threadIdx.x == 0) arr.issue(bars, dyn, src, nullptr, 0, t.np, row_bytes);
+    __syncthreads();
+    src = reinterpret_cast<const T*>(dyn);
+    dst = reinterpret_cast<T*>(dyn);
+  }
+  const float shift = RES ? 0.f : to_f32(a.x[img + (size_t)t.grp * t.cg]);
+  const float nk = (float)t.np * (float)t.cg;
+
+  // 1: the run's sums (RES: then its sum of squares about its own mean);
+  // from device memory kUnroll rows a thread in flight at once
+  float s1 = 0.f, s2 = 0.f;
+  if (t.active) {
+    int p = t.r;
+    if constexpr (!RES)
+      for (; p + (kUnroll - 1) * t.nrow < t.np; p += kUnroll * t.nrow) {
+        float v[kUnroll][V];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          loadv<V>(src + (size_t)(p + u * t.nrow) * a.C + t.j * V, v[u]);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const float d = v[u][e] - shift;
+            s1 += d;
+            s2 += d * d;
+          }
+      }
+    for (; p < t.np; p += t.nrow) {
+      if constexpr (RES) arr.wait(bars, p, waited);
+      float v[V];
+      loadv<V>(src + (size_t)p * a.C + t.j * V, v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float d = v[e] - shift;
+        s1 += d;
+        if constexpr (!RES) s2 += d * d;
+      }
+    }
+  }
+  block_group_sums(s1, t, a.G, V, red, part[0]);
+  __syncthreads();
+  if constexpr (RES) {
+    if (threadIdx.x < a.G) mean_s[threadIdx.x] = part[0][threadIdx.x] / nk;
+    __syncthreads();
+    const float ml = mean_s[t.grp];
+    if (t.active)
+      for (int p = t.r; p < t.np; p += t.nrow) {
+        float v[V];
+        loadv<V>(src + (size_t)p * a.C + t.j * V, v);
+#pragma unroll
+        for (int e = 0; e < V; ++e) s2 += (v[e] - ml) * (v[e] - ml);
+      }
+  }
+  block_group_sums(s2, t, a.G, V, red, part[1]);
+  __syncthreads();
+
+  // 2: publish the run's partials and count in; the image's last block
+  // merges them, the others wait for its flag
+  if (threadIdx.x < a.G) {
+    const float u = part[0][threadIdx.x];
+    const float m2 = RES ? part[1][threadIdx.x] : fmaxf(part[1][threadIdx.x] - u * u / nk, 0.f);
+    s.part[((size_t)b * s.S + k) * a.G + threadIdx.x] = make_float2(u, m2);
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(&s.ctr[1 + b], 1u) == (unsigned)(s.S - 1);
+  }
+  __syncthreads();
+  unsigned* flag = &s.ctr[1 + s.B + b];
+  if (last) {
+    __threadfence();
+    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+    const float n = (float)a.HW * (float)t.cg;
+    for (int g = threadIdx.x >> 5; g < a.G; g += nw) {
+      // lane l takes runs l, l + 32, ...: kMerge loads in flight at once
+      const float2* pg = s.part + (size_t)b * s.S * a.G + g;
+      float u = 0.f;
+      for (int q0 = lane; q0 < s.S; q0 += 32 * kMerge) {
+        float w[kMerge];
+#pragma unroll
+        for (int i = 0; i < kMerge; ++i) {
+          const int q = q0 + 32 * i;
+          w[i] = q < s.S ? __ldcg(pg + (size_t)q * a.G).x : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < kMerge; ++i) u += w[i];
+      }
+      const float mean = warp_sum(u) / n;
+      float m2 = 0.f;
+      for (int q0 = lane; q0 < s.S; q0 += 32 * kMerge) {
+        float2 w[kMerge];
+#pragma unroll
+        for (int i = 0; i < kMerge; ++i) {
+          const int q = q0 + 32 * i;
+          w[i] = q < s.S ? __ldcg(pg + (size_t)q * a.G) : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int i = 0; i < kMerge; ++i) {
+          const int q = q0 + 32 * i;
+          if (q < s.S) {
+            const float nq = (float)(min(a.HW, (q + 1) * a.P) - q * a.P) * (float)t.cg;
+            const float d = w[i].x / nq - mean;
+            m2 += w[i].y + nq * d * d;
+          }
+        }
+      }
+      m2 = warp_sum(m2);
+      if (lane == 0) {
+        const float sh = RES ? 0.f : to_f32(a.x[img + (size_t)g * t.cg]);
+        const float2 st = make_float2(sh + mean, rsqrtf(m2 / n + a.eps));
+        a.stats[(size_t)b * a.G + g] = st;
+        mean_s[g] = st.x;
+        rstd_s[g] = st.y;
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) st_release(flag, 1u);
+  } else {
+    if (threadIdx.x == 0) {  // one poller a block, so that the flag's line stays quiet
+      while (ld_acquire(flag) == 0u) __nanosleep(256);
+      for (int g = 0; g < a.G; ++g) {
+        const float2 st = __ldcg(&a.stats[(size_t)b * a.G + g]);
+        mean_s[g] = st.x;
+        rstd_s[g] = st.y;
+      }
+    }
+    __syncthreads();
+  }
+
+  // 3: normalise, affine, SiLU; one rounding
+  if (t.active && t.r < t.np) {
+    const float m = mean_s[t.grp], rs = rstd_s[t.grp];
+    float sc[V], bi[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      sc[e] = a.scale[t.j * V + e] * rs;
+      bi[e] = a.bias[t.j * V + e];
+    }
+    // RES: in place in shared memory; else from device memory backwards,
+    // kUnroll rows a thread in flight at once
+    const int first = RES ? t.r : t.r + (t.np - 1 - t.r) / t.nrow * t.nrow;
+    const int step = RES ? t.nrow : -t.nrow;
+    const int rows = (t.np - 1 - t.r) / t.nrow + 1;
+    int k0 = 0;
+    if constexpr (!RES)
+      for (; k0 + kUnroll <= rows; k0 += kUnroll) {
+        float v[kUnroll][V];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          loadv<V>(src + (size_t)(first + (k0 + u) * step) * a.C + t.j * V, v[u]);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const float z = (v[u][e] - m) * sc[e] + bi[e];
+            v[u][e] = z * sigmoid<T>(z);
+          }
+          storev<V>(dst + (size_t)(first + (k0 + u) * step) * a.C + t.j * V, v[u]);
+        }
+      }
+    for (int k = k0; k < rows; ++k) {
+      const size_t i = (size_t)(first + k * step) * a.C + t.j * V;
+      float v[V];
+      loadv<V>(src + i, v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float z = (v[e] - m) * sc[e] + bi[e];
+        v[e] = z * sigmoid<T>(z);
+      }
+      storev<V>(dst + i, v);
+    }
+  }
+  if constexpr (RES) {
+    fence_to_async();
+    __syncthreads();
+    if (threadIdx.x == 0) bulk_store(a.y + off, dyn, (uint32_t)((size_t)t.np * row_bytes));
+  }
+}
+
 // ---- backward ----
 
 template <typename T>
@@ -421,7 +673,7 @@ __global__ void __launch_bounds__(kBwdThreads) gn_silu_bwd_kernel(const BwdArgs<
   __shared__ float ac[2][kMaxGroups];
   __shared__ uint64_t bars[kMaxChunks];
   const int b = blockIdx.y;
-  const Tile t(a.HW, a.C, a.G, a.P, V);
+  const Tile t(a.HW, a.C, a.G, a.P, V, blockIdx.x);
   const size_t off = ((size_t)b * a.HW + t.p0) * a.C;
   const int row_bytes = a.C * (int)sizeof(T);
   const uint32_t bytes = (uint32_t)((size_t)t.np * row_bytes);
@@ -615,8 +867,11 @@ int launch_cluster(const Args& args, int B, const Plan& p, cudaStream_t st) {
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// gn_silu_dropout and the attention block's GroupNorm (gn_silu takes
+// gn_silu_v): the cluster plan, resident or not.
 template <typename T, int V, bool SILU, bool DROP>
 int forward_v(const FwdArgs<T>& a, int B, cudaStream_t st) {
+  static_assert(DROP || !SILU, "gn_silu's forward is gn_silu_v");
   const bool can_res = V * sizeof(T) == 16 && aligned16(a.x) && aligned16(a.y);
   const Plan p = plan(a.HW, a.C, sizeof(T), 1, can_res, kFwdThreads, [](int) { return 0; });
   FwdArgs<T> args = a;
@@ -624,17 +879,148 @@ int forward_v(const FwdArgs<T>& a, int B, cudaStream_t st) {
   if (p.res) {
     if constexpr (DROP)
       return launch_cluster<gn_silu_dropout_fwd_kernel<T, V, true>>(args, B, p, st);
-    else if constexpr (SILU)
-      return launch_cluster<gn_silu_fwd_kernel<T, V, true>>(args, B, p, st);
     else
       return launch_cluster<gn_norm_fwd_kernel<T, V, true>>(args, B, p, st);
   }
   if constexpr (DROP)
     return launch_cluster<gn_silu_dropout_fwd_kernel<T, V, false>>(args, B, p, st);
-  else if constexpr (SILU)
-    return launch_cluster<gn_silu_fwd_kernel<T, V, false>>(args, B, p, st);
   else
     return launch_cluster<gn_norm_fwd_kernel<T, V, false>>(args, B, p, st);
+}
+
+// The streamed plan (gn_silu_streamed_kernel): runs of P pixels, S an image,
+// every image's S blocks resident on the card at once. Resident runs where
+// they fit: about total / (4 x the SMs), 16 to 64 KB, so that the card holds
+// several blocks an SM; doubled (fewer blocks) until S fits the card's
+// resident blocks. Else runs read from device memory, 512 threads a block,
+// S the card's resident blocks (runs of at least 16 KB).
+struct StreamPlan {
+  int S, P, threads;
+  bool res;
+  size_t smem;
+};
+
+// Blocks of Kernel an SM holds at (threads, smem); 0 if none or on error.
+template <auto Kernel>
+int blocks_per_sm(int threads, size_t smem) {
+  if (smem + 8192 > 48 * 1024 &&
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+          cudaSuccess)
+    return 0;
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, Kernel, threads, smem) == cudaSuccess
+             ? n
+             : 0;
+}
+
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <typename T, int V>
+int stream_plan_uncached(int B, int HW, int C, bool can_res, StreamPlan& sp) {
+  const size_t sms = (size_t)sm_count(), row = (size_t)C * sizeof(T);
+  if (sms == 0) return (int)cudaErrorInvalidDevice;
+  if (can_res) {
+    const size_t total = (size_t)B * HW * row;
+    for (size_t run = std::min<size_t>(kShareTarget, std::max<size_t>(16384, total / (4 * sms)));;
+         run *= 2) {
+      const int P0 = (int)std::min<size_t>(HW, std::max<size_t>(1, run / row));
+      const int S = (HW + P0 - 1) / P0, P = (HW + S - 1) / S;
+      const size_t bytes = (size_t)P * row;
+      if (bytes > (size_t)kSmemLimit) break;
+      const int threads = (int)std::min<size_t>(kFwdThreads, 256 * ((bytes + 65535) / 65536));
+      const size_t fit = sms * blocks_per_sm<gn_silu_streamed_kernel<T, V, true>>(threads, bytes);
+      if ((size_t)S <= fit) {
+        sp = StreamPlan{S, P, threads, true, bytes};
+        return 0;
+      }
+      if (P == HW) break;
+    }
+  }
+  const size_t fit = sms * blocks_per_sm<gn_silu_streamed_kernel<T, V, false>>(512, 0);
+  if (fit == 0) return (int)cudaErrorInvalidConfiguration;
+  const size_t runs = std::max<size_t>(1, (size_t)HW * row / 16384);
+  const int S0 = (int)std::min<size_t>({fit, runs, (size_t)HW});
+  const int P = (HW + S0 - 1) / S0;
+  sp = StreamPlan{(HW + P - 1) / P, P, 512, false, 0};
+  return 0;
+}
+
+// stream_plan_uncached, remembered by its arguments and the device (the
+// occupancy queries cost more host time than a small slab's kernel).
+template <typename T, int V>
+int stream_plan(int B, int HW, int C, bool can_res, StreamPlan& sp) {
+  static std::mutex lock;
+  static std::map<std::tuple<int, int, int, int, bool>, StreamPlan> plans;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return (int)cudaErrorInvalidDevice;
+  const auto key = std::make_tuple(dev, B, HW, C, can_res);
+  {
+    std::lock_guard<std::mutex> guard(lock);
+    const auto hit = plans.find(key);
+    if (hit != plans.end()) {
+      sp = hit->second;
+      return 0;
+    }
+  }
+  const int e = stream_plan_uncached<T, V>(B, HW, C, can_res, sp);
+  if (e == 0) {
+    std::lock_guard<std::mutex> guard(lock);
+    plans.emplace(key, sp);
+  }
+  return e;
+}
+
+// The streamed plan's workspace: the zeroed counters, then part.
+inline size_t stream_counters(int B) { return ((size_t)(1 + 2 * B) * 4 + 15) / 16 * 16; }
+inline size_t stream_workspace(int B, int G, int S) {
+  return stream_counters(B) + (size_t)B * S * G * 8;
+}
+
+// gn_silu's forward: the cluster plan where an image's slab is resident in
+// one cluster (*need = 0), else the streamed plan, whose workspace takes
+// *need bytes: launched where `work` holds them, else nothing is launched.
+template <typename T, int V>
+int gn_silu_v(const FwdArgs<T>& a, int B, void* work, long long work_bytes, long long* need,
+              cudaStream_t st) {
+  const bool can_res = V * sizeof(T) == 16 && aligned16(a.x) && aligned16(a.y);
+  const Plan p = plan(a.HW, a.C, sizeof(T), 1, can_res, kFwdThreads, [](int) { return 0; });
+  FwdArgs<T> args = a;
+  if (p.res) {
+    *need = 0;
+    args.P = p.P;
+    return launch_cluster<gn_silu_fwd_kernel<T, V, true>>(args, B, p, st);
+  }
+  StreamPlan sp;
+  const int e = stream_plan<T, V>(B, a.HW, a.C, can_res, sp);
+  if (e) return e;
+  const size_t bytes = stream_workspace(B, a.G, sp.S);
+  *need = (long long)bytes;
+  if (work == nullptr || work_bytes < (long long)bytes) return 0;
+  if (!aligned16(work) || a.stats == nullptr) return (int)cudaErrorInvalidValue;
+  unsigned char* w = static_cast<unsigned char*>(work);
+  const size_t ctr = stream_counters(B);
+  const Stream s{reinterpret_cast<unsigned*>(w), reinterpret_cast<float2*>(w + ctr), sp.S, B};
+  args.P = sp.P;
+  cudaError_t r = cudaMemsetAsync(w, 0, ctr, st);
+  if (r != cudaSuccess) return (int)r;
+  const dim3 grid((unsigned)((size_t)B * sp.S));
+  if (sp.res) {
+    if (sp.smem + 8192 > 48 * 1024) {
+      r = cudaFuncSetAttribute(gn_silu_streamed_kernel<T, V, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sp.smem);
+      if (r != cudaSuccess) return (int)r;
+    }
+    gn_silu_streamed_kernel<T, V, true><<<grid, sp.threads, sp.smem, st>>>(args, s);
+  } else {
+    gn_silu_streamed_kernel<T, V, false><<<grid, sp.threads, 0, st>>>(args, s);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int V, bool DROP>
@@ -665,6 +1051,15 @@ int forward(const FwdArgs<T>& a, int B, cudaStream_t st) {
   return forward_v<T, V, SILU, DROP>(a, B, st);
 }
 
+template <typename T, int V>
+int gn_silu_forward(const FwdArgs<T>& a, int B, void* work, long long work_bytes, long long* need,
+                    cudaStream_t st) {
+  if constexpr (V > 1) {
+    if ((a.C / a.G) % V) return gn_silu_forward<T, V / 2>(a, B, work, work_bytes, need, st);
+  }
+  return gn_silu_v<T, V>(a, B, work, work_bytes, need, st);
+}
+
 template <typename T, int V, bool DROP>
 int backward(const BwdArgs<T>& a, float* dscale, float* dbias, int B, cudaStream_t st) {
   if constexpr (V > 1) {
@@ -690,6 +1085,24 @@ int forward_dtype(const void* x, const void* scale, const void* bias, void* stat
   const FwdArgs<float> a{static_cast<const float*>(x), sc, bi, s2, static_cast<float*>(y),
                          HW, C, G, 0, eps, drop};
   return forward<float, 4, SILU, DROP>(a, B, st);
+}
+
+// gn_silu's forward (gn_silu_v) in `dtype`.
+inline int gn_silu_dtype(const void* x, const void* scale, const void* bias, void* stats, void* y,
+                         void* work, long long work_bytes, long long* need, int B, int HW, int C,
+                         int G, float eps, int dtype, cudaStream_t st) {
+  if (C % G || G > kMaxGroups || B < 1 || B > 65535 || HW < 1) return (int)cudaErrorInvalidValue;
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  float2* s2 = static_cast<float2*>(stats);
+  if (dtype == RFV_DTYPE_BF16) {
+    const FwdArgs<bf16> a{static_cast<const bf16*>(x), sc, bi, s2, static_cast<bf16*>(y),
+                          HW, C, G, 0, eps, Dropout{}};
+    return gn_silu_forward<bf16, 8>(a, B, work, work_bytes, need, st);
+  }
+  const FwdArgs<float> a{static_cast<const float*>(x), sc, bi, s2, static_cast<float*>(y),
+                         HW, C, G, 0, eps, Dropout{}};
+  return gn_silu_forward<float, 4>(a, B, work, work_bytes, need, st);
 }
 
 }  // namespace rfv_gn

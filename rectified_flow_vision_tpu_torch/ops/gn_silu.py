@@ -7,7 +7,10 @@ JAX package takes for its backward (``ops/fused.py`` ``_gn_silu_bwd``). Both
 kernels (``csrc/gn_silu.cu``) are bound by bytes on the H100 and move each
 byte once: the forward reads x and writes y, the backward reads x and the
 cotangent and writes dx. One thread-block cluster holds an image's slab in
-shared memory; the design notes are in the source.
+shared memory; a forward slab too large for one cluster (the ConvVAE's)
+takes the streamed plan, the image spread over the whole card with its
+statistics merged through device memory. The design notes are in the
+source.
 
 The forward saves each (image, group)'s mean and 1/sigma, fp32 ``[B, G, 2]``
 (``gn_stats_plain``), for the backward, whose formulas
@@ -19,6 +22,7 @@ tensor the kernel.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -111,17 +115,29 @@ def gn_silu_cuda(
     x: Tensor, scale: Tensor, bias: Tensor, *, num_groups: int = 8, eps: float = 1e-5,
 ) -> Tuple[Tensor, Tensor]:
     """Launch the forward kernel. x: (B, H, W, C) bf16/fp32; scale, bias: (C,)
-    fp32. Returns (y, stats), stats the saved ``[B, G, 2]``."""
+    fp32. Returns (y, stats), stats the saved ``[B, G, 2]``. The kernel's
+    plan decides between one cluster an image and the streamed plan, whose
+    workspace (counters and per-run sums) is allocated here."""
     check_args("gn_silu", x, scale, bias, num_groups)
     b, h, w, c = x.shape
+    lib = build.library()
     stats = torch.empty((b, num_groups, 2), device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
-    rc = build.library().rfv_gn_silu(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), stats.data_ptr(), out.data_ptr(),
-        b, h * w, c, num_groups, eps, build.DTYPE_CODES[x.dtype], build.stream_ptr(x),
-    )
-    build.check(rc, "gn_silu")
-    build.LAUNCHES["gn_silu"] += 1
+    need = ctypes.c_longlong(0)
+
+    def launch(work: Optional[Tensor]) -> None:
+        rc = lib.rfv_gn_silu(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), stats.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), 0 if work is None else work.numel(),
+            ctypes.byref(need), b, h * w, c, num_groups, eps, build.DTYPE_CODES[x.dtype],
+            build.stream_ptr(x),
+        )
+        build.check(rc, "gn_silu")
+
+    launch(None)  # the cluster plan launches; the streamed plan names its workspace
+    if need.value:
+        launch(torch.empty((need.value,), device=x.device, dtype=torch.uint8))
+    build.LAUNCHES["gn_silu_streamed" if need.value else "gn_silu"] += 1
     return out, stats
 
 

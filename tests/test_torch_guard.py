@@ -81,7 +81,8 @@ def test_kernel_sources_are_listed():
     assert {"gn_silu_dropout.cu", "flash_attention.cu", "dropout.cu"} <= set(build.SOURCES)
     # every kernel has a launch counter and every C entry point a signature
     assert set(build.LAUNCHES) == {
-        "gn_silu", "conv3x3", "attention_block", "gn_silu_dropout", "gn_silu_backward",
+        "gn_silu", "gn_silu_streamed", "conv3x3", "attention_block", "gn_silu_dropout",
+        "gn_silu_backward",
         "dropout_mask_apply",
         "flash_attention", "flash_attention_backward", "dropout",
         "ln_modulate", "bias_act", "gated_residual", "qk_norm_rope",

@@ -75,6 +75,19 @@ GN_SHAPES = [
 ]
 
 
+def _gn_route(x, groups=8):
+    """The launch counter of gn_silu's plan for x: the cluster plan takes
+    16-byte vectors within a group and an eighth of a slab in one block's
+    shared memory, the streamed plan the rest."""
+    h, w, c = x.shape[1:]
+    es = x.element_size()
+    vec = 16 // es
+    while (c // groups) % vec:
+        vec //= 2
+    fits = vec * es == 16 and -(-h * w // 8) * c * es <= 232448 - 8192
+    return "gn_silu" if fits else "gn_silu_streamed"
+
+
 def _gn_args(dev, shape, seed):
     g = _gen(dev, seed)
     x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.3)
@@ -92,14 +105,66 @@ def test_gn_silu(dev, dtype, shape):
     against the plain two-pass ones."""
     x, s, b, _ = _gn_args(dev, shape, 0)
     x = x.to(dtype)
-    before = build.LAUNCHES["gn_silu"]
+    route = _gn_route(x)
+    before = build.LAUNCHES[route]
     out = fused.gn_silu(x, s, b)
-    assert build.LAUNCHES["gn_silu"] == before + 1
+    assert build.LAUNCHES[route] == before + 1
     torch.testing.assert_close(out.float(), G.gn_silu_plain(x, s, b).float(),
                                **_tol(dtype, fp32=1e-4))
     again, stats = G.gn_silu_cuda(x, s, b)
     assert torch.equal(again, out)
     torch.testing.assert_close(stats, G.gn_stats_plain(x), rtol=1e-5, atol=1e-5)
+
+
+# slabs past one cluster, on gn_silu's streamed plan: the ConvVAE decode's at
+# the DiT serve batch (64), FLUX's decode at batch 1 (1024^2 and 512^2 x 64:
+# runs read from device memory; 256^2 x 128: resident runs), pixel counts
+# that do not divide evenly among the blocks, 3 channels a group (runs read
+# from device memory, scalar vectors)
+GN_STREAMED_SHAPES = [
+    (64, 64, 64, 256), (64, 128, 128, 128), (64, 256, 256, 64),
+    (1, 1024, 1024, 64), (1, 512, 512, 64), (1, 256, 256, 128),
+    (3, 97, 101, 128), (2, 333, 71, 64), (1, 200, 190, 24),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", GN_STREAMED_SHAPES)
+def test_gn_silu_streamed(dev, dtype, shape):
+    """The streamed plan against the plain version, its saved statistics
+    against the plain two-pass ones, and the same bits on a second call."""
+    x, s, b = _gn_args(dev, shape, 1)[:3]
+    x = x.to(dtype)
+    assert _gn_route(x) == "gn_silu_streamed"
+    before = dict(build.LAUNCHES)
+    out, stats = G.gn_silu_cuda(x, s, b)
+    assert build.LAUNCHES["gn_silu_streamed"] == before["gn_silu_streamed"] + 1
+    assert build.LAUNCHES["gn_silu"] == before["gn_silu"]
+    torch.testing.assert_close(out.float(), G.gn_silu_plain(x, s, b).float(),
+                               **_tol(dtype, fp32=1e-4))
+    torch.testing.assert_close(stats, G.gn_stats_plain(x), rtol=1e-5, atol=1e-5)
+    again, stats2 = G.gn_silu_cuda(x, s, b)
+    assert torch.equal(again, out) and torch.equal(stats2, stats)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gn_silu_streamed_backward(dev, dtype):
+    """fused.gn_silu at a slab on the streamed plan under autograd: the
+    backward kernel from the streamed plan's saved statistics against
+    ordinary autograd of the plain version."""
+    x, s, b, cot = _gn_args(dev, (2, 128, 128, 128), 2)
+    x = x.to(dtype)
+    cot = (G.gn_silu_plain(x, s, b).float() + cot).to(dtype)
+    assert _gn_route(x) == "gn_silu_streamed"
+    before = dict(build.LAUNCHES)
+    out_k, grads_k = _grads(fused.gn_silu, (x, s, b), cot)
+    out_p, grads_p = _grads(G.gn_silu_plain, (x, s, b), cot)
+    assert build.LAUNCHES["gn_silu_streamed"] == before["gn_silu_streamed"] + 1
+    assert build.LAUNCHES["gn_silu_backward"] == before["gn_silu_backward"] + 1
+    for got, want in zip(grads_k, grads_p):
+        scale = float(want.float().abs().max())
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        assert float((got.float() - want.float()).abs().max()) <= tol * max(scale, 1.0)
 
 
 def _assert_scaled(got, want, tol):
@@ -395,7 +460,8 @@ def test_train_forward_and_backward_launch_counts(dev):
     loss.backward()
     # 6 residual blocks: norm1 (+ the head) gn_silu, norm2 gn_silu_dropout;
     # conv1, conv2 and one upsample conv; one mid attention
-    assert build.LAUNCHES == {"gn_silu": 7, "gn_silu_dropout": 6, "gn_silu_backward": 13,
+    assert build.LAUNCHES == {"gn_silu": 7, "gn_silu_streamed": 0, "gn_silu_dropout": 6,
+                              "gn_silu_backward": 13,
                               "dropout_mask_apply": 0, "conv3x3": 13, "attention_block": 1,
                               "flash_attention": 0, "flash_attention_backward": 0, "dropout": 0,
                               "ln_modulate": 0, "bias_act": 0, "gated_residual": 0,
@@ -453,14 +519,81 @@ def test_small_unet_on_the_card_matches_the_cpu(dev, dtype):
     with torch.no_grad():
         want = cpu(x, t, dtype=dt).float()
         got = gpu(x.to(dev), t.to(dev), dtype=dt).float().cpu()
-    # 4 residual blocks x 2 + the head; 16 channels are outside conv3x3's contract
-    assert build.LAUNCHES == {"gn_silu": 9, "conv3x3": 0, "attention_block": 1,
+    # 4 residual blocks x 2 + the head, on the streamed plan where a group's
+    # channels hold no 16-byte vector (2 channels; the up block's 32-channel
+    # input, 4 a group, holds one in fp32); 16 channels are outside conv3x3's
+    # contract
+    streamed = 8 if dtype == "float32" else 9
+    assert build.LAUNCHES == {"gn_silu": 9 - streamed, "gn_silu_streamed": streamed,
+                              "conv3x3": 0, "attention_block": 1,
                               "gn_silu_dropout": 0, "gn_silu_backward": 0, "dropout_mask_apply": 0,
                               "flash_attention": 0, "flash_attention_backward": 0, "dropout": 0,
                               "ln_modulate": 0, "bias_act": 0, "gated_residual": 0,
                               "qk_norm_rope": 0}
     tol = 1e-3 if dtype == "float32" else 0.03 * float(want.abs().max())
     assert float((got - want).abs().max()) <= tol
+
+
+def _vae_pair(dev, seed, **cfg):
+    """A ConvVAE on the CPU and a copy on the card, its GroupNorm parameters
+    moved off ones and zeros."""
+    from rectified_flow_vision_tpu_torch.models import ConvVAE
+
+    cpu = ConvVAE(seed=seed, device="cpu", **cfg)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, torch.nn.GroupNorm):
+                m.weight.copy_(1 + 0.2 * torch.randn(m.weight.shape, generator=g))
+                m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=g))
+    gpu = ConvVAE(seed=seed, device=dev, **cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def test_dit_decode_on_the_card_matches_the_cpu(dev):
+    """The DiT serve cell's ConvVAE decode (base 64, 64x64x4 latents to
+    256x256x3) in bf16: three GroupNorm + SiLU slabs on the streamed plan and
+    two convs on conv3x3, against the CPU's bf16 decode (each rounds to bf16
+    at other points: within 2% rms of the image, 0.1 at any pixel)."""
+    cpu, gpu = _vae_pair(dev, 4, image_size=256, base_channels=64)
+    z = torch.randn((3, 64, 64, 4), generator=torch.Generator().manual_seed(5))
+    build.reset_launches()
+    with torch.no_grad():
+        want = cpu.decode(z, dtype=torch.bfloat16).float()
+        got = gpu.decode(z.to(dev), dtype=torch.bfloat16).float().cpu()
+    assert build.LAUNCHES["gn_silu_streamed"] == 3 and build.LAUNCHES["gn_silu"] == 0
+    assert build.LAUNCHES["conv3x3"] == 2
+    assert got.shape == want.shape == (3, 256, 256, 3)
+    assert float((got - want).norm() / want.norm()) <= 2e-2
+    assert float((got - want).abs().max()) <= 0.1
+
+
+def test_vae_train_step_gradients_on_the_card_match_the_cpu(dev):
+    """One fp32 loss and backward of a ConvVAE at 128x128 (base 64): its
+    GroupNorms forward on both plans (128^2 x 64 and 64^2 x 128 streamed,
+    32^2 x 256 on one cluster) with the backward kernel, the decoder's two
+    conv3x3 sites, against the CPU from the same noise: the loss within
+    1e-4, every gradient within 2e-3 of its parameter's largest entry."""
+    from rectified_flow_vision_tpu_torch.models.autoencoder import vae_loss
+
+    cpu, gpu = _vae_pair(dev, 6, image_size=128, base_channels=64)
+    g = torch.Generator().manual_seed(7)
+    x = torch.tanh(torch.randn((2, 128, 128, 3), generator=g))
+    eps = torch.randn((2, 32, 32, 4), generator=g)
+    want, _ = vae_loss(cpu, x, 1e-4, eps=eps)
+    want.backward()
+    build.reset_launches()
+    got, _ = vae_loss(gpu, x.to(dev), 1e-4, eps=eps.to(dev))
+    got.backward()
+    torch.cuda.synchronize()
+    assert {k: build.LAUNCHES[k] for k in ("gn_silu", "gn_silu_streamed", "gn_silu_backward",
+                                           "conv3x3")} == {"gn_silu": 2, "gn_silu_streamed": 4,
+                                                           "gn_silu_backward": 6, "conv3x3": 2}
+    assert abs(float(got) - float(want)) <= 1e-4
+    for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        scale = float(p.grad.abs().max())
+        assert float((q.grad.cpu() - p.grad).abs().max()) <= 2e-3 * scale + 1e-6, name
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

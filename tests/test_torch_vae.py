@@ -22,6 +22,9 @@ from rectified_flow_vision_tpu.models import autoencoder as JAE
 from rectified_flow_vision_tpu_torch.models import BaseFlowModel
 from rectified_flow_vision_tpu_torch.models import autoencoder as TAE
 from rectified_flow_vision_tpu_torch.ops import build
+from rectified_flow_vision_tpu_torch.ops import conv3x3 as C
+from rectified_flow_vision_tpu_torch.ops import fused
+from rectified_flow_vision_tpu_torch.ops import primitives as P
 from rectified_flow_vision_tpu_torch.serving import SamplerService
 from rectified_flow_vision_tpu_torch.utils import pt_import as TPT
 
@@ -112,6 +115,95 @@ class TestForward:
         assert tvae.config == jvae.config and tvae.latent_size == jvae.latent_size == 8
         with pytest.raises(ValueError, match="power of 2"):
             TAE.ConvVAE(downsample=3, device="cpu")
+
+
+def _decode_primitives(vae, z, dtype=None):
+    """The decode as plain primitives (``P.silu(P.group_norm(...))`` and
+    ``P.conv2d`` on the torch-layout weights), rounded through ``dtype`` as
+    the serving decode rounds its parameters: the composition the port's
+    decode replaced with the fused entry points."""
+    dt = dtype or z.dtype
+    d = vae.dec
+
+    def conv(h, m):
+        return P.conv2d(h, m.weight.to(dt), m.bias.to(dt).float(), stride=m.stride[0])
+
+    def gn_silu(h, m):
+        return P.silu(P.group_norm(h, m.weight.to(dt).float(), m.bias.to(dt).float(),
+                                   num_groups=m.num_groups))
+
+    h = conv(z.to(dt) / vae.scaling_factor, d["in"])
+    for lv in range(vae.num_levels):
+        h = P.upsample_nearest_2x(gn_silu(h, d[f"up{lv}"].norm))
+        h = conv(h, d[f"up{lv}"].conv)
+    return conv(gn_silu(h, d["out_norm"]), d["out"])
+
+
+class TestKernelSites:
+    """Every GroupNorm + SiLU of the ConvVAE goes through ``fused.gn_silu``
+    and every conv through ``fused.conv2d_fused`` (so that a CUDA tensor
+    takes the port's kernels), and on the CPU those are the old plain
+    composition bit for bit."""
+
+    @pytest.mark.parametrize("downsample", [4, 8])
+    @pytest.mark.parametrize("part", ["decode", "encode"])
+    def test_each_site_reaches_the_fused_entry_points(self, monkeypatch, part, downsample):
+        calls = {"gn_silu": [], "conv2d_fused": []}
+
+        def spy(name):
+            real = getattr(fused, name)
+
+            def inner(x, *args, **kw):
+                calls[name].append((tuple(x.shape), kw.get("stride", 1)))
+                return real(x, *args, **kw)
+            return inner
+
+        for name in calls:
+            monkeypatch.setattr(fused, name, spy(name))
+        vae = TAE.ConvVAE(image_size=32, base_channels=16, downsample=downsample, device="cpu")
+        levels = vae.num_levels
+        with torch.no_grad():
+            if part == "decode":
+                side = 32 // downsample
+                vae.decode(torch.randn((2, side, side, 4)), dtype=torch.bfloat16)
+            else:
+                vae._encode_raw(torch.from_numpy(_images(2)))
+        assert len(calls["gn_silu"]) == levels + 1
+        assert len(calls["conv2d_fused"]) == levels + 2
+        strides = [s for _, s in calls["conv2d_fused"]]
+        assert strides == ([1] * (levels + 2) if part == "decode" else [1] + [2] * levels + [1])
+
+    def test_the_dit_decode_widths_take_the_conv3x3_sites(self, monkeypatch):
+        """At base 64 (the DiT cell's widths) the decode's two stride-1 convs
+        256 -> 128 and 128 -> 64 are conv3x3 sites; the input conv (4
+        channels in), the output conv (3 out) and the encoder's stride-2
+        convs stay plain."""
+        sites = []
+        real = C.conv3x3_plain
+        monkeypatch.setattr(C, "conv3x3_plain", lambda x, w, b: sites.append(
+            (tuple(x.shape[1:]), w.shape[0])) or real(x, w, b))
+        vae = TAE.ConvVAE(image_size=32, base_channels=64, device="cpu")
+        with torch.no_grad():
+            vae.decode(torch.randn((1, 8, 8, 4)), dtype=torch.bfloat16)
+            assert sites == [((16, 16, 256), 128), ((32, 32, 128), 64)]
+            vae._encode_raw(torch.from_numpy(_images(1)))
+        assert len(sites) == 2
+
+    @pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["float32", "bfloat16"])
+    @pytest.mark.parametrize("base", [16, 64])
+    def test_cpu_decode_is_the_plain_composition_bit_for_bit(self, dtype, base):
+        vae = TAE.ConvVAE(image_size=32, base_channels=base, scaling_factor=1.7, device="cpu",
+                          seed=3)
+        with torch.no_grad():
+            for m in vae.modules():  # GroupNorm parameters away from ones and zeros
+                if isinstance(m, torch.nn.GroupNorm):
+                    m.weight.normal_(1.0, 0.2, generator=torch.Generator().manual_seed(5))
+                    m.bias.normal_(0.0, 0.2, generator=torch.Generator().manual_seed(6))
+            z = torch.randn((2, 8, 8, 4), generator=torch.Generator().manual_seed(7))
+            got = vae.decode(z, dtype=dtype)
+            want = _decode_primitives(vae, z, dtype)
+        assert got.dtype == want.dtype == (dtype or torch.float32)
+        assert torch.equal(got, want)
 
 
 def _compare_params(got_tree, want_tree, atol, lr, steps):
